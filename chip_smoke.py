@@ -26,13 +26,38 @@ Phases; each raises on failure, so any failure exits non-zero:
    within f32 rtol 1e-5 of the deadline, pocd within rtol 1e-5 (plus 1/J
    per such job) and mean_cost within rtol 1e-4;
 5. one torch.profiler pass over run_all reps=1: device busy time, idle
-   share and the top device ops.
+   share and the top device ops;
+6. the quickstart path (examples/quickstart.py step for step, through the
+   port, on the card): JobSpec.make, the closed forms at r = 0..3,
+   solve_grid and solve_algorithm1 (equal r*), gamma, the Theorem 7
+   orderings, and the Monte-Carlo cross-check of clone and sresume with
+   pocd_mc at (J, N, R) = (4096, 10, 4), clone within 0.02 of Theorem 1;
+   then the full-width cross-check: the trace job whose task count is
+   nearest the trace's mean (338), r* per mode by solve_grid, and one
+   pocd_mc_all launch over 65,536 replications x N x R (R = max r* + 2,
+   at least 4), clone within 0.01 of Theorem 1. The launch counts are set
+   to 0 before the phase and must read pocd_mc 2, pocd_mc_all 1 and
+   grid_solve 6 after it. A second, warm run gives each step's wall time,
+   and a third, profiled run the device busy time and idle share;
+7. hold pocd_mc (each mode) and pocd_mc_all against their plain versions
+   on the card at the reference test shapes (256, 16, 6), (128, 64, 4),
+   (384, 8, 8), (200, 8, 4), (129, 8, 4), the benchmark shape
+   (1024, 32, 6), the quickstart shape (4096, 10, 4) and the full width,
+   each with r in [0, R-1) and with r >= R-1: met equal except jobs with
+   a task within f32 rtol 1e-5 of D (counted), cost within rtol 2e-5,
+   row m of pocd_mc_all equal to pocd_mc of mode m. Per shape and kernel:
+   device time per launch (torch.profiler), wrapper call and plain times
+   (CUDA events) and the bound;
+8. time the path's own launches (phase 6's inputs) for the kernels line.
 
 The last lines are the kernels JSON, the card line and the result JSON.
 The script needs one CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
 
+import contextlib
+import importlib
+import io
 import json
 import subprocess
 import sys
@@ -46,11 +71,17 @@ import torch  # noqa: E402
 
 from repro_torch import Philox, SimParams, generate, names, run_all  # noqa: E402
 from repro_torch import run_strategy  # noqa: E402
+from repro_torch.core import (JobSpec, cost_of, gamma, pocd_of,  # noqa: E402
+                              solve_algorithm1, solve_grid, theory, utility)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import grid_solve as gs  # noqa: E402
 from repro_torch.sim.runner import jobspecs_of  # noqa: E402
 from repro_torch.sim.trace import jobset_to  # noqa: E402
 from repro_torch.strategies import get  # noqa: E402
+
+# the module of the Monte-Carlo kernels (its launch counts); the package
+# attribute `repro_torch.kernels.pocd_mc` is the wrapper function
+pm = importlib.import_module("repro_torch.kernels.pocd_mc")
 
 # H100 SXM data sheet, at the full 700 W: HBM rate and the f32 rate outside
 # the tensor cores
@@ -63,6 +94,27 @@ F32_OPS_PER_S = 67e12
 # bound on the work. S-Restart's count is 44 + 1539 for the quadrature
 # (12 per node at 128 nodes, plus 3).
 OPS_PER_POINT = {"clone": 30, "srestart": 1611, "sresume": 72}
+
+# f32 operations of csrc/pocd_mc.cu, counted from the source as above:
+# forming one attempt time (logf, negate, divide, expf, multiply); per
+# extra slot a mode folds in (clone: compare, min; srestart: compare, min;
+# sresume: multiply, max, compare, min); per task and mode (the clone and
+# reactive bills, the deadline compare, the AND and the sum), plus one
+# straggler compare per task
+OPS_PER_ATTEMPT = 5
+OPS_PER_SLOT = {"clone": 2, "srestart": 2, "sresume": 4}
+OPS_PER_TASK = {"clone": 5, "srestart": 13, "sresume": 9}
+MODE_BITS = {"clone": 1, "srestart": 2, "sresume": 4}
+
+# (J, N, R): tests/test_kernels.py's shapes, benchmarks/perf.py's and
+# examples/quickstart.py's; the full width is added at run time
+MC_SHAPES = ((256, 16, 6), (128, 64, 4), (384, 8, 8), (200, 8, 4),
+             (129, 8, 4), (1024, 32, 6), (4096, 10, 4))
+MC_COST_RTOL = 2e-5          # the reference's own kernel tolerance
+QUICKSTART = dict(t_min=10.0, beta=2.0, D=50.0, N=10, tau_est=3.0,
+                  tau_kill=8.0, phi_est=0.25, C=1.0, theta=1e-3, R_min=0.0)
+QS_SHAPE = (4096, 10, 4)
+FULL_REPS = 65536
 
 TOL = {"u": (1e-4, 1e-5), "pocd": (1e-5, 1e-7), "cost": (1e-4, 1e-5)}
 CHECK_SHAPES = ((37, 9), (64, 33), (2700, 9), (65536, 64))
@@ -94,24 +146,32 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def kernel_ms(fn, iters: int, name: str) -> float:
-    """Mean device time per launch of the kernels whose name holds `name`,
-    from torch.profiler over `iters` calls of fn()."""
+def kernel_ms(fn, iters: int, name, tries: int = 3) -> float:
+    """Mean device time per launch of the kernels whose name holds `name`
+    (a string, or a tuple of alternatives), from torch.profiler over
+    `iters` calls of fn(). The profiler must see exactly `iters` such
+    launches; it now and then drops a kernel record, so a session that
+    does not is run again, up to `tries` sessions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    names_ = (name,) if isinstance(name, str) else name
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key]
-    count = sum(e.count for e in rows)
-    if count != iters:
-        raise AssertionError(f"profiler saw {count} {name} launches, "
-                             f"expected {iters}")
-    return sum(e.device_time_total for e in rows) / count / 1e3
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and any(n in e.key for n in names_)]
+        count = sum(e.count for e in rows)
+        if count == iters:
+            return sum(e.device_time_total for e in rows) / count / 1e3
+        seen.append(count)
+    raise AssertionError(f"profiler saw {seen} {name} launches in {tries} "
+                         f"sessions, expected {iters}")
 
 
 def grid_solve_bound(spec, J: int, r_max: int):
@@ -275,13 +335,16 @@ def phase_replay(jobs, p, dev) -> None:
           f"strategy; job_met flips at the deadline: {n_ties}")
 
 
-def phase_profile(jobs, p, dev, wall_s: float) -> dict:
+def phase_profile(fn, label: str, wall_s: float) -> dict:
+    """One torch.profiler pass over fn(): device busy time, the idle share
+    over the unprofiled warm wall `wall_s`, the port's kernels' device
+    time and the top device ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_all(Philox(0), jobs, p, theta=THETA, reps=1, device=dev)
+        fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
@@ -289,19 +352,294 @@ def phase_profile(jobs, p, dev, wall_s: float) -> dict:
     n_ops = sum(e.count for e in rows)
     if busy_us <= 0:
         raise AssertionError("profiler recorded no device time")
-    grid_us = sum(e.device_time_total for e in rows
-                  if "grid_solve" in e.key)
+    ours = {k: sum(e.device_time_total for e in rows if k in e.key) / 1e3
+            for k in ("grid_solve", "pocd_mc")}
     idle = 1.0 - (busy_us / 1e3) / (wall_s * 1e3)
-    print(f"profile run_all reps=1: device busy {busy_us / 1e3:.3f} ms in "
+    print(f"profile {label}: device busy {busy_us / 1e3:.3f} ms in "
           f"{n_ops} device ops; unprofiled warm wall {wall_s * 1e3:.3f} ms; "
           f"device idle share {idle:.3f}; grid_solve kernel "
-          f"{grid_us / 1e3:.3f} ms")
+          f"{ours['grid_solve']:.3f} ms, pocd_mc kernels "
+          f"{ours['pocd_mc']:.3f} ms")
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms "
               f"{100 * e.device_time_total / busy_us:5.1f}% x{e.count:<5d} "
               f"{e.key[:90]}")
     return dict(device_busy_ms=busy_us / 1e3, device_ops=n_ops,
-                idle_share=idle, grid_solve_ms=grid_us / 1e3)
+                idle_share=idle, grid_solve_ms=ours["grid_solve"],
+                pocd_mc_ms=ours["pocd_mc"])
+
+
+def uniforms(shape, seed: int, dev, low: float = 1e-7):
+    """Seeded uniforms on the card in [low, 1)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.rand(shape, generator=g, device=dev).clamp_(min=low)
+
+
+def qs_pocd_mc_inputs(job, r_star, dev):
+    """Phase 6's Monte-Carlo inputs: quickstart's (4096, 10, 4) uniforms,
+    its job's columns and each mode's r* row."""
+    J, N, R = QS_SHAPE
+    u = uniforms((J, N, R), 0, dev)
+    cols = tuple(torch.full((J,), float(x), device=dev)
+                 for x in (job.t_min, job.beta, job.D))
+    rows = {m: torch.full((J,), r_star[m], dtype=torch.int32, device=dev)
+            for m in r_star}
+    return u, cols, rows
+
+
+def full_width_job(dev):
+    """The paper trace's job whose task count is nearest the mean (ties
+    to the lowest index), as a JobSpec at the kernel's fractions."""
+    jobs = generate(2700, seed=0, device=dev)
+    n = jobs.n_tasks.cpu().numpy().astype("float64")
+    i = int(abs(n - n.sum() / len(n)).argmin())
+    job = JobSpec.make(float(jobs.t_min[i]), float(jobs.beta[i]),
+                       float(jobs.D[i]), int(n[i]), phi_est=0.25, C=1.0,
+                       theta=1e-4, R_min=0.0, device=dev)
+    return i, int(n[i]), job
+
+
+def quietly(fn, *args):
+    """fn(*args) with its printing dropped (a repeat run of a phase)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def phase_quickstart(dev) -> dict:
+    """examples/quickstart.py through the port on the card, then the
+    full-width cross-check. The launch counts are set to 0 just before
+    and read just after; `steps` holds each step's wall time (host clock,
+    synchronized)."""
+    steps = {}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps[name] = steps.get(name, 0.0) + now - mark[0]
+        mark[0] = now
+
+    gs.launches = pm.launches = pm.launches_all = 0
+    lap("start")
+    del steps["start"]
+    job = JobSpec.make(**QUICKSTART)
+    print("quickstart: closed-form PoCD / cost (Theorems 1-6)")
+    for s in pm.MODES:
+        for r in range(4):
+            rt = torch.tensor(float(r), device=dev)
+            print(f"  {s:9s} r={r} PoCD={float(pocd_of(s, rt, job)):.4f} "
+                  f"E[T]={float(cost_of(s, rt, job)):7.1f} "
+                  f"U={float(utility(s, rt, job)):+.4f}")
+    lap("closed_forms")
+    sols = {}
+    for s in pm.MODES:
+        sols[s] = solve_grid(s, job)
+        lap("solve_grid")
+        paper = solve_algorithm1(s, job)
+        lap("solve_algorithm1")
+        if sols[s].r_opt != paper.r_opt:
+            raise AssertionError(f"quickstart {s}: solve_grid r*="
+                                 f"{sols[s].r_opt} but solve_algorithm1 "
+                                 f"r*={paper.r_opt}")
+        print(f"  {s:9s} r*={sols[s].r_opt} U={sols[s].utility:+.4f} "
+              f"(Algorithm 1 agrees: r*={paper.r_opt}) "
+              f"Gamma={float(gamma(s, job)):+.2f}")
+    orders = (bool(theory.clone_beats_srestart(job, 2)),
+              bool(theory.sresume_beats_srestart(job, 2)))
+    print(f"  Theorem 7: clone beats srestart {orders[0]}, sresume beats "
+          f"srestart {orders[1]}")
+    if not all(orders):
+        raise AssertionError("quickstart: a Theorem 7 ordering fails")
+    lap("gamma_theory")
+    r_star = {s: sols[s].r_opt for s in ("clone", "sresume")}
+    u, cols, rows = qs_pocd_mc_inputs(job, r_star, dev)
+    for s in r_star:
+        met, _ = pm.pocd_mc(u, *cols, rows[s], mode=s)
+        p = float(met.mean())
+        print(f"  {s:9s} r*={r_star[s]} theory PoCD={sols[s].pocd:.4f} "
+              f"kernel MC PoCD={p:.4f}")
+        if s == "clone" and abs(p - sols[s].pocd) > 0.02:
+            raise AssertionError(f"quickstart: clone MC PoCD {p} vs "
+                                 f"Theorem 1 {sols[s].pocd}")
+    lap("pocd_mc")
+
+    i, N, fjob = full_width_job(dev)
+    fsols = {s: solve_grid(s, fjob) for s in pm.MODES}
+    lap("full_width_solve")
+    R = max(4, max(x.r_opt for x in fsols.values()) + 2)
+    fu = uniforms((FULL_REPS, N, R), 1, dev)
+    fcols = tuple(torch.full((FULL_REPS,), float(x), device=dev)
+                  for x in (fjob.t_min, fjob.beta, fjob.D))
+    r_modes = torch.stack([torch.full((FULL_REPS,), fsols[s].r_opt,
+                                      dtype=torch.int32, device=dev)
+                           for s in pm.MODES])
+    lap("full_width_uniforms")
+    met, cost = pm.pocd_mc_all(fu, *fcols, r_modes)
+    lap("pocd_mc_all")
+    print(f"full width: trace job {i}, N={N}, t_min={float(fjob.t_min):.4f}"
+          f" beta={float(fjob.beta):.4f} D={float(fjob.D):.4f}; one "
+          f"pocd_mc_all launch over {FULL_REPS} x {N} x {R} "
+          f"({fu.numel() * 4 / 1e6:.1f} MB of uniforms)")
+    full = {}
+    for m, s in enumerate(pm.MODES):
+        p = float(met[m].mean())
+        se = (p * (1.0 - p) / FULL_REPS) ** 0.5
+        c = float(cost[m].mean())
+        full[s] = dict(r=fsols[s].r_opt, mc_pocd=p, se=se,
+                       theory_pocd=fsols[s].pocd, mc_cost=c,
+                       theory_cost=fsols[s].cost)
+        print(f"  {s:9s} r*={fsols[s].r_opt} MC PoCD {p:.6f} +- {se:.6f} "
+              f"(closed form {fsols[s].pocd:.6f}); MC mean cost {c:.2f} "
+              f"(cost_of {fsols[s].cost:.2f})")
+    if abs(full["clone"]["mc_pocd"] - full["clone"]["theory_pocd"]) > 0.01:
+        raise AssertionError("full width: clone MC PoCD is not within 0.01 "
+                             "of Theorem 1")
+    lap("readout")
+    counts = dict(pocd_mc=pm.launches, pocd_mc_all=pm.launches_all,
+                  grid_solve=gs.launches)
+    want = dict(pocd_mc=2, pocd_mc_all=1, grid_solve=2 * len(pm.MODES))
+    if counts != want:
+        raise AssertionError(f"quickstart path launches {counts}, expected "
+                             f"{want}")
+    print("quickstart path, first run: " + ", ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in steps.items())
+        + f"; launches {counts}")
+    return dict(counts=counts, full=full, steps=steps, qs=(u, cols, rows),
+                fw=(fu, fcols, r_modes), full_shape=(FULL_REPS, N, R))
+
+
+def slots_read(u, t_min, beta, D, r_rows: dict):
+    """{mode: (J, N) slots the mode's outcome depends on}: clone r + 1;
+    srestart 1, plus min(r, R-1) for a straggler when r > 0; sresume 1,
+    plus min(r + 1, R-1) for a straggler."""
+    R = u.shape[2]
+    T1 = t_min[:, None] * torch.exp(-torch.log(u[:, :, 0]) / beta[:, None])
+    strag = T1 > D[:, None]
+    out = {}
+    for m, r in r_rows.items():
+        r = r[:, None]
+        if m == "clone":
+            out[m] = (r + 1).clamp(0, R).expand_as(strag)
+        elif m == "srestart":
+            out[m] = 1 + torch.where(strag & (r > 0), r.clamp(max=R - 1), 0)
+        else:
+            out[m] = 1 + torch.where(strag, (r + 1).clamp(max=R - 1), 0)
+    return out
+
+
+def mc_bound(u, t_min, beta, D, r_rows: dict):
+    """(bytes ms, operations ms, dense ms) of one launch over `r_rows`'
+    modes: the uniforms this data needs (the union of the modes' slots,
+    each read once), the columns, r rows and outputs; dense counts every
+    uniform (J N R 4 bytes)."""
+    J, N, R = u.shape
+    M = len(r_rows)
+    n = slots_read(u, t_min, beta, D, r_rows)
+    attempts = int(torch.stack(list(n.values())).amax(dim=0).sum())
+    side = J * (3 * 4 + 4 * M) + J * 8 * M
+    ops = OPS_PER_ATTEMPT * attempts + J * N
+    for m, k in n.items():
+        ops += OPS_PER_SLOT[m] * int((k - 1).sum()) + OPS_PER_TASK[m] * J * N
+    return (1e3 * (4 * attempts + side) / HBM_BYTES_PER_S,
+            1e3 * ops / F32_OPS_PER_S,
+            1e3 * (4 * J * N * R + side) / HBM_BYTES_PER_S)
+
+
+def mc_times(u, cols, r_rows: dict) -> dict:
+    """Device time per launch, wrapper call and plain times and the bound
+    of pocd_mc (one mode in r_rows) or pocd_mc_all (all of MODES)."""
+    if len(r_rows) == 1:
+        (mode, r), = r_rows.items()
+        launch = lambda: pm.pocd_mc_cuda(u, *cols, r, mode=mode)
+        plain = lambda: pm.pocd_mc_plain(u, *cols, r, mode=mode)
+        bits = MODE_BITS[mode]
+    else:
+        rm = torch.stack([r_rows[m] for m in pm.MODES])
+        launch = lambda: pm.pocd_mc_all_cuda(u, *cols, rm)
+        plain = lambda: pm.pocd_mc_all_plain(u, *cols, rm)
+        bits = sum(MODE_BITS.values())
+    bytes_ms, ops_ms, dense_ms = mc_bound(u, *cols, r_rows)
+    bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
+    # the profiler may show the name demangled or mangled
+    names_ = (f"pocd_mc_kernel<{bits}>", f"pocd_mc_kernelILi{bits}E")
+    return dict(ms=kernel_ms(launch, 20, names_),
+                call_ms=cuda_ms(launch, 50), plain_ms=cuda_ms(plain, 3),
+                bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_dense_ms=dense_ms)
+
+
+def check_mc(what, got, want, near, single=None):
+    """met equal off the deadline, cost within MC_COST_RTOL, and the fused
+    row equal to the single-mode launch; returns max |cost error|."""
+    met, cost = got
+    if bool(((met != want[0]) & ~near).any()):
+        raise AssertionError(f"{what}: met differs from the plain version "
+                             f"away from the deadline")
+    close = torch.isclose(cost, want[1], rtol=MC_COST_RTOL, atol=0.0)
+    if not bool(close.all()):
+        raise AssertionError(f"{what}: cost outside rtol {MC_COST_RTOL} in "
+                             f"{int((~close).sum())} jobs")
+    if single is not None and not (torch.equal(met, single[0])
+                                   and torch.equal(cost, single[1])):
+        raise AssertionError(f"{what}: pocd_mc_all row differs from "
+                             f"pocd_mc")
+    return float((cost - want[1]).abs().max())
+
+
+def phase_mc_check(dev, full_shape) -> dict:
+    """Both Monte-Carlo kernels against their plain versions at every
+    shape, r below and past the slots; timed with r below."""
+    err = {"pocd_mc": 0.0, "pocd_mc_all": 0.0}
+    times = {}
+    for J, N, R in MC_SHAPES + (full_shape,):
+        n_near = 0
+        for high in (False, True):
+            seed = J * 1000 + N * 10 + R + high
+            g = torch.Generator(device=dev)
+            g.manual_seed(seed)
+            u = uniforms((J, N, R), seed, dev, low=1e-6)
+            cols = (5.0 + 15.0 * torch.rand(J, generator=g, device=dev),
+                    1.2 + 1.8 * torch.rand(J, generator=g, device=dev),
+                    40.0 + 80.0 * torch.rand(J, generator=g, device=dev))
+            lo, hi = (R - 1, R + 2) if high else (0, R - 1)
+            r = torch.randint(lo, hi, (J,), generator=g, device=dev,
+                              dtype=torch.int32)
+            rows = dict(zip(pm.MODES, (r, (r - 1).clamp(min=0), r + 1)))
+            singles = {}
+            for m, rr in rows.items():
+                near = pm.near_deadline(u, *cols, rr, mode=m)
+                n_near += int(near.sum())
+                singles[m] = pm.pocd_mc(u, *cols, rr, mode=m)
+                err["pocd_mc"] = max(err["pocd_mc"], check_mc(
+                    f"pocd_mc[{m}] {(J, N, R)}", singles[m],
+                    pm.pocd_mc_plain(u, *cols, rr, mode=m), near))
+            rm = torch.stack([rows[m] for m in pm.MODES])
+            met, cost = pm.pocd_mc_all(u, *cols, rm)
+            want = pm.pocd_mc_all_plain(u, *cols, rm)
+            for k, m in enumerate(pm.MODES):
+                near = pm.near_deadline(u, *cols, rows[m], mode=m)
+                err["pocd_mc_all"] = max(err["pocd_mc_all"], check_mc(
+                    f"pocd_mc_all[{m}] {(J, N, R)}", (met[k], cost[k]),
+                    (want[0][k], want[1][k]), near, singles[m]))
+            torch.cuda.synchronize()
+            if high:
+                continue
+            t = {m: mc_times(u, cols, {m: rows[m]}) for m in pm.MODES}
+            t["all"] = mc_times(u, cols, rows)
+            times[(J, N, R)] = t
+        single_ms = sum(t[m]["ms"] for m in pm.MODES)
+        print(f"pocd_mc {(J, N, R)}: kernels equal the plain versions "
+              f"(r below and past the slots); jobs at the deadline "
+              f"{n_near}; fused / three single launches "
+              f"{t['all']['ms'] / single_ms:.3f}")
+        for m in pm.MODES + ("all",):
+            x = t[m]
+            print(f"  {m:9s} kernel {x['ms']:.5f} ms (call "
+                  f"{x['call_ms']:.5f}), plain {x['plain_ms']:.4f} ms, bound "
+                  f"{x['bound_ms']:.6f} ms ({x['bound_by']}; every uniform "
+                  f"{x['bound_dense_ms']:.6f} ms)")
+    return dict(max_abs_err=err, times=times)
 
 
 def main() -> None:
@@ -313,12 +651,13 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    build.compile_sources(["grid_solve"])
+    build.compile_sources(["grid_solve", "pocd_mc"])
     build_s = time.perf_counter() - t0
-    print(f"build: grid_solve in {build_s:.2f} s")
-    for line in build.build_log("grid_solve").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    print(f"build: grid_solve and pocd_mc in {build_s:.2f} s")
+    for name in ("grid_solve", "pocd_mc"):
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
     p = SimParams()
 
     check = phase_check(dev, p)
@@ -345,7 +684,32 @@ def main() -> None:
                   f"{1e3 * solo[name][1]:.2f} ms")
 
     phase_replay(jobs, p, dev)
-    prof = phase_profile(jobs, p, dev, walls[1][1])
+    prof = phase_profile(
+        lambda: run_all(Philox(0), jobs, p, theta=THETA, reps=1, device=dev),
+        "run_all reps=1", walls[1][1])
+    path = phase_quickstart(dev)
+    warm = quietly(phase_quickstart, dev)
+    print("quickstart path, warm second run: " + ", ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in warm["steps"].items()))
+    mc = phase_mc_check(dev, path["full_shape"])
+    u, cols, rows = path["qs"]
+    qs_t = {m: mc_times(u, cols, {m: r}) for m, r in rows.items()}
+    fu, fcols, r_modes = path["fw"]
+    fw_t = mc_times(fu, fcols, dict(zip(pm.MODES, r_modes)))
+    fw_single = {m: mc_times(fu, fcols, {m: r_modes[k]})
+                 for k, m in enumerate(pm.MODES)}
+    print(f"path launches: pocd_mc at {QS_SHAPE} " + ", ".join(
+        f"{m} {t['ms']:.5f} ms (bound {t['bound_ms']:.6f})"
+        for m, t in qs_t.items())
+        + f"; pocd_mc_all at {path['full_shape']} {fw_t['ms']:.5f} ms "
+        f"(bound {fw_t['bound_ms']:.6f}, plain {fw_t['plain_ms']:.3f}); "
+        "single-mode launches on the same inputs " + ", ".join(
+            f"{m} {t['ms']:.5f} ms" for m, t in fw_single.items()))
+
+    # last: a profiler session this large can cost the next session its
+    # first kernel records, and kernel_ms counts every launch
+    qs_prof = phase_profile(lambda: quietly(phase_quickstart, dev),
+                            "quickstart path", sum(warm["steps"].values()))
 
     at_main = check["main"].values()
     bound_ms, bound_by = bound_of(sum(m["bytes_ms"] for m in at_main),
@@ -371,7 +735,46 @@ def main() -> None:
         "run_all_wall_s_first_second": {str(r): w
                                         for r, w in walls.items()},
         "profile_reps1": prof,
+        "launches_quickstart_path": path["counts"]["grid_solve"],
     }]
+
+    def mc_entry(name, line, launches, parts, err, **extra):
+        return dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/pocd_mc.cu",
+            replaces=f"src/repro/kernels/pocd_mc.py:{line}",
+            launches=launches, max_abs_err=err,
+            ms=sum(t["ms"] for t in parts),
+            call_ms=sum(t["call_ms"] for t in parts),
+            plain_ms=sum(t["plain_ms"] for t in parts),
+            bound_ms=max(sum(t["bytes_ms"] for t in parts),
+                         sum(t["ops_ms"] for t in parts)),
+            bound_by=bound_of(sum(t["bytes_ms"] for t in parts),
+                              sum(t["ops_ms"] for t in parts))[1],
+            bound_dense_ms=sum(t["bound_dense_ms"] for t in parts),
+            library_ms=None, **extra)
+
+    per_shape = {str(k): v for k, v in mc["times"].items()}
+    kernels += [
+        # the quickstart path's two launches (clone, sresume) at (4096,
+        # 10, 4) on its own inputs
+        mc_entry("pocd_mc", 133, path["counts"]["pocd_mc"],
+                 list(qs_t.values()), mc["max_abs_err"]["pocd_mc"],
+                 per_mode=qs_t, per_shape={k: {m: v[m] for m in pm.MODES}
+                                           for k, v in per_shape.items()}),
+        # the full-width launch on its own inputs
+        mc_entry("pocd_mc_all", 170, path["counts"]["pocd_mc_all"], [fw_t],
+                 mc["max_abs_err"]["pocd_mc_all"],
+                 single_mode_ms_same_inputs={m: t["ms"]
+                                             for m, t in fw_single.items()},
+                 per_shape={k: v["all"] for k, v in per_shape.items()},
+                 full_width=path["full"],
+                 quickstart_path_ms={"first": {k: 1e3 * v for k, v in
+                                               path["steps"].items()},
+                                     "warm": {k: 1e3 * v for k, v in
+                                              warm["steps"].items()}},
+                 profile_quickstart_path=qs_prof),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -52,3 +52,20 @@ def _job_pocd_from_log_fail(log_p_fail, N):
     """R = (1 - P_fail)^N = exp(N log1p(-exp(log P_fail)))."""
     p = torch.exp(torch.clamp(log_p_fail, max=0.0))
     return torch.exp(N * torch.log1p(-torch.clamp(p, max=_P_CLIP)))
+
+
+def pocd_clone(r, t_min, beta, D, N):
+    """R_Clone (Theorem 1)."""
+    return _job_pocd_from_log_fail(log_task_fail_clone(r, t_min, beta, D), N)
+
+
+def pocd_srestart(r, t_min, beta, D, N, tau_est):
+    """R_S-Restart (Theorem 3); r == 0 is no speculation."""
+    return _job_pocd_from_log_fail(
+        log_task_fail_srestart(r, t_min, beta, D, tau_est), N)
+
+
+def pocd_sresume(r, t_min, beta, D, N, tau_est, phi_est):
+    """R_S-Resume (Theorem 5); r extra attempts are r + 1 resumed ones."""
+    return _job_pocd_from_log_fail(
+        log_task_fail_sresume(r, t_min, beta, D, tau_est, phi_est), N)

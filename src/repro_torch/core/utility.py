@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
+
 
 class JobSpec(NamedTuple):
     """Everything Algorithm 1 needs per job: ten f32 tensors of one shape."""
@@ -24,6 +26,24 @@ class JobSpec(NamedTuple):
     C: torch.Tensor               # VM price per unit machine time
     theta: torch.Tensor           # PoCD / cost tradeoff factor
     R_min: torch.Tensor           # SLA floor on PoCD
+
+    @classmethod
+    def make(cls, t_min, beta, D, N, tau_est=None, tau_kill=None,
+             phi_est=0.5, C=1.0, theta=1e-4, R_min=0.0, *,
+             device=None) -> "JobSpec":
+        """One job's spec as 0-dim f32 tensors on `device` (default the
+        card). tau_est defaults to 0.3 t_min (the paper's Table I) and
+        tau_kill to tau_est + 0.5 t_min, both computed in f32."""
+        dev = resolve_device(device)
+
+        def f(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        t_min = f(t_min)
+        tau_est = 0.3 * t_min if tau_est is None else f(tau_est)
+        tau_kill = tau_est + 0.5 * t_min if tau_kill is None else f(tau_kill)
+        return cls(t_min, f(beta), f(D), f(N), tau_est, tau_kill,
+                   f(phi_est), f(C), f(theta), f(R_min))
 
 
 def jobspec_to(job: JobSpec, device) -> JobSpec:
@@ -43,3 +63,13 @@ def cost_of(strategy: str, r, job: JobSpec):
 def utility(strategy: str, r, job: JobSpec):
     from ..strategies import get, utility_of
     return utility_of(get(strategy), r, job)
+
+
+def gamma(strategy: str, job: JobSpec):
+    """Thm-8 concavity threshold of the named strategy's PoCD."""
+    from ..strategies import get
+    spec = get(strategy)
+    if spec.gamma is None:
+        raise ValueError(f"strategy {strategy!r} has no concavity threshold "
+                         f"(Algorithm 1's gradient phase needs one)")
+    return spec.gamma(job)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..sim.strategies import _detect, _masked_min, _pareto
-from .chronos import CLONE, SRESTART, SRESUME
+from .chronos import CLONE, SRESTART, SRESUME, slope_reactive
 from .spec import StrategySpec, register, utility_of
 
 _SUBS = (CLONE, SRESTART, SRESUME)
@@ -85,6 +85,7 @@ def sim_adaptive(draw, jobs, r_task, choice_task, p, *, max_r=8,
 
 ADAPTIVE = register(StrategySpec(
     name="adaptive", kind="meta", detectable=True, draw=sim_adaptive,
-    log_task_fail=_log_task_fail, cost=_cost, choose=_choose,
+    log_task_fail=_log_task_fail, cost=_cost, r_slope=slope_reactive,
+    choose=_choose,
     # choose-id order; must match _SUBS
     components=("clone", "srestart", "sresume")))

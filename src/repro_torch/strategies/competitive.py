@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from .chronos import closed_cost_clone, draw_clone, log_fail_clone
+from .chronos import (closed_cost_clone, draw_clone, gamma_clone,
+                      log_fail_clone, slope_clone)
 from .spec import StrategySpec, register
 
 
@@ -47,7 +48,8 @@ def _clone_spec(name: str, allocate) -> StrategySpec:
     return StrategySpec(
         name=name, kind="chronos", detectable=False, draw=draw_clone,
         log_task_fail=log_fail_clone, cost=closed_cost_clone,
-        allocate=allocate, form="clone")
+        gamma=gamma_clone, r_slope=slope_clone, allocate=allocate,
+        form="clone")
 
 
 CLONE_PROP = register(_clone_spec("clone_prop", allocate_proportional))

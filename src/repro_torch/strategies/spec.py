@@ -30,7 +30,13 @@ class StrategySpec(NamedTuple):
           uniforms (`sim.draws`)
       log_task_fail(r, job) -> log P(one task misses D)    [optional]
       cost(r, job)          -> E[T] machine time per job   [optional]
+      gamma(job)            -> Thm-8 concavity threshold   [optional]
+      r_slope(job)          -> host float lower bound on the marginal
+                               machine time of one extra attempt [optional]
       choose(r, job)        -> (J,) int32 sub-strategy id  [optional]
+      tile_outcome(att, t_min, tau_est, tau_kill, D, r, *, phi)
+          -> (completion, machine) (J, N) Monte-Carlo body of the
+          `kernels.pocd_mc` mode of this name              [optional]
       allocate(job, U, cost, budget) -> (J,) int32 r per job [optional]
 
     `form` names the closed-form family of `log_task_fail`/`cost` (one of
@@ -43,7 +49,10 @@ class StrategySpec(NamedTuple):
     draw: Callable
     log_task_fail: Optional[Callable] = None
     cost: Optional[Callable] = None
+    gamma: Optional[Callable] = None
+    r_slope: Optional[Callable] = None
     choose: Optional[Callable] = None
+    tile_outcome: Optional[Callable] = None
     allocate: Optional[Callable] = None
     form: Optional[str] = None
     components: Optional[tuple] = None
