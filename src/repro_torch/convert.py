@@ -1,11 +1,11 @@
 """Converters from the reference's state to the port's.
 
-The port carries no weights; its state is the trace (a JobSet), the
-per-job Algorithm-1 inputs (a JobSpec) and the simulator parameters. These
-functions take that state as plain numpy arrays and numbers, e.g.
-`{f: np.asarray(getattr(ref_jobs, f)) for f in ...}`, so that both
-packages can be fed the same inputs without this package importing the
-reference.
+The simulator's state is the trace (a JobSet), the per-job Algorithm-1
+inputs (a JobSpec) and the simulator parameters; the model's is its
+parameter tree. These functions take that state as plain numpy arrays
+and numbers, e.g. `{f: np.asarray(getattr(ref_jobs, f)) for f in ...}`,
+so that both packages can be fed the same inputs without this package
+importing the reference.
 """
 from __future__ import annotations
 
@@ -57,3 +57,39 @@ def simparams(fields: Mapping[str, float]) -> SimParams:
     if unknown:
         raise ValueError(f"simparams: unknown fields {sorted(unknown)}")
     return SimParams(**fields)
+
+
+def _param(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bf16: widen exactly
+        return _tensor(a, np.float32, dev).to(torch.bfloat16)
+    return _tensor(a, a.dtype, dev)
+
+
+def model_params(tree: Mapping, cfg, *, device=None) -> dict:
+    """The port's parameters (`models.transformer.init_params` layout)
+    from the reference's `values_of(model.init(key))` as a numpy pytree.
+
+    The reference stacks each block leaf with a leading `steps` axis, one
+    dict per spec of the block pattern; layer l of the port is step
+    l // len(specs) of spec l % len(specs)."""
+    from .models.transformer import block_pattern, check_supported
+    check_supported(cfg)
+    dev = resolve_device(device)
+    pat = block_pattern(cfg)
+    stacked = tuple(tree["blocks"])
+    if len(stacked) != len(pat.specs):
+        raise ValueError(f"model_params: {len(stacked)} stacked block dicts, "
+                         f"the pattern has {len(pat.specs)}")
+
+    def layer(sub, step):
+        return {k: layer(v, step) if isinstance(v, Mapping)
+                else _param(np.asarray(v)[step], dev)
+                for k, v in sub.items()}
+
+    n = len(pat.specs)
+    return {"embed": _param(tree["embed"], dev),
+            "blocks": [layer(stacked[i % n], i // n)
+                       for i in range(cfg.n_layers)],
+            "final_norm": _param(tree["final_norm"], dev),
+            "lm_head": _param(tree["lm_head"], dev)}

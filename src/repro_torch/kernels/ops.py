@@ -3,10 +3,12 @@
 and CUDA tensors to its hand-written kernel."""
 from __future__ import annotations
 
+from .flash_attention import attention
 from .grid_solve import grid_solve
 from .pocd_mc import MODES, pocd_mc, pocd_mc_all
 
-__all__ = ["MODES", "grid_solve_fused", "pocd_mc", "pocd_mc_all"]
+__all__ = ["MODES", "attention", "grid_solve_fused", "pocd_mc",
+           "pocd_mc_all"]
 
 
 def grid_solve_fused(strategy: str, jobs, r_max: int):

@@ -1,0 +1,149 @@
+"""GQA attention: prefill (full-sequence) and decode (KV cache) paths;
+counterpart of `repro.models.attention`.
+
+Supports grouped-query attention (q heads grouped kv-major: head h reads
+kv head h // q_per_kv), causal / bidirectional / prefix-LM masks, sliding
+windows (gemma2 local layers), attention-logit softcapping and partial
+RoPE. The full-sequence path goes through the flash-attention kernel
+(`kernels.ops.attention`) whenever the mask is one the kernel expresses
+exactly; the reference's `attn_impl` picks between two plain forms of
+the same function (`_attend` and `_attend_blocked`), and the port needs
+neither on that path.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..kernels import ops
+from .layers import apply_rope, softcap
+from .param import normal
+
+
+class MaskSpec(NamedTuple):
+    causal: bool = True
+    window: Optional[int] = None     # sliding window size (local attention)
+    prefix_len: int = 0              # bidirectional prefix (paligemma)
+
+
+def init_attention(d_model, n_heads, n_kv_heads, head_dim, dtype,
+                   generator=None, device=None):
+    kw = dict(dtype=dtype, generator=generator, device=device)
+    return {"wq": normal((d_model, n_heads, head_dim), **kw),
+            "wk": normal((d_model, n_kv_heads, head_dim), **kw),
+            "wv": normal((d_model, n_kv_heads, head_dim), **kw),
+            "wo": normal((n_heads, head_dim, d_model), **kw)}
+
+
+def _mask_bias(q_pos, k_pos, spec: MaskSpec, k_valid=None):
+    """Additive mask bias (..., Sq, Sk) from position grids."""
+    i = q_pos[..., :, None]
+    j = k_pos[..., None, :]
+    if spec.causal:
+        allowed = j <= i
+        if spec.prefix_len:
+            allowed = allowed | ((i < spec.prefix_len)
+                                 & (j < spec.prefix_len))
+    else:
+        allowed = torch.ones(torch.broadcast_shapes(i.shape, j.shape),
+                             dtype=torch.bool, device=i.device)
+    if spec.window is not None:
+        allowed = allowed & (j > i - spec.window)
+    if k_valid is not None:
+        allowed = allowed & k_valid[..., None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=allowed.device)
+    return torch.where(allowed, zero, torch.full_like(zero, -1e30))
+
+
+def _attend(q, k, v, bias, n_kv, q_per_kv, cap):
+    """q: (B,Sq,H,Dh) grouped kv-major; k,v: (B,Sk,K,Dh); bias:
+    (B?,Sq,Sk)."""
+    B, Sq, H, Dh = q.shape
+    q = q.reshape(B, Sq, n_kv, q_per_kv, Dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", q, k).to(torch.float32)
+    scores = scores * (Dh ** -0.5)
+    scores = softcap(scores, cap)
+    scores = scores + bias[:, None, None, :, :]
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(B, Sq, H, Dh)
+
+
+def kernel_expresses(spec: MaskSpec, seq_len: int) -> bool:
+    """The flash-attention kernel's masks are causal or none; a causal
+    spec with no prefix and a window of at least the sequence allows the
+    same keys as the plain causal mask, exactly."""
+    return (spec.causal and spec.prefix_len == 0
+            and (spec.window is None or spec.window >= seq_len))
+
+
+def _project(x, w):
+    """x (B, S, d) @ w (d, heads, Dh) -> (B, S, heads, Dh)."""
+    return (x @ w.to(x.dtype).flatten(1)).unflatten(-1, w.shape[1:])
+
+
+def attention_full(p, x, positions, cfg, spec: MaskSpec):
+    """Prefill over a full sequence. Returns (out, (k, v)).
+
+    Where the kernel expresses the mask (`kernel_expresses`), attention
+    goes through `ops.attention` whatever `cfg.attn_impl` says. Otherwise
+    a CPU tensor takes the plain `_attend`, and a CUDA tensor raises: the
+    kernel has no window or prefix mask yet (ROADMAP.md)."""
+    S = x.shape[1]
+    xq = _project(x, p["wq"])
+    xk = _project(x, p["wk"])
+    xv = _project(x, p["wv"])
+    if cfg.rope_fraction > 0 and cfg.head_dim:
+        xq = apply_rope(xq, positions, cfg.head_dim, cfg.rope_fraction,
+                        cfg.rope_theta)
+        xk = apply_rope(xk, positions, cfg.head_dim, cfg.rope_fraction,
+                        cfg.rope_theta)
+    if kernel_expresses(spec, S):
+        out = ops.attention(xq.transpose(1, 2), xk.transpose(1, 2),
+                            xv.transpose(1, 2), causal=True,
+                            softcap=cfg.attn_softcap).transpose(1, 2)
+    elif x.device.type == "cpu":
+        bias = _mask_bias(positions, positions, spec)
+        out = _attend(xq, xk, xv, bias, cfg.n_kv_heads, cfg.q_per_kv,
+                      cfg.attn_softcap)
+    else:
+        raise NotImplementedError(
+            f"attention_full: mask {spec} at sequence length {S} is not one "
+            f"the flash-attention kernel expresses (causal, no prefix, "
+            f"window >= S); its kernel is still to write (ROADMAP.md)")
+    out = out.flatten(2) @ p["wo"].to(x.dtype).flatten(0, 1)
+    return out, (xk, xv)
+
+
+def attention_decode(p, x, cache_k, cache_v, pos, cfg, spec: MaskSpec):
+    """One-token decode. x: (B,1,D); cache_*: (B,Smax,K,Dh); pos: (B,)
+    int32. Returns (out, (cache_k, cache_v)).
+
+    Plain torch, as the reference computes decode with einsums outside
+    any kernel. Unlike the reference's immutable `.at[].set`, the new k
+    and v are written into the given caches in place, and the same
+    tensors are returned. The cache keeps its own type (bf16) and is read
+    back in x's type, as in the reference."""
+    B = x.shape[0]
+    Smax = cache_k.shape[1]
+    xq = _project(x, p["wq"])
+    xk = _project(x, p["wk"])
+    xv = _project(x, p["wv"])
+    if cfg.rope_fraction > 0 and cfg.head_dim:
+        pp = pos[:, None]
+        xq = apply_rope(xq, pp, cfg.head_dim, cfg.rope_fraction,
+                        cfg.rope_theta)
+        xk = apply_rope(xk, pp, cfg.head_dim, cfg.rope_fraction,
+                        cfg.rope_theta)
+    b_idx = torch.arange(B, device=x.device)
+    pos_l = pos.to(torch.long)
+    cache_k[b_idx, pos_l] = xk[:, 0].to(cache_k.dtype)
+    cache_v[b_idx, pos_l] = xv[:, 0].to(cache_v.dtype)
+    k_pos = torch.arange(Smax, device=x.device)[None, :]
+    bias = _mask_bias(pos_l[:, None], k_pos, spec,
+                      k_valid=(k_pos <= pos_l[:, None]))
+    out = _attend(xq, cache_k.to(x.dtype), cache_v.to(x.dtype), bias,
+                  cfg.n_kv_heads, cfg.q_per_kv, cfg.attn_softcap)
+    out = out.flatten(2) @ p["wo"].to(x.dtype).flatten(0, 1)
+    return out, (cache_k, cache_v)

@@ -1,0 +1,207 @@
+"""Transformer LM stack, dense family; counterpart of
+`repro.models.transformer`.
+
+The reference stacks each block's parameters with a leading `steps` axis
+and runs `lax.scan` over pattern steps (a pattern is the repeating unit:
+one block for most archs, [local, global] for gemma2). The port keeps one
+parameter dict per layer in `params["blocks"]` and loops in Python: layer
+l is step l // len(specs) and uses spec l % len(specs). KV caches are one
+{"k", "v"} dict per layer, each (B, max_seq, K, Dh) in bf16.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import attention as A
+from . import layers as L
+from .param import normal
+
+
+class Pattern(NamedTuple):
+    specs: tuple            # tuple[A.MaskSpec], one per block in the unit
+    steps: int              # repeats of the unit
+
+
+def check_supported(cfg) -> None:
+    """The port has the dense text transformer only so far."""
+    extra = [f for f in ("moe", "ssm", "hybrid", "vision", "audio")
+             if getattr(cfg, f) is not None]
+    if cfg.family != "dense" or extra:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} with {extra or 'no'} "
+            f"extensions is not ported; only the dense text transformer is "
+            f"(ROADMAP.md lists the rest)")
+
+
+def block_pattern(cfg, prefix_len: int = 0) -> Pattern:
+    if cfg.alt_local_global:
+        if cfg.n_layers % 2:
+            raise ValueError(f"{cfg.name}: alternating local/global layers "
+                             f"need an even n_layers, got {cfg.n_layers}")
+        local = A.MaskSpec(causal=cfg.causal, window=cfg.sliding_window,
+                           prefix_len=prefix_len)
+        glob = A.MaskSpec(causal=cfg.causal, window=None,
+                          prefix_len=prefix_len)
+        return Pattern((local, glob), cfg.n_layers // 2)
+    spec = A.MaskSpec(causal=cfg.causal, window=cfg.sliding_window,
+                      prefix_len=prefix_len)
+    return Pattern((spec,), cfg.n_layers)
+
+
+def layer_specs(cfg, prefix_len: int = 0) -> list:
+    """The mask spec of each layer, in order."""
+    specs = block_pattern(cfg, prefix_len).specs
+    return [specs[i % len(specs)] for i in range(cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# Block
+# ---------------------------------------------------------------------------
+
+
+def init_block(cfg, dtype, generator=None, device=None):
+    def zeros():
+        return torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+
+    kw = dict(generator=generator, device=device)
+    p = {"ln1": zeros(),
+         "attn": A.init_attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, dtype, **kw),
+         "ln2": zeros(),
+         "mlp": L.init_mlp(cfg.d_model, cfg.d_ff, cfg.activation, dtype,
+                           **kw)}
+    if cfg.post_block_norms:
+        p["ln1_post"] = zeros()
+        p["ln2_post"] = zeros()
+    return p
+
+
+def apply_block(p, x, positions, cfg, spec, cache=None, pos=None):
+    """Returns (x, new_cache_or_kv, aux); aux is 0 in the dense family."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cache is None:
+        attn_out, kv = A.attention_full(p["attn"], h, positions, cfg, spec)
+    else:
+        attn_out, kv = A.attention_decode(p["attn"], h, cache["k"],
+                                          cache["v"], pos, cfg, spec)
+    if cfg.post_block_norms:
+        attn_out = L.rms_norm(attn_out, p["ln1_post"], cfg.norm_eps)
+    x = x + attn_out
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    mlp_out = L.apply_mlp(p["mlp"], h, cfg.activation)
+    if cfg.post_block_norms:
+        mlp_out = L.rms_norm(mlp_out, p["ln2_post"], cfg.norm_eps)
+    x = x + mlp_out
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, {"k": kv[0], "v": kv[1]}, aux
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+
+def padded_vocab(cfg) -> int:
+    return (cfg.vocab_size + 31) // 32 * 32
+
+
+def init_params(cfg, generator=None, dtype=None, device=None):
+    """{"embed", "blocks" (one dict per layer), "final_norm", "lm_head"} in
+    `cfg.param_dtype` unless `dtype` is given, drawn from `generator`
+    (which must live on `device`)."""
+    check_supported(cfg)
+    dtype = dtype or getattr(torch, cfg.param_dtype)
+    kw = dict(generator=generator, device=device)
+    Vp = padded_vocab(cfg)
+    return {
+        "embed": L.init_embed(Vp, cfg.d_model, dtype, **kw),
+        "blocks": [init_block(cfg, dtype, **kw)
+                   for _ in range(cfg.n_layers)],
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
+                                  device=device),
+        "lm_head": normal((cfg.d_model, Vp), dtype=dtype, **kw),
+    }
+
+
+def _embed_inputs(params, batch, cfg):
+    """-> (x (B,S,D), prefix_len); text only."""
+    check_supported(cfg)
+    cdt = getattr(torch, cfg.compute_dtype)
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    x = L.embed_tokens(params["embed"].to(cdt), tokens, cfg.embed_scale)
+    return x, 0
+
+
+def _positions(B, S, device):
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(
+        B, S)
+
+
+def forward(params, batch, cfg):
+    """Full forward to float32 logits (B, S, Vp); returns (logits, aux)."""
+    x, prefix_len = _embed_inputs(params, batch, cfg)
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, spec in zip(params["blocks"], layer_specs(cfg, prefix_len),
+                       strict=True):
+        x, _, a = apply_block(p, x, positions, cfg, spec)
+        aux = aux + a
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.logits_head(params["lm_head"], x, cfg.final_softcap), aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch, max_seq, dtype=torch.bfloat16, device=None):
+    """Zero KV cache: one {"k", "v"} dict per layer, (B, max_seq, K, Dh)."""
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(cfg.n_layers)]
+
+
+def prefill(params, batch, cfg, max_seq=None):
+    """Run the prompt; returns (last-position logits, caches, lengths).
+
+    Each layer's k and v go into its bf16 cache as they come (the
+    reference pads and casts the stacked kv after the scan: the same
+    values)."""
+    x, prefix_len = _embed_inputs(params, batch, cfg)
+    B, S, _ = x.shape
+    max_seq = max_seq or S
+    if max_seq < S:
+        raise ValueError(f"prefill: max_seq {max_seq} < prompt length {S}")
+    positions = _positions(B, S, x.device)
+    caches = init_cache(cfg, B, max_seq, device=x.device)
+    for p, spec, cache in zip(params["blocks"],
+                              layer_specs(cfg, prefix_len), caches,
+                              strict=True):
+        x, kv, _ = apply_block(p, x, positions, cfg, spec)
+        cache["k"][:, :S] = kv["k"]
+        cache["v"][:, :S] = kv["v"]
+    x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = L.logits_head(params["lm_head"], x, cfg.final_softcap)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return logits, caches, lengths
+
+
+def decode_step(params, tokens, caches, lengths, cfg):
+    """One decode step. tokens: (B,1) int32; lengths: (B,) current
+    positions. Writes each layer's cache in place. Returns (logits
+    (B,1,V), caches, lengths+1)."""
+    check_supported(cfg)
+    cdt = getattr(torch, cfg.compute_dtype)
+    x = L.embed_tokens(params["embed"].to(cdt), tokens, cfg.embed_scale)
+    for p, spec, cache in zip(params["blocks"], layer_specs(cfg), caches,
+                              strict=True):
+        x, _, _ = apply_block(p, x, None, cfg, spec, cache=cache,
+                              pos=lengths)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = L.logits_head(params["lm_head"], x, cfg.final_softcap)
+    return logits, caches, lengths + 1

@@ -1,0 +1,80 @@
+"""Serving engine: prefill + greedy decode with a KV cache; counterpart of
+`repro.serve.engine`."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..device import resolve_device
+from ..models import model as model_lib
+
+#: leaves of a block read in f32 by rms_norm; they keep param_dtype
+_NORMS = ("ln1", "ln2", "ln1_post", "ln2_post", "final_norm")
+
+
+def cast_weights(params, dtype):
+    """The weight matrices in `dtype`, norm weights as they are. The
+    reference casts each weight to the compute type where it is used
+    (`w.astype(x.dtype)`); casting once gives the same values."""
+    def cast(tree):
+        return {k: (cast(v) if isinstance(v, dict)
+                    else v if k in _NORMS else v.to(dtype))
+                for k, v in tree.items()}
+
+    out = cast({k: v for k, v in params.items() if k != "blocks"})
+    out["blocks"] = [cast(b) for b in params["blocks"]]
+    return out
+
+
+@dataclass
+class Engine:
+    model: model_lib.Model
+    params: dict
+    max_seq: int
+
+    @classmethod
+    def build(cls, cfg, max_seq: int = 256, params=None, seed: int = 0,
+              device=None):
+        """The engine of `cfg` on `device` (the card unless asked for the
+        CPU). Without `params`, random weights from a generator seeded
+        with `seed`; given `params` are moved to the device."""
+        dev = resolve_device(device)
+        m = model_lib.build(cfg)
+        if params is None:
+            params = m.init(seed=seed, device=dev)
+        params = cast_weights(params, getattr(torch, cfg.compute_dtype))
+        params = _to(params, dev)
+        return cls(model=m, params=params, max_seq=max_seq)
+
+    def generate(self, batch: dict, n_tokens: int, progress_cb=None):
+        """Greedy decode of n_tokens after the prompt, in the reference's
+        order; progress_cb(i, n) per token. Returns (B, n_tokens) int32
+        numpy."""
+        S = batch["tokens"].shape[1]
+        if S + n_tokens > self.max_seq:
+            raise ValueError(f"generate: prompt {S} + {n_tokens} tokens "
+                             f"exceed max_seq {self.max_seq}")
+        logits, cache = self.model.prefill(self.params, batch, self.max_seq)
+        V = self.model.cfg.vocab_size
+        toks = []
+        tok = _greedy(logits, V)
+        for i in range(n_tokens):
+            toks.append(tok)
+            logits, cache = self.model.decode_step(self.params, tok, cache)
+            tok = _greedy(logits, V)
+            if progress_cb is not None:
+                progress_cb(i + 1, n_tokens)
+        return torch.cat(toks, dim=1).cpu().numpy()
+
+
+def _greedy(logits, V):
+    return torch.argmax(logits[:, -1:, :V], dim=-1).to(torch.int32)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
