@@ -6,7 +6,10 @@
 Phases; each raises on failure, so any failure exits non-zero:
 
 1. print the card (nvidia-smi name and power limit) and build every kernel
-   of the main path from `src/repro_torch/kernels/csrc/`, timed;
+   of the main path from `src/repro_torch/kernels/csrc/` (grid_solve.cu,
+   pocd_mc.cu, flash_attention.cu, flash_attention_sm90.cu), timed, with
+   ptxas's registers and spills, and the tensor-core kernel's dynamic
+   shared memory;
 2. hold each kernel against its plain PyTorch version on the card, for
    every optimized strategy at (J, r_max) = (37, 9), (64, 33), (2700, 9)
    and (65536, 64): r*, choice and sat equal; U rtol 1e-4 / atol 1e-5,
@@ -49,31 +52,42 @@ Phases; each raises on failure, so any failure exits non-zero:
    device time per launch (torch.profiler), wrapper call and plain times
    (CUDA events) and the bound;
 8. time the path's own launches (phase 6's inputs) for the kernels line;
-9. hold the flash-attention kernel against its plain version on the card
-   (each launch synchronized): tests/test_kernels.py's shapes in f32 and
-   bf16 (MHA (1, 4, 256, 64) and (2, 8, 256, 128), GQA with 1, 2 and 4 kv
-   heads, softcap and non-causal), ragged lengths 200 and 77, head dim
-   256, and the serving path's shape (B 4, H 8, K 4, S 2048, D 256,
-   causal, softcap 50, bf16, as the model's strided (B, S, heads, D)
-   views), within f32 2e-5 / bf16 2e-2 (the reference's own kernel
-   tolerances). At the path's shape: kernel ms (torch.profiler), call and
-   plain ms (CUDA events), the bound, and the yardstick
+9. hold the flash-attention kernels against their plain version on the
+   card (each launch synchronized): tests/test_kernels.py's shapes in f32
+   and bf16 (MHA (1, 4, 256, 64) and (2, 8, 256, 128), GQA with 1, 2 and
+   4 kv heads, softcap and non-causal), ragged lengths 200 and 77, head
+   dim 256, the bf16 edge shapes (D 64, 128, 256; 1, 2, 4 kv heads;
+   S 77, 200, 2048, 2049; causal with and without softcap, non-causal
+   with softcap 30; contiguous and strided (B, S, heads, D) views), and
+   the serving path's shape (B 4, H 8, K 4, S 2048, D 256, causal,
+   softcap 50, bf16, as the model's strided views), within f32 2e-5 /
+   bf16 2e-2 (the reference's own kernel tolerances). Softcap cases with
+   q scaled by 16 (FA_HOT_SHAPES, the path's shape among them) put the
+   scores past the cap, where a wrong tanh shows. Every bf16 case is also
+   held against the output's own size: mean |err| within 2^-8 of mean
+   |want|, max |err| within 2^-6 of max |want|. Every bf16 case must move
+   the tensor-core route's count by one and every f32 case the SIMT
+   route's. At the path's shape: the tensor-core kernel's ms
+   (torch.profiler) and call ms (CUDA events), the SIMT kernel's on the
+   same bf16 inputs through its own launcher (the previous design, never
+   on the path; held once against the plain version), the plain ms, the
+   bound, and the yardstick
    F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) on the
    same inputs without the softcap (no PyTorch call has one; the port
    never calls it);
 10. the serving path at full width. First a reference check on a small
    input: gemma2-2b cut to 2 layers, f32 compute, the same seeded weights
-   on the card (through the kernel) and on the CPU (through the plain
-   version, which the CPU tests hold against the JAX package), B 2,
-   prompt 200, 4 decode steps fed the CPU's choices: logits within 1e-4
-   at every step, and the choices equal wherever the CPU's top-2 margin
-   exceeds 2e-4. Then gemma2-2b unreduced (26 layers, d 2304, 8/4 heads,
+   on the card (through the SIMT kernel, the f32 route: 2 launches) and on
+   the CPU (through the plain version, which the CPU tests hold against
+   the JAX package), B 2, prompt 200, 4 decode steps fed the CPU's
+   choices: logits within 1e-4 at every step, and the choices equal
+   wherever the CPU's top-2 margin exceeds 2e-4. Then gemma2-2b unreduced (26 layers, d 2304, 8/4 heads,
    head dim 256, d_ff 9216, vocab 256,000; 3.2 B parameters, weights
    cast once to bf16) built on the card from a seeded generator; the
    batch make_batch(cfg, 4, 2048, "prefill", seed=0); max_seq 2080;
    generate 32 tokens. Every launch count is set to 0 just before the
    first generate and read just after: flash attention must read 26 (one
-   per layer of the one prefill). Build s, prefill ms first and warm,
+   per layer of the one prefill), all on the tensor-core route. Build s, prefill ms first and warm,
    decode ms per token, tokens/s, peak device memory, and one warm
    generate under the profiler (device busy, idle share, the kernel's
    share); the tokens must be in range and equal between the first and
@@ -156,23 +170,54 @@ FULL_REPS = 65536
 
 TOL = {"u": (1e-4, 1e-5), "pocd": (1e-5, 1e-7), "cost": (1e-4, 1e-5)}
 
-# flash attention: (B, H, K, S, D, dtype, causal, softcap); the reference
-# test's shapes (tests/test_kernels.py), ragged lengths, head dim 256
+# flash attention: (B, H, K, S, D, dtype, causal, softcap, views); the
+# reference test's shapes (tests/test_kernels.py), ragged lengths, head dim
+# 256, then the tensor-core kernel's edge shapes (those of
+# tests/test_torch_flash_attention.py's card test): every head dim, 1, 2
+# and 4 kv heads, ragged and tile-multiple lengths, the three mask modes,
+# contiguous and the model's strided (B, S, heads, D) views
 FA_SHAPES = tuple(
-    [(1, 4, 4, 256, 64, dt, True, None) for dt in ("float32", "bfloat16")]
-    + [(2, 8, 8, 256, 128, dt, True, None) for dt in ("float32", "bfloat16")]
-    + [(1, 8, kv, 256, 64, "float32", True, None) for kv in (1, 2, 4)]
-    + [(1, 2, 2, 256, 64, "float32", c, cap)
+    [(1, 4, 4, 256, 64, dt, True, None, False)
+     for dt in ("float32", "bfloat16")]
+    + [(2, 8, 8, 256, 128, dt, True, None, False)
+       for dt in ("float32", "bfloat16")]
+    + [(1, 8, kv, 256, 64, "float32", True, None, False) for kv in (1, 2, 4)]
+    + [(1, 2, 2, 256, 64, "float32", c, cap, False)
        for c, cap in ((False, None), (True, 50.0), (False, 30.0))]
-    + [(2, 4, 2, 200, 64, "float32", True, 50.0),
-       (2, 8, 4, 77, 256, "bfloat16", True, 50.0),
-       (1, 8, 4, 512, 256, "float32", True, 50.0)])
+    + [(2, 4, 2, 200, 64, "float32", True, 50.0, False),
+       (2, 8, 4, 77, 256, "bfloat16", True, 50.0, False),
+       (1, 8, 4, 512, 256, "float32", True, 50.0, False)]
+    + [(1, 8, (1, 2, 4)[(i + i // 3) % 3], S, D, "bfloat16", causal, cap,
+        i % 2 == 1)
+       for i, (D, S, (causal, cap)) in enumerate(
+           (D, S, mode) for D in (64, 128, 256) for S in (77, 200, 2048, 2049)
+           for mode in ((True, None), (True, 50.0), (False, 30.0)))])
+# softcap cases with q scaled by FA_HOT_SCALE: the scores reach and pass
+# the cap (std 16 against caps of 30 and 50), so a kernel that computes
+# the tanh wrongly, or not at all, fails them; unscaled scores (std 1)
+# stay where cap * tanh(s / cap) is within 0.02 of s
+FA_HOT_SCALE = 16.0
+FA_HOT_SHAPES = (
+    (4, 8, 4, 2048, 256, "bfloat16", True, 50.0, True),
+    (1, 8, 2, 2049, 128, "bfloat16", False, 30.0, True),
+    (1, 8, 4, 2048, 64, "bfloat16", False, 30.0, False),
+    (2, 8, 4, 77, 256, "bfloat16", True, 50.0, False),
+    (1, 8, 1, 200, 64, "bfloat16", True, 50.0, True),
+    (1, 8, 4, 512, 256, "float32", True, 50.0, False))
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bf16 only, beside FA_TOL: errors held against the output's own size,
+# mean |err| <= FA_MEAN_REL mean |want| and max |err| <= FA_MAX_REL
+# max |want|; about 2.5x the largest readings of every bf16 case on an
+# H100 (0.0016 and 0.0061)
+FA_MEAN_REL = 2.0 ** -8
+FA_MAX_REL = 2.0 ** -6
 # the serving path: gemma2-2b, batch 4, a 2048-token prompt, 32 tokens
 SERVE = dict(arch="gemma2-2b", batch=4, prompt=2048, tokens=32)
 FA_PATH = (SERVE["batch"], 8, 4, SERVE["prompt"], 256, "bfloat16", True,
            50.0)
 CHECK_SERVE = dict(layers=2, batch=2, prompt=200, tokens=4, tol=1e-4)
+SOURCES = ("grid_solve", "pocd_mc", "flash_attention",
+           "flash_attention_sm90")
 CHECK_SHAPES = ((37, 9), (64, 33), (2700, 9), (65536, 64))
 THETA = 1e-4
 CHECK_R_MIN = 0.03   # about the main path's R_min, so -inf rows occur
@@ -184,6 +229,28 @@ def card() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(name: str, marker: str) -> dict:
+    """Registers, spills and stack of the kernel of `csrc/<name>.cu` whose
+    mangled name holds `marker`, from ptxas's -v report in the build log."""
+    import re
+    out, inside = {}, False
+    for line in build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            inside = marker in line
+        elif inside:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                          r" (\d+) bytes spill loads", line)
+            if m:
+                out.update(stack=int(m[1]), spill_stores=int(m[2]),
+                           spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out["registers"] = int(m[1])
+    if "registers" not in out:
+        raise AssertionError(f"no ptxas report of {marker} in {name}'s log")
+    return out
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -417,14 +484,14 @@ def phase_profile(fn, label: str, wall_s: float) -> dict:
     if busy_us <= 0:
         raise AssertionError("profiler recorded no device time")
     ours = {k: sum(e.device_time_total for e in rows if k in e.key) / 1e3
-            for k in ("grid_solve", "pocd_mc", "flash_attention_kernel")}
+            for k in ("grid_solve", "pocd_mc", "flash_attention")}
     idle = 1.0 - (busy_us / 1e3) / (wall_s * 1e3)
     print(f"profile {label}: device busy {busy_us / 1e3:.3f} ms in "
           f"{n_ops} device ops; unprofiled warm wall {wall_s * 1e3:.3f} ms; "
           f"device idle share {idle:.3f}; grid_solve kernel "
           f"{ours['grid_solve']:.3f} ms, pocd_mc kernels "
-          f"{ours['pocd_mc']:.3f} ms, flash_attention kernel "
-          f"{ours['flash_attention_kernel']:.3f} ms")
+          f"{ours['pocd_mc']:.3f} ms, flash_attention kernels "
+          f"{ours['flash_attention']:.3f} ms")
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms "
               f"{100 * e.device_time_total / busy_us:5.1f}% x{e.count:<5d} "
@@ -432,7 +499,7 @@ def phase_profile(fn, label: str, wall_s: float) -> dict:
     return dict(device_busy_ms=busy_us / 1e3, device_ops=n_ops,
                 idle_share=idle, grid_solve_ms=ours["grid_solve"],
                 pocd_mc_ms=ours["pocd_mc"],
-                flash_attention_ms=ours["flash_attention_kernel"])
+                flash_attention_ms=ours["flash_attention"])
 
 
 def uniforms(shape, seed: int, dev, low: float = 1e-7):
@@ -708,19 +775,45 @@ def phase_mc_check(dev, full_shape) -> dict:
     return dict(max_abs_err=err, times=times)
 
 
-def fa_inputs(B, H, K, S, D, dtype, seed, dev, views=False):
-    """Seeded q (B, H, S, D), k and v (B, K, S, D) on the card; with
-    `views`, the model's (B, S, heads, D) activations seen as (B, heads,
-    S, D), as attention_full hands them to the kernel."""
+def fa_inputs(B, H, K, S, D, dtype, seed, dev, views=False, q_scale=1.0):
+    """Seeded q (B, H, S, D) times q_scale, k and v (B, K, S, D) on the
+    card; with `views`, the model's (B, S, heads, D) activations seen as
+    (B, heads, S, D), as attention_full hands them to the kernel."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     out = []
-    for heads in (H, K, K):
+    for heads, scale in ((H, q_scale), (K, 1.0), (K, 1.0)):
         shape = (B, S, heads, D) if views else (B, heads, S, D)
-        x = torch.randn(shape, generator=g, device=dev).to(
+        x = (scale * torch.randn(shape, generator=g, device=dev)).to(
             getattr(torch, dtype))
         out.append(x.transpose(1, 2) if views else x)
     return out
+
+
+def fa_compare(what, got, want, dt) -> tuple:
+    """Raise unless got is finite, of want's type, and within FA_TOL[dt]
+    of want; for bf16 also within FA_MEAN_REL / FA_MAX_REL of want's own
+    size. Returns (max |err|, mean |err| / mean |want|, max |err| /
+    max |want|)."""
+    tol = FA_TOL[dt]
+    if got.dtype != want.dtype or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_attention {what}: output {got.dtype}, "
+                             f"not all finite")
+    g, w = got.float(), want.float()
+    close = torch.isclose(g, w, rtol=tol, atol=tol)
+    if not bool(close.all()):
+        raise AssertionError(f"flash_attention {what}: outside {tol} of the "
+                             f"plain version in {int((~close).sum())} "
+                             f"elements")
+    err = (g - w).abs()
+    mean_rel = float(err.mean() / w.abs().mean())
+    max_rel = float(err.max() / w.abs().max())
+    if dt == "bfloat16" and (mean_rel > FA_MEAN_REL or max_rel > FA_MAX_REL):
+        raise AssertionError(f"flash_attention {what}: mean |err| / mean "
+                             f"|want| {mean_rel:.3g} (limit {FA_MEAN_REL:.3g})"
+                             f", max |err| / max |want| {max_rel:.3g} (limit "
+                             f"{FA_MAX_REL:.3g})")
+    return float(err.max()), mean_rel, max_rel
 
 
 def fa_bound(B, H, K, S, D, dtype, causal):
@@ -737,53 +830,79 @@ def fa_bound(B, H, K, S, D, dtype, causal):
 
 
 def phase_fa_check(dev) -> dict:
-    """The flash-attention kernel against its plain version at every
-    shape of FA_SHAPES and at the path's; returns max |error| by type."""
+    """The flash-attention kernels against their plain version at every
+    shape of FA_SHAPES, at the path's, and at FA_HOT_SHAPES with q scaled
+    by FA_HOT_SCALE: bf16 through the tensor-core kernel, f32 through the
+    SIMT one, each case moving its route's count by one. Returns max
+    |error| by type and the largest relative readings of the bf16
+    cases."""
     err = {"float32": 0.0, "bfloat16": 0.0}
-    for i, shape in enumerate(FA_SHAPES + (FA_PATH,)):
-        B, H, K, S, D, dt, causal, cap = shape
-        q, k, v = fa_inputs(B, H, K, S, D, dt, 100 + i, dev,
-                            views=shape is FA_PATH)
+    rel = {"mean_rel": 0.0, "max_rel": 0.0}
+    cases = ([(x, 1.0) for x in FA_SHAPES + (FA_PATH + (True,),)]
+             + [(x, FA_HOT_SCALE) for x in FA_HOT_SHAPES])
+    for i, (shape, q_scale) in enumerate(cases):
+        B, H, K, S, D, dt, causal, cap, views = shape
+        q, k, v = fa_inputs(B, H, K, S, D, dt, 100 + i, dev, views=views,
+                            q_scale=q_scale)
+        before = (fa.launches_sm90, fa.launches_simt)
         got = fa.attention(q, k, v, causal=causal, softcap=cap)
         torch.cuda.synchronize()
+        moved = (fa.launches_sm90 - before[0], fa.launches_simt - before[1])
+        route = "sm90" if dt == "bfloat16" else "simt"
+        if moved != ((1, 0) if route == "sm90" else (0, 1)):
+            raise AssertionError(f"flash_attention {shape}: route counts "
+                                 f"moved (sm90, simt) = {moved}, expected "
+                                 f"one {route} launch")
         want = fa.attention_plain(q, k, v, causal=causal, softcap=cap)
-        tol = FA_TOL[dt]
-        if got.dtype != q.dtype or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"flash_attention {shape}: output "
-                                 f"{got.dtype}, not all finite")
-        close = torch.isclose(got.float(), want.float(), rtol=tol, atol=tol)
-        if not bool(close.all()):
-            raise AssertionError(f"flash_attention {shape}: outside "
-                                 f"{tol} of the plain version in "
-                                 f"{int((~close).sum())} elements")
-        e = float((got.float() - want.float()).abs().max())
+        e, mean_rel, max_rel = fa_compare(shape, got, want, dt)
         err[dt] = max(err[dt], e)
-        print(f"flash_attention {shape}: equals the plain version, max abs "
-              f"err {e:.3g} (tol {tol})")
-    return err
+        if dt == "bfloat16":
+            rel = {"mean_rel": max(rel["mean_rel"], mean_rel),
+                   "max_rel": max(rel["max_rel"], max_rel)}
+        print(f"flash_attention {shape} q x{q_scale:g}: {route} kernel "
+              f"equals the plain version, max abs err {e:.3g} (tol "
+              f"{FA_TOL[dt]}), mean |err| / mean |want| {mean_rel:.3g}, "
+              f"max |err| / max |want| {max_rel:.3g}")
+    return err, rel
 
 
 def fa_times(dev) -> dict:
-    """At the serving path's shape: kernel ms (profiler), wrapper call and
-    plain ms (CUDA events), the bound, and the yardstick SDPA without the
-    softcap."""
+    """At the serving path's shape: the tensor-core kernel's ms (profiler)
+    and call ms (CUDA events), the SIMT kernel's on the same bf16 inputs
+    (the previous design, through its own launcher), the plain ms, the
+    bound, and the yardstick SDPA without the softcap."""
     B, H, K, S, D, dt, causal, cap = FA_PATH
     q, k, v = fa_inputs(B, H, K, S, D, dt, 7, dev, views=True)
     launch = lambda: fa.attention_cuda(q, k, v, causal=causal, softcap=cap)
+    previous = lambda: fa.attention_simt(q, k, v, causal=causal, softcap=cap)
     plain = lambda: fa.attention_plain(q, k, v, causal=causal, softcap=cap)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=True)
+    # the SIMT kernel's bf16 instantiation is timed below; hold it once
+    e, mean_rel, max_rel = fa_compare("SIMT kernel on bf16", previous(),
+                                      plain(), dt)
+    print(f"flash_attention at {FA_PATH}: SIMT kernel on bf16 equals the "
+          f"plain version, max abs err {e:.3g}, mean |err| / mean |want| "
+          f"{mean_rel:.3g}, max |err| / max |want| {max_rel:.3g}")
     bytes_ms, ops_ms = fa_bound(B, H, K, S, D, dt, causal)
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
-    out = dict(ms=kernel_ms(launch, 10, "flash_attention_kernel"),
-               call_ms=cuda_ms(launch, 10), plain_ms=cuda_ms(plain, 3),
-               library_ms=cuda_ms(library, 10), bytes_ms=bytes_ms,
-               ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
-    print(f"flash_attention at {FA_PATH}: kernel {out['ms']:.4f} ms (call "
-          f"{out['call_ms']:.4f}), plain {out['plain_ms']:.3f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}; bytes {bytes_ms:.5f}, operations "
-          f"{ops_ms:.5f}); SDPA without softcap (yardstick, not on the path)"
-          f" {out['library_ms']:.4f} ms")
+    out = dict(ms=kernel_ms(launch, 20, "flash_attention_sm90_kernel"),
+               call_ms=cuda_ms(launch, 20),
+               previous_ms=kernel_ms(previous, 5, "flash_attention_kernel"),
+               previous_call_ms=cuda_ms(previous, 3),
+               plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20),
+               bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    out["bound_share"] = bound_ms / out["ms"]
+    out["tflops"] = ops_ms * BF16_TENSOR_OPS_PER_S / 1e12 / out["ms"]
+    print(f"flash_attention at {FA_PATH}: tensor-core kernel {out['ms']:.4f} "
+          f"ms (call {out['call_ms']:.4f}; {out['tflops']:.1f} TFLOP/s, "
+          f"{out['bound_share']:.3f} of the bound), previous SIMT kernel "
+          f"{out['previous_ms']:.4f} ms (call {out['previous_call_ms']:.4f}),"
+          f" plain {out['plain_ms']:.3f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}; bytes {bytes_ms:.5f}, operations {ops_ms:.5f}); SDPA"
+          f" without softcap (yardstick, not on the path) "
+          f"{out['library_ms']:.4f} ms")
     return out
 
 
@@ -839,21 +958,26 @@ def phase_serve_check(dev) -> dict:
     card = Engine.build(cfg, max_seq=max_seq, params=params, device=dev)
     host = Engine.build(cfg, max_seq=max_seq, params=params, device="cpu")
     del params
-    fa.launches = 0
+    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
     err, clear = step_compare(cfg, card, host, CHECK_SERVE["tokens"],
                               CHECK_SERVE["tol"])
-    if fa.launches != cfg.n_layers:
+    if (fa.launches, fa.launches_simt, fa.launches_sm90) != (
+            cfg.n_layers, cfg.n_layers, 0):
         raise AssertionError(f"serve check: {fa.launches} flash-attention "
-                             f"launches, expected {cfg.n_layers}")
+                             f"launches ({fa.launches_simt} simt, "
+                             f"{fa.launches_sm90} sm90), expected "
+                             f"{cfg.n_layers} on the f32 (simt) route")
     del card, host
     torch.cuda.empty_cache()
     secs = time.perf_counter() - t0
     print(f"serve check (gemma2-2b, {cfg.n_layers} layers, full width, "
           f"f32, B {CHECK_SERVE['batch']}, prompt {CHECK_SERVE['prompt']}): "
-          f"card equals the CPU's plain path; max logit err {err:.3g} (tol "
+          f"{cfg.n_layers} simt launches; card equals the CPU's plain path; "
+          f"max logit err {err:.3g} (tol "
           f"{CHECK_SERVE['tol']}); {clear} clear greedy choices equal; "
           f"{secs:.1f} s")
-    return dict(max_logit_err=err, clear_choices=clear, seconds=secs)
+    return dict(max_logit_err=err, clear_choices=clear, seconds=secs,
+                simt_launches=cfg.n_layers)
 
 
 def n_elements(tree) -> int:
@@ -893,14 +1017,19 @@ def phase_serve(dev) -> dict:
     del logits, cache
 
     # the main path: every count set to 0 just before, read just after
-    gs.launches = pm.launches = pm.launches_all = fa.launches = 0
+    gs.launches = pm.launches = pm.launches_all = 0
+    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
     toks, gen_first_s = synced(lambda: eng.generate(batch, T))
-    counts = dict(flash_attention=fa.launches, grid_solve=gs.launches,
-                  pocd_mc=pm.launches, pocd_mc_all=pm.launches_all)
-    if counts["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"serve: {counts['flash_attention']} "
-                             f"flash-attention launches in one generate, "
-                             f"expected {cfg.n_layers} (one per layer)")
+    counts = dict(flash_attention=fa.launches,
+                  flash_attention_sm90=fa.launches_sm90,
+                  flash_attention_simt=fa.launches_simt,
+                  grid_solve=gs.launches, pocd_mc=pm.launches,
+                  pocd_mc_all=pm.launches_all)
+    if (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_simt"]) != (cfg.n_layers, cfg.n_layers, 0):
+        raise AssertionError(f"serve: flash-attention launches in one "
+                             f"generate {counts}, expected {cfg.n_layers} "
+                             f"(one per layer), all on the sm90 route")
     peak = torch.cuda.max_memory_allocated()
     if toks.shape != (B, T) or toks.min() < 0 or toks.max() >= \
             cfg.vocab_size:
@@ -970,14 +1099,16 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    build.compile_sources(["grid_solve", "pocd_mc", "flash_attention"])
+    build.compile_sources(SOURCES)
     build_s = time.perf_counter() - t0
-    print(f"build: grid_solve, pocd_mc and flash_attention in {build_s:.2f} "
-          f"s")
-    for name in ("grid_solve", "pocd_mc", "flash_attention"):
+    print(f"build: {', '.join(SOURCES)} in {build_s:.2f} s")
+    for name in SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}:", line.strip())
+    sm90 = ptxas_report("flash_attention_sm90", "Li256E")
+    print(f"  flash_attention_sm90 at D 256: {sm90}, dynamic shared memory "
+          f"{fa.SM90_SMEM_BYTES[256]} bytes")
     p = SimParams()
 
     check = phase_check(dev, p)
@@ -1026,7 +1157,7 @@ def main() -> None:
         "single-mode launches on the same inputs " + ", ".join(
             f"{m} {t['ms']:.5f} ms" for m, t in fw_single.items()))
 
-    fa_err = phase_fa_check(dev)
+    fa_err, fa_rel = phase_fa_check(dev)
     fa_t = fa_times(dev)
     serve_check = phase_serve_check(dev)
     serve = phase_serve(dev)
@@ -1100,16 +1231,30 @@ def main() -> None:
                                               warm["steps"].items()}},
                  profile_quickstart_path=qs_prof),
         # per launch at the serving path's shape (FA_PATH); launches from
-        # the main-path generate (one prefill of SERVE["arch"])
+        # the main-path generate (one prefill of SERVE["arch"]), all on the
+        # bf16 tensor-core route; previous_ms is the SIMT kernel, which
+        # keeps the f32 route, on the same bf16 inputs
         dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:90",
              launches=serve["counts"]["flash_attention"],
+             route_counts={"sm90": serve["counts"]["flash_attention_sm90"],
+                           "simt": serve["counts"]["flash_attention_simt"]},
+             f32_route=dict(
+                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 launches_serve_check=serve_check["simt_launches"]),
              max_abs_err=max(fa_err.values()), max_abs_err_by_type=fa_err,
+             bf16_relative_err=fa_rel,
              ms=fa_t["ms"], call_ms=fa_t["call_ms"],
+             previous_ms=fa_t["previous_ms"],
+             previous_call_ms=fa_t["previous_call_ms"],
              plain_ms=fa_t["plain_ms"], bound_ms=fa_t["bound_ms"],
-             bound_by=fa_t["bound_by"], bytes_ms=fa_t["bytes_ms"],
+             bound_by=fa_t["bound_by"], bound_share=fa_t["bound_share"],
+             tflops=fa_t["tflops"], bytes_ms=fa_t["bytes_ms"],
              ops_ms=fa_t["ops_ms"], library_ms=fa_t["library_ms"],
+             registers=sm90["registers"],
+             spills=sm90["spill_stores"] + sm90["spill_loads"],
+             smem_bytes=fa.SM90_SMEM_BYTES[256],
              library="torch.nn.functional.scaled_dot_product_attention("
                      "is_causal=True, enable_gqa=True) without the softcap",
              shape=dict(zip(("B", "H", "K", "S", "D", "dtype", "causal",

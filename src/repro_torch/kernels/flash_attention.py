@@ -5,23 +5,33 @@ Replaces the Pallas TPU kernel `repro/kernels/flash_attention.py`
 
 * `attention_plain`: plain PyTorch, the reference's oracle
   `ref.attention_ref` op for op (f32 scores and softmax), on any device;
-* `attention_cuda`: the hand-written kernel `csrc/flash_attention.cu`
-  (online softmax over kv tiles, f32 running max, sum and accumulator);
+* `attention_cuda`: a hand-written kernel, chosen by `_route` from the
+  input type. bfloat16 goes to `csrc/flash_attention_sm90.cu`: both
+  products on Hopper's tensor cores (`wgmma`, bf16 operands, f32
+  accumulators), K/V tiles fed by TMA through a 2-stage mbarrier ring,
+  one producer warpgroup and two consumer warpgroups. float32 goes to
+  `csrc/flash_attention.cu` (`attention_simt`): f32 products on the SIMT
+  units, which hold the f32 tolerance of 2e-5 that bf16 or TF32 products
+  would not;
 * `attention`: the wrapper. CPU tensors take the plain version, CUDA
   tensors the kernel; anything else raises.
 
 q is (B, H, Sq, D), k and v (B, K, Sk, D) with H % K == 0; query head h
 reads kv head h // (H // K). The scale is D**-0.5, the softcap
 cap * tanh(s / cap) comes after it, and the causal mask after that. The
-output has q's type.
+softmax is online with f32 running max, sum and accumulator; the output
+has q's type. The tensor-core kernel rounds the probabilities p to bf16
+before the product with V (its only numerical change from the plain
+version; the running sum adds the unrounded p).
 
 Causal attention takes Sq == Sk only. The reference disagrees with itself
 otherwise: its Pallas kernel aligns the mask top-left (k_pos <= q_pos),
 its oracle bottom-right (tril(k=Sk-Sq)). Prefill always has Sq == Sk.
 
 What bounds it on the card: operations (4 B H Sq Sk D, halved under
-causal) against q, k, v and out read or written once. See the .cu source
-for the design.
+causal) against q, k, v and out read or written once; at the serving
+shape 68.7 GFLOP, 0.069 ms at the bf16 tensor-core rate. See the .cu
+sources for each design.
 """
 from __future__ import annotations
 
@@ -32,12 +42,35 @@ import torch
 
 from . import build
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of either CUDA kernel since the count was last set to 0
 launches = 0
+#: launches of the tensor-core kernel (bfloat16) and of the SIMT kernel
+launches_sm90 = 0
+launches_simt = 0
 
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 KERNEL_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: dynamic shared memory of one tensor-core block by head dim, as
+#: `smem_bytes<D>()` in csrc/flash_attention_sm90.cu sizes it: the
+#: 128-row Q tile and 2 stages of K and V (128 keys a tile, 64 at D 256)
+#: in bf16, 1024 bytes to align them, 5 mbarriers
+SM90_SMEM_BYTES = {D: (128 + 4 * (64 if D == 256 else 128)) * D * 2 + 1064
+                   for D in KERNEL_HEAD_DIMS}
+
+
+def _route(dtype, D) -> str:
+    """The kernel that takes a CUDA call: "sm90" (tensor cores) for
+    bfloat16, "simt" for float32; raises on any other type or head dim."""
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"attention: the kernels take head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    if dtype == torch.bfloat16:
+        return "sm90"
+    if dtype == torch.float32:
+        return "simt"
+    raise ValueError(f"attention: the kernels take float32 or bfloat16, got "
+                     f"{dtype}")
 
 
 def _check(q, k, v, causal):
@@ -78,8 +111,10 @@ def attention_plain(q, k, v, causal=True, softcap=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    fn = build.load("flash_attention").flash_attention_launch
+def _library(name):
+    """The C entry `<name>_launch` of `csrc/<name>.cu`; both sources take
+    the same arguments."""
+    fn = getattr(build.load(name), f"{name}_launch")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = ([i, i] + [p] * 4 + [i] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), i, f, f, p])
@@ -87,24 +122,18 @@ def _library():
     return fn
 
 
-def attention_cuda(q, k, v, causal=True, softcap=None):
-    """Launch `csrc/flash_attention.cu` on the current stream. q, k, v may
-    be strided views (the model passes (B, S, heads, D) activations seen as
-    (B, heads, S, D)) as long as D is contiguous; the output has q's
-    layout."""
-    global launches
+def _check_cuda(q, k, v, causal, softcap) -> str:
+    """Raise on a call that neither kernel takes; else `_route`'s pick for
+    q's type."""
     B, H, K, Sq, Sk, D = _check(q, k, v, causal)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"attention: the kernel needs q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"attention: the kernel takes float32 or bfloat16 "
-                         f"q, k, v of one type, got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attention: the kernel takes head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"attention: q, k, v must have one type, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    route = _route(q.dtype, D)
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("attention: the head dim must be contiguous")
     if B * H > 65535 or Sk == 0:
@@ -113,23 +142,74 @@ def attention_cuda(q, k, v, causal=True, softcap=None):
     if softcap is not None and not softcap > 0:
         raise ValueError(f"attention: softcap must be positive, got "
                          f"{softcap}")
+    if route == "sm90":
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16 or any(s % 8 for s in _bhs_strides(x)):
+                raise ValueError(
+                    f"attention: the tensor-core kernel needs {name} 16-byte "
+                    f"aligned with (b, h, s) strides that are multiples of "
+                    f"8, got strides {tuple(x.stride())}")
+    return route
+
+
+def _bhs_strides(x):
+    """x's element strides over (b, h, s); a dim of size 1 is never
+    stepped, so it gets the dense stride, which the TMA unit accepts."""
+    dense = (x.shape[1] * x.shape[2] * x.shape[3], x.shape[2] * x.shape[3],
+             x.shape[3])
+    return [x.stride(i) if x.shape[i] > 1 else dense[i] for i in range(3)]
+
+
+_SOURCE = {"sm90": "flash_attention_sm90", "simt": "flash_attention"}
+
+
+def _launch(route, q, k, v, causal, softcap):
+    """Run the route's kernel on the current stream and count the launch;
+    returns the output."""
+    global launches, launches_sm90, launches_simt
+    B, H, Sq, D = q.shape
+    K, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)  # q's strides when q is dense
     if out.numel() == 0:
         return out
     strides = (ctypes.c_longlong * 12)(*[
-        s for x in (q, k, v, out) for s in (x.stride(0), x.stride(1),
-                                            x.stride(2))])
-    err = _library()(
+        s for x in (q, k, v, out) for s in _bhs_strides(x)])
+    dev = q.device
+    name = _SOURCE[route]
+    err = _library(name)(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, H, K, Sq, Sk, D, strides, int(bool(causal)),
         D ** -0.5, 0.0 if softcap is None else float(softcap),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches += 1
+    if route == "sm90":
+        launches_sm90 += 1
+    else:
+        launches_simt += 1
     return out
+
+
+def attention_simt(q, k, v, causal=True, softcap=None):
+    """Launch `csrc/flash_attention.cu` (f32 SIMT products) on float32 or
+    bfloat16 inputs. The f32 route; on bfloat16 it is the previous design,
+    kept as a baseline and never called from the path."""
+    _check_cuda(q, k, v, causal, softcap)
+    return _launch("simt", q, k, v, causal, softcap)
+
+
+def attention_cuda(q, k, v, causal=True, softcap=None):
+    """Launch the kernel `_route` picks for q's type on the current
+    stream: bfloat16 on the tensor cores (the TMA unit needs 16-byte
+    aligned pointers and (b, h, s) strides that are multiples of 8),
+    float32 on the SIMT units. q, k, v may be strided views (the model
+    passes (B, S, heads, D) activations seen as (B, heads, S, D)) as long
+    as D is contiguous; the output has q's layout. No fallback: a build
+    or launch error raises."""
+    route = _check_cuda(q, k, v, causal, softcap)
+    return _launch(route, q, k, v, causal, softcap)
 
 
 def attention(q, k, v, causal=True, softcap=None):
