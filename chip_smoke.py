@@ -17,13 +17,18 @@ Phases; each raises on failure, so any failure exits non-zero:
    own kernel tolerances, tests/test_grid_solve.py). The kernel's device
    time per launch (torch.profiler), the wrapper's and the plain
    version's call times (CUDA events), and the least time the card could
-   take;
+   take (operations counted from grid_solve.cu: the quadrature's factors
+   that do not depend on r once per job, one powf per (r, node)). The
+   (2700, 9) times make the kernels line's sum over one run_all; the
+   (65536, 64) times, a fleet-sized chunk, stand beside them;
 3. the main path: `run_all` over the paper's trace, generate(2700, seed=0)
    (912,199 tasks), all registered strategies, max_r=8, at reps=1 and
    reps=8, twice each; the grid-solve launch count is set to 0 before
-   each run and must read 6 (one per optimized strategy) after it. Cold
-   and warm wall times per strategy come from `run_strategy` calls made
-   just before, in run_all's order;
+   each run and must read 6 (one per optimized strategy) after it, and
+   the two runs must give the same job_cost and job_met bits for every
+   strategy (the per-job sums are fixed-order segment sums). Cold and warm
+   wall times per strategy come from `run_strategy` calls made just
+   before, in run_all's order;
 4. replay the uniforms of one reps=1 run on the card through the plain
    CPU path: r* equal, job_met equal except jobs whose completion lies
    within f32 rtol 1e-5 of the deadline, pocd within rtol 1e-5 (plus 1/J
@@ -42,7 +47,10 @@ Phases; each raises on failure, so any failure exits non-zero:
    to 0 before the phase and must read pocd_mc 2, pocd_mc_all 1 and
    grid_solve 6 after it. A second, warm run gives each step's wall time,
    and a third, profiled run the device busy time and idle share;
-7. hold pocd_mc (each mode) and pocd_mc_all against their plain versions
+7. check the premise of the Monte-Carlo kernel's range minima with its
+   own build: logf non-decreasing over every f32 in (0, 1] and expf over
+   every f32 in [0, 89) (0 violations, else the phase fails); then hold
+   pocd_mc (each mode) and pocd_mc_all against their plain versions
    on the card at the reference test shapes (256, 16, 6), (128, 64, 4),
    (384, 8, 8), (200, 8, 4), (129, 8, 4), the benchmark shape
    (1024, 32, 6), the quickstart shape (4096, 10, 4) and the full width,
@@ -50,8 +58,11 @@ Phases; each raises on failure, so any failure exits non-zero:
    a task within f32 rtol 1e-5 of D (counted), cost within rtol 2e-5,
    row m of pocd_mc_all equal to pocd_mc of mode m. Per shape and kernel:
    device time per launch (torch.profiler), wrapper call and plain times
-   (CUDA events) and the bound;
-8. time the path's own launches (phase 6's inputs) for the kernels line;
+   (CUDA events), the bound (the uniforms the modes' slot ranges need)
+   and the dense bound (every uniform, which the card reads at R = 5);
+8. time the path's own launches (phase 6's inputs) for the kernels line:
+   pocd_mc at the quickstart shape, pocd_mc_all at the full width, and
+   each single-mode launch on the full-width inputs;
 9. hold the flash-attention kernels against their plain version on the
    card (each launch synchronized): tests/test_kernels.py's shapes in f32
    and bf16 (MHA (1, 4, 256, 64) and (2, 8, 256, 128), GQA with 1, 2 and
@@ -140,22 +151,32 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
 
-# f32 operations per (job, r) of one closed-form family, counted from
-# kernels/csrc/grid_solve.cu: each add, mul, div, compare or select and
-# each transcendental call (powf, logf, ...) counts one, so this is a lower
-# bound on the work. S-Restart's count is 44 + 1539 for the quadrature
-# (12 per node at 128 nodes, plus 3).
-OPS_PER_POINT = {"clone": 30, "srestart": 1611, "sresume": 72}
+# f32 operations of csrc/grid_solve.cu, counted from the source: each add,
+# mul, div, compare or select and each transcendental call (powf, logf,
+# ...) counts one, so this is a lower bound on the work. OPS_PER_POINT is
+# per (job, r) and family outside the quadrature; OPS_PER_JOB the terms
+# that do not depend on r, formed once per job (load_job): the log-miss
+# head of every family, the straggler probability and E[T | T <= D] that
+# the reactive families share ("slow"), and each one's own. S-Restart's
+# quadrature adds, per (job, r), 5 per node (one powf, three products, one
+# add) and 1 (beta r): QUAD_OPS_PER_R; and per job, once, the factors that
+# do not depend on r, 7 per node (w, w + tau, the quotient, its powf,
+# t_min / w, u^2, Dm / u^2): QUAD_OPS_PER_JOB. I(r*) is kept from the
+# grid, so the re-evaluation at r* costs OPS_PER_POINT alone.
+OPS_PER_POINT = {"clone": 28, "srestart": 39, "sresume": 39}
+OPS_PER_JOB = {"head": 4, "slow": 21, "srestart": 10, "sresume": 10}
+QUAD_OPS_PER_R = 5 * 128 + 1
+QUAD_OPS_PER_JOB = 7 * 128
 
 # f32 operations of csrc/pocd_mc.cu, counted from the source as above:
-# forming one attempt time (logf, negate, divide, expf, multiply); per
-# extra slot a mode folds in (clone: compare, min; srestart: compare, min;
-# sresume: multiply, max, compare, min); per task and mode (the clone and
-# reactive bills, the deadline compare, the AND and the sum), plus one
-# straggler compare per task
+# forming one attempt time (logf, negate, divide, expf, multiply); the
+# kernel forms T1 for every task, clone's best where its range passes
+# slot 0, and a straggler's one or two range minima; one compare per slot
+# read into a range maximum; per task and mode the mode's outcome (the
+# clone and reactive bills, the deadline compare, the AND and the sum),
+# plus one straggler compare per task
 OPS_PER_ATTEMPT = 5
-OPS_PER_SLOT = {"clone": 2, "srestart": 2, "sresume": 4}
-OPS_PER_TASK = {"clone": 5, "srestart": 13, "sresume": 9}
+OPS_PER_TASK = {"clone": 5, "srestart": 13, "sresume": 11}
 MODE_BITS = {"clone": 1, "srestart": 2, "sresume": 4}
 
 # (J, N, R): tests/test_kernels.py's shapes, benchmarks/perf.py's and
@@ -219,6 +240,7 @@ CHECK_SERVE = dict(layers=2, batch=2, prompt=200, tokens=4, tol=1e-4)
 SOURCES = ("grid_solve", "pocd_mc", "flash_attention",
            "flash_attention_sm90")
 CHECK_SHAPES = ((37, 9), (64, 33), (2700, 9), (65536, 64))
+FLEET_SHAPE = (65536, 64)   # a fleet-sized chunk (ROADMAP A.5)
 THETA = 1e-4
 CHECK_R_MIN = 0.03   # about the main path's R_min, so -inf rows occur
 
@@ -311,8 +333,13 @@ def grid_solve_bound(spec, J: int, r_max: int):
     forms = [get(n).form for n in (spec.components or (spec.name,))]
     per_r = sum(OPS_PER_POINT[f] for f in forms)
     # the grid, then every form again at r*; one max per extra form and
-    # one argmax compare per grid point
-    ops = J * ((r_max + 1) * per_r + r_max * len(forms))
+    # one argmax compare per grid point; the quadrature where S-Restart is
+    reactive = [f for f in forms if f != "clone"]
+    per_job = (OPS_PER_JOB["head"] + (OPS_PER_JOB["slow"] if reactive else 0)
+               + sum(OPS_PER_JOB[f] for f in set(reactive)))
+    ops = J * ((r_max + 1) * per_r + r_max * len(forms) + per_job)
+    if "srestart" in forms:
+        ops += J * (r_max * QUAD_OPS_PER_R + QUAD_OPS_PER_JOB)
     nbytes = J * (10 + 6) * 4 + 2 * 128 * 4
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
 
@@ -324,7 +351,7 @@ def bound_of(bytes_ms: float, ops_ms: float):
 
 def phase_check(dev, p: SimParams) -> dict:
     """Kernel against plain on the card at every check shape."""
-    out = {"max_abs_err": 0.0, "main": {}}
+    out = {"max_abs_err": 0.0, "main": {}, "fleet": {}}
     for J, r_max in CHECK_SHAPES:
         job = jobspecs_of(generate(J, seed=0, device=dev), p, THETA,
                           CHECK_R_MIN)
@@ -364,11 +391,12 @@ def phase_check(dev, p: SimParams) -> dict:
                   f"cost {errs[2]:.3g}; kernel {ms:.4f} ms (wrapper call "
                   f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
                   f"{bound_ms:.6f} ms ({bound_by})")
+            row = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                       bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms)
             if (J, r_max) == (2700, 9):
-                out["main"][name] = dict(ms=ms, call_ms=call_ms,
-                                         plain_ms=plain_ms,
-                                         bytes_ms=bytes_ms, ops_ms=ops_ms,
-                                         bound_ms=bound_ms)
+                out["main"][name] = row
+            elif (J, r_max) == FLEET_SHAPE:
+                out["fleet"][name] = row
     return out
 
 
@@ -387,6 +415,20 @@ def timed_run_all(source, jobs, p, reps: int, dev):
         raise AssertionError(f"run_all reps={reps} launched the grid-solve "
                              f"kernel {gs.launches} times, expected {want}")
     return outs, r_min, wall
+
+
+def check_deterministic(a: dict, b: dict, reps: int) -> None:
+    """Two run_all outputs of the same source: job_cost (and job_met) the
+    same bits for every strategy, as the reference's segment_sum gives."""
+    for name, x in a.items():
+        y = b[name]
+        if not (torch.equal(x.result.job_cost, y.result.job_cost)
+                and torch.equal(x.result.job_met, y.result.job_met)):
+            bad = int((x.result.job_cost != y.result.job_cost).sum())
+            raise AssertionError(f"run_all reps={reps} {name}: job_cost "
+                                 f"differs between two runs in {bad} jobs")
+    print(f"run_all reps={reps}: job_cost and job_met bit-equal between two "
+          f"runs for all {len(a)} strategies")
 
 
 def strategy_walls(jobs, p, reps: int, dev) -> dict:
@@ -642,38 +684,28 @@ def phase_quickstart(dev) -> dict:
                 fw=(fu, fcols, r_modes), full_shape=(FULL_REPS, N, R))
 
 
-def slots_read(u, t_min, beta, D, r_rows: dict):
-    """{mode: (J, N) slots the mode's outcome depends on}: clone r + 1;
-    srestart 1, plus min(r, R-1) for a straggler when r > 0; sresume 1,
-    plus min(r + 1, R-1) for a straggler."""
-    R = u.shape[2]
-    T1 = t_min[:, None] * torch.exp(-torch.log(u[:, :, 0]) / beta[:, None])
-    strag = T1 > D[:, None]
-    out = {}
-    for m, r in r_rows.items():
-        r = r[:, None]
-        if m == "clone":
-            out[m] = (r + 1).clamp(0, R).expand_as(strag)
-        elif m == "srestart":
-            out[m] = 1 + torch.where(strag & (r > 0), r.clamp(max=R - 1), 0)
-        else:
-            out[m] = 1 + torch.where(strag, (r + 1).clamp(max=R - 1), 0)
-    return out
-
-
 def mc_bound(u, t_min, beta, D, r_rows: dict):
     """(bytes ms, operations ms, dense ms) of one launch over `r_rows`'
     modes: the uniforms this data needs (the union of the modes' slots,
     each read once), the columns, r rows and outputs; dense counts every
-    uniform (J N R 4 bytes)."""
+    uniform (J N R 4 bytes), which the card reads at R = 5 since every
+    32-byte sector holds some task's slot 0."""
     J, N, R = u.shape
     M = len(r_rows)
-    n = slots_read(u, t_min, beta, D, r_rows)
+    n = pm.slots_read(u, t_min, beta, D, r_rows)
     attempts = int(torch.stack(list(n.values())).amax(dim=0).sum())
     side = J * (3 * 4 + 4 * M) + J * 8 * M
-    ops = OPS_PER_ATTEMPT * attempts + J * N
+    formed = J * N
+    if "clone" in n:
+        formed += int((n["clone"] > 1).sum())
+    ranges = [n[m] for m in ("srestart", "sresume") if m in n]
+    if ranges:
+        lo = torch.minimum(ranges[0], ranges[-1])
+        hi = torch.maximum(ranges[0], ranges[-1])
+        formed += int((lo > 1).sum() + (hi > lo).sum())
+    ops = OPS_PER_ATTEMPT * formed + J * N
     for m, k in n.items():
-        ops += OPS_PER_SLOT[m] * int((k - 1).sum()) + OPS_PER_TASK[m] * J * N
+        ops += int((k - 1).sum()) + OPS_PER_TASK[m] * J * N
     return (1e3 * (4 * attempts + side) / HBM_BYTES_PER_S,
             1e3 * ops / F32_OPS_PER_S,
             1e3 * (4 * J * N * R + side) / HBM_BYTES_PER_S)
@@ -721,8 +753,17 @@ def check_mc(what, got, want, near, single=None):
 
 
 def phase_mc_check(dev, full_shape) -> dict:
-    """Both Monte-Carlo kernels against their plain versions at every
-    shape, r below and past the slots; timed with r below."""
+    """The premise of the kernel's range minima (logf and expf monotone
+    over every f32 input they get), then both Monte-Carlo kernels against
+    their plain versions at every shape, r below and past the slots;
+    timed with r below."""
+    monotone = pm.monotone_violations(dev)
+    if monotone != (0, 0):
+        raise AssertionError(f"pocd_mc: logf / expf decrease at {monotone} "
+                             f"f32 inputs; the range minima need them "
+                             f"monotone")
+    print("pocd_mc: logf over every f32 in (0, 1] and expf over every f32 "
+          "in [0, 89) are non-decreasing (0 violations)")
     err = {"pocd_mc": 0.0, "pocd_mc_all": 0.0}
     times = {}
     for J, N, R in MC_SHAPES + (full_shape,):
@@ -772,7 +813,7 @@ def phase_mc_check(dev, full_shape) -> dict:
                   f"{x['call_ms']:.5f}), plain {x['plain_ms']:.4f} ms, bound "
                   f"{x['bound_ms']:.6f} ms ({x['bound_by']}; every uniform "
                   f"{x['bound_dense_ms']:.6f} ms)")
-    return dict(max_abs_err=err, times=times)
+    return dict(max_abs_err=err, times=times, monotone_violations=monotone)
 
 
 def fa_inputs(B, H, K, S, D, dtype, seed, dev, views=False, q_scale=1.0):
@@ -1123,6 +1164,7 @@ def main() -> None:
             launches = gs.launches
         outs, r_min, second_s = timed_run_all(Philox(0), jobs, p, reps, dev)
         walls[reps] = (first[2], second_s)
+        check_deterministic(first[0], outs, reps)
         print(f"run_all reps={reps}: r_min {r_min:.6f}; wall first "
               f"{first[2]:.4f} s, second {second_s:.4f} s; grid_solve "
               f"launches {gs.launches}")
@@ -1187,6 +1229,9 @@ def main() -> None:
         "bound_by": bound_by,
         "library_ms": None,
         "per_strategy": check["main"],
+        # the same six at a fleet-sized chunk, (J, r_max) = FLEET_SHAPE
+        "fleet_shape": dict(zip(("J", "r_max"), FLEET_SHAPE)),
+        "per_strategy_fleet_shape": check["fleet"],
         "build_s": build_s,
         "run_all_wall_s_first_second": {str(r): w
                                         for r, w in walls.items()},
@@ -1224,6 +1269,7 @@ def main() -> None:
                  single_mode_ms_same_inputs={m: t["ms"]
                                              for m, t in fw_single.items()},
                  per_shape={k: v["all"] for k, v in per_shape.items()},
+                 monotone_violations=mc["monotone_violations"],
                  full_width=path["full"],
                  quickstart_path_ms={"first": {k: 1e3 * v for k, v in
                                                path["steps"].items()},

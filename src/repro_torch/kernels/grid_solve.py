@@ -12,11 +12,14 @@ Replaces the Pallas TPU kernel `repro/kernels/grid_solve.py`
 
 What bounds it on the card: operations. It reads 10 f32 columns and
 writes 6 per job, but S-Restart's cost adds a 128-node Gauss-Legendre
-quadrature, two powf per node, at every (job, r). The kernel gives each
-job one warp: lanes split the quadrature nodes (four per lane, a shuffle
-sum) and then the r grid (lane = r), and the first argmax over r is a
-shuffle reduction in registers, so the (J, r_max) grid never reaches
-device memory. See the .cu source for the tie and NaN rules.
+quadrature at every (job, r). Forms without S-Restart run one warp per
+job: lanes take r, and the first argmax is a shuffle reduction, so the
+(J, r_max) grid never reaches device memory. With S-Restart a block of
+eight warps takes a few jobs: it forms the quadrature factors that do not
+depend on r once per (job, node) in shared memory, spreads the (job, r)
+integrals over its warps (each summed in a fixed node order and
+butterfly), and keeps I(r*) from the grid pass. See the .cu source for
+the tie and NaN rules.
 """
 from __future__ import annotations
 

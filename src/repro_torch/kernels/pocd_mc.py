@@ -16,12 +16,16 @@ shared Pareto transform). Three forms of each:
 * `pocd_mc` / `pocd_mc_all`: the wrappers. CPU tensors take the plain
   version, CUDA tensors the kernel; anything else raises.
 
-What bounds it on the card: bytes, the J N R f32 uniforms read once,
-against about ten f32 operations per attempt. The kernel gives each job
-one warp, lanes stride over tasks, each attempt time is formed once and
-folded into a running minimum per mode, and met / cost are a warp vote
-and a shuffle sum; the fused launch reads the uniforms once for all
-three modes. See the .cu source.
+What bounds it on the card: bytes, the J N R f32 uniforms, beside about
+forty instructions for each attempt time (IEEE logf, division, expf).
+Every mode reads attempt times only through a minimum over a range of
+slots (`slots_read`), and att(u) is non-increasing in u, so the kernel
+takes the largest uniform of each range and forms one attempt time per
+range, not R per task; `monotone_violations` checks that premise on the
+card. One warp per job; a straggler's reactive outcome is formed once 32
+are waiting, so a lane's cost sum runs in an order that depends only on
+where the stragglers are: the fused launch's row m equals the
+single-mode launch of mode m bit for bit. See the .cu source.
 """
 from __future__ import annotations
 
@@ -95,6 +99,29 @@ def near_deadline(u, t_min, beta, D, r, *, mode="clone", tau_est_frac=0.3,
     completion, _ = get(mode).tile_outcome(att, tm, tau_est, tau_kill, Dc,
                                            r[:, None], phi=phi)
     return ((completion - Dc).abs() <= rtol * Dc).any(dim=1)
+
+
+def slots_read(u, t_min, beta, D, r_rows: dict) -> dict:
+    """{mode: (J, N) int64}: how many leading slots of each task `mode`'s
+    outcome reads, the ranges `csrc/pocd_mc.cu` takes its maxima over.
+    Slot 0 always (it decides whether the task straggles, T1 > D); then
+    clone's slots k <= r; for a straggler, srestart's k <= r and
+    sresume's k <= r + 1; at most R. A fused launch reads the largest
+    count over its modes. No mode's outcome depends on a slot past its
+    count."""
+    R = u.shape[2]
+    # T1 exactly as the plain version forms it
+    att, _, _, _, Dc = tile_inputs(u, t_min, beta, D, 0.0, 0.0)
+    strag = att[:, :, 0] > Dc
+    out = {}
+    for m, r in r_rows.items():
+        r = r[:, None].to(torch.int64)
+        if m == "clone":
+            last = r.expand_as(strag)
+        else:
+            last = torch.where(strag, r if m == "srestart" else r + 1, 0)
+        out[m] = 1 + last.clamp(0, R - 1)
+    return out
 
 
 def _check_mode(mode, known):
@@ -198,6 +225,34 @@ def pocd_mc_all_cuda(u, t_min, beta, D, r_modes, *, tau_est_frac=0.3,
     if u.shape[0]:
         launches_all += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _monotone_library():
+    fn = build.load("pocd_mc").pocd_mc_monotone_violations
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def monotone_violations(device="cuda") -> tuple:
+    """(logf, expf): how many f32 inputs break the premise of the kernel's
+    range minima, with the kernel build's own logf and expf: u in (0, 1]
+    where logf of the next float up is smaller, x in [0, 89) where expf
+    of the next float up is smaller. Both must be 0 for the kernel to
+    equal the plain version bit for bit."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"monotone_violations: needs a CUDA device, got "
+                         f"{dev}")
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    err = _monotone_library()(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pocd_mc monotonicity check failed: CUDA error "
+                           f"{err}")
+    return tuple(int(x) for x in out.cpu())
 
 
 def _route(u, plain, cuda, what):

@@ -24,20 +24,27 @@ def _mean(x, dim=None):
     return (x.sum() if dim is None else x.sum(dim=dim)) / n
 
 
-def aggregate(jobs: JobSet, completion, machine) -> SimResult:
-    """Segment max of completion and segment sum of machine time per job.
+def segment_sum(x, jobs: JobSet):
+    """Per-job sum of a flat per-task column, the same bits on every run.
 
-    On the card the sum is `index_add_` with atomics, so its order, and
-    the last bits of job_cost, vary from run to run.
-    """
+    `job_id` is sorted, so a job's segment is its `n_tasks` contiguous
+    rows; `segment_reduce` adds each segment in a fixed order and uses no
+    atomics (`index_add_` would, and its last bits would vary on the
+    card). unsafe: build_jobset guarantees sum(n_tasks) == len(x); the
+    check would read the lengths back to the host."""
+    return torch.segment_reduce(x, "sum", lengths=jobs.n_tasks, unsafe=True)
+
+
+def aggregate(jobs: JobSet, completion, machine) -> SimResult:
+    """Segment max of completion and segment sum of machine time per job;
+    both give the same bits on every run, on the card as on the CPU (the
+    max is order-free, the sum is `segment_sum`)."""
     J = jobs.n_jobs
     job_completion = torch.full(
         (J,), -torch.inf, dtype=completion.dtype,
         device=completion.device).scatter_reduce_(
             0, jobs.job_id, completion, "amax")
-    job_machine = torch.zeros(J, dtype=machine.dtype,
-                              device=machine.device).index_add_(
-                                  0, jobs.job_id, machine)
+    job_machine = segment_sum(machine, jobs)
     met = job_completion <= jobs.D
     cost = job_machine * jobs.C
     return SimResult(pocd=_mean(met.to(torch.float32)), job_met=met,

@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from .metrics import segment_sum
 from .trace import JobSet
 
 
@@ -122,11 +123,6 @@ def sim_hadoop_ns(draw, jobs: JobSet, p: SimParams):
     return T1, T1
 
 
-def _segment_sum(x, job_id, n_jobs):
-    return torch.zeros(n_jobs, dtype=x.dtype, device=x.device).index_add_(
-        0, job_id, x)
-
-
 def _segment_min(x, job_id, n_jobs):
     return torch.full((n_jobs,), torch.inf, dtype=x.dtype,
                       device=x.device).scatter_reduce_(0, job_id, x, "amin")
@@ -178,7 +174,7 @@ def sim_mantri(draw, jobs: JobSet, p: SimParams):
     T = jobs.total_tasks
     t_min, beta = jobs.task_t_min, jobs.task_beta
     T1 = _pareto(draw("k1", (T,)), t_min, beta)
-    mean_t = _segment_sum(T1, jobs.job_id, jobs.n_jobs) / \
+    mean_t = segment_sum(T1, jobs) / \
         torch.clamp(jobs.n_tasks.to(torch.float32), min=1.0)
     gate = mean_t[jobs.job_id] + p.mantri_gate_frac * t_min
     extras = _pareto(draw("k2", (T, p.mantri_max_extra)), t_min[:, None],

@@ -22,6 +22,7 @@ from repro.strategies import solve_jobs_jit as ref_solve_jobs
 from repro.workloads import make_jobset
 
 from repro_torch import SimParams, convert, generate
+from repro_torch.core import cost as core_cost
 from repro_torch.kernels import grid_solve as gs
 from repro_torch.sim.runner import jobspecs_of
 from repro_torch.strategies import get, solve_jobs
@@ -112,18 +113,66 @@ def test_forms_mask_orders_composite_choice_ids():
     assert gs.forms_mask(get("adaptive")) == 0b111
 
 
+def kernel_order_integral(r, t_min, beta, D, tau_est):
+    """Thm 4's I(r) summed in the CUDA kernel's order: lane l adds the
+    terms of nodes l, l + 32, l + 64, l + 96 in that order, then a
+    butterfly over the 32 lanes (every lane ends with the same sum). The
+    terms are the plain version's; nvcc may fuse the kernel's last product
+    into its add, which this emulation does not."""
+    u, gl_w = core_cost.GL_U, core_cost.GL_W
+    r_, t_, b_, D_, tau_ = (x[..., None] for x in (r, t_min, beta, D,
+                                                     tau_est))
+    Dm_ = torch.maximum(D_ - tau_, t_)
+    w_ = Dm_ / u
+    f = torch.pow(D_ / (w_ + tau_), b_) * torch.pow(t_ / w_, b_ * r_)
+    terms = f * (Dm_ / (u * u)) * gl_w
+    acc = torch.zeros(terms.shape[:-1] + (32,))
+    for i in range(4):
+        acc = acc + terms[..., 32 * i:32 * (i + 1)]
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ off]
+    return acc[..., 0]
+
+
+@pytest.mark.parametrize("r_max", [9, 64])
+@pytest.mark.parametrize("strategy", ["srestart", "adaptive"])
+def test_kernel_sum_order_gives_the_same_r_star(monkeypatch, strategy,
+                                                r_max):
+    """S-Restart's U(r) with I(r) summed in the kernel's order gives the
+    plain version's and the reference's r*, choice and sat on 200 trace
+    jobs (U moves by a few ulps; no near tie flips here)."""
+    ref = ref_jobspecs_of(make_jobset("paper-hadoop", n_jobs=200, seed=3),
+                          RefSimParams(), jnp.float32(1e-4),
+                          jnp.float32(0.03))
+    job = port_specs(ref)
+    plain = gs.grid_solve_plain(get(strategy), job, r_max)
+    want = ref_solve_jobs(strategy, ref, r_max, backend="xla")
+    monkeypatch.setattr(core_cost, "_srestart_integral",
+                        kernel_order_integral)
+    got = gs.grid_solve_plain(get(strategy), job, r_max)
+    for i in (0, 1, 5):
+        assert torch.equal(got[i], plain[i])
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
+    for i, (rtol, atol) in FLOATS.items():
+        np.testing.assert_allclose(got[i].numpy(), plain[i].numpy(),
+                                   rtol=rtol, atol=atol)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("r_max", [1, 9, 32, 33, 64, 65])
 @pytest.mark.parametrize("strategy", OPTIMIZED)
-def test_cuda_kernel_matches_plain_on_card(strategy):
-    """The CUDA kernel against its plain version, on the card, at a ragged
-    job count and a grid wider than one warp."""
+def test_cuda_kernel_matches_plain_on_card(strategy, r_max):
+    """The CUDA kernel against its plain version, on the card: 101 jobs
+    is no multiple of any block's job count, and r_max crosses a warp (32,
+    33) and the S-Restart kernel's tile of 64 grid points (64, 65)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     job = jobspecs_of(generate(101, seed=6, device="cuda"), SimParams(),
                       1e-4, 0.03)
     before = gs.launches
-    got = gs.grid_solve(get(strategy), job, 40)
-    want = gs.grid_solve_plain(get(strategy), job, 40)
+    got = gs.grid_solve(get(strategy), job, r_max)
+    want = gs.grid_solve_plain(get(strategy), job, r_max)
     torch.cuda.synchronize()
     assert gs.launches == before + 1
     for i in (0, 1, 5):

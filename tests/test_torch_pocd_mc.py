@@ -114,6 +114,105 @@ def test_r_past_the_slots_activates_every_slot():
                                                mode=mode), near)
 
 
+MODE_SETS = [("clone",), ("srestart",), ("sresume",), pm.MODES]
+
+
+def mode_rows(r, R):
+    """One r row per mode, as test_pocd_mc_all_matches_reference builds
+    them, as tensors."""
+    return dict(zip(pm.MODES, map(torch.from_numpy, r_rows(r, R))))
+
+
+@pytest.mark.parametrize("modes", MODE_SETS, ids="+".join)
+@pytest.mark.parametrize("r_past", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_slots_read_covers_every_slot_an_outcome_reads(shape, r_past,
+                                                       modes):
+    """The kernel reads a task's leading `slots_read` slots (the largest
+    count over the launch's modes) and nothing else. Every other slot made
+    NaN leaves the plain version's met and cost bit for bit: a NaN that
+    reached a minimum would propagate (torch.amin does)."""
+    J, N, R = shape
+    _, t_in = mc_inputs(J, N, R, seed=J + 7 * R + r_past,
+                        r_high=R + 3 if r_past else None)
+    u, t_min, beta, D, r = t_in
+    rows = {m: row for m, row in mode_rows(r.numpy(), R).items()
+            if m in modes}
+    if r_past:      # r at or past the slots for every mode
+        rows = {m: row + R for m, row in rows.items()}
+    count = torch.stack(list(pm.slots_read(u, t_min, beta, D, rows)
+                             .values())).amax(dim=0)
+    skipped = torch.arange(R)[None, None, :] >= count[:, :, None]
+    poisoned = torch.where(skipped, torch.nan, u)
+    for m, row in rows.items():
+        want = pm.pocd_mc_plain(u, t_min, beta, D, row, mode=m)
+        got = pm.pocd_mc_plain(poisoned, t_min, beta, D, row, mode=m)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if not r_past:
+        assert bool(skipped.any())    # the rule skips something here
+
+
+def range_minima_outcome(u, t_min, beta, D, r, mode, tau_est_frac=0.3,
+                         tau_kill_gap_frac=0.5, phi=0.25):
+    """The kernel's rule in plain torch: each mode's minimum of attempt
+    times over its slot range taken as the attempt time of the range's
+    largest uniform (clone slots 0..r, srestart 1..r, sresume 1..r+1, cut
+    at R-1), so one Pareto transform per range. Returns (met, cost)."""
+    R = u.shape[2]
+    k = torch.arange(R)
+
+    def att(x):                     # the plain version's transform
+        return t_min[:, None] * torch.exp(-torch.log(x) / beta[:, None])
+
+    def range_att(lo, hi):          # att of the largest u of slots lo..hi
+        inside = (k >= lo) & (k[None, :] <= hi[:, None])[:, None, :]
+        a = att(torch.where(inside, u, 0.0).amax(dim=2))
+        return torch.where((hi >= lo)[:, None], a, torch.inf)
+
+    T1 = att(u[:, :, 0])
+    strag = T1 > D[:, None]
+    tau_est = tau_est_frac * t_min[:, None]
+    tau_kill = tau_est + tau_kill_gap_frac * t_min[:, None]
+    rf = r[:, None].to(torch.float32)
+    if mode == "clone":
+        best = torch.where((r >= 0)[:, None], range_att(0, r.clamp(max=R - 1)),
+                           torch.inf)
+        comp, mach = best, rf * tau_kill + best
+    elif mode == "srestart":
+        extra = range_att(1, r.clamp(max=R - 1))
+        w_all = torch.minimum(T1 - tau_est, extra)
+        use = strag & (r[:, None] > 0)
+        comp = torch.where(use, tau_est + w_all, T1)
+        mach = torch.where(use, tau_est + rf * (tau_kill - tau_est) + w_all,
+                           T1)
+    else:
+        a = range_att(1, (r + 1).clamp(max=R - 1))
+        w = torch.where(a < torch.inf, torch.maximum(t_min[:, None],
+                                                     (1.0 - phi) * a),
+                        torch.inf)
+        comp = torch.where(strag, tau_est + w, T1)
+        mach = torch.where(strag, tau_est + rf * (tau_kill - tau_est) + w, T1)
+    return (torch.all(comp <= D[:, None], dim=1).to(torch.float32),
+            torch.sum(mach, dim=1))
+
+
+@pytest.mark.parametrize("mode", ["clone", "srestart", "sresume"])
+@pytest.mark.parametrize("r_past", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_range_minima_give_the_plain_version_bit_for_bit(shape, r_past,
+                                                         mode):
+    """att(u) is non-increasing in u, so one transform per slot range (the
+    kernel's rule) gives the plain version's met and cost bit for bit, r
+    below and past the slots. The card checks the monotonicity it rests on
+    with the kernel's own logf and expf (test_monotone_premise_on_card)."""
+    J, N, R = shape
+    _, t_in = mc_inputs(J, N, R, seed=3 * J + R + r_past,
+                        r_high=R + 3 if r_past else None)
+    got = range_minima_outcome(*t_in, mode=mode)
+    want = pm.pocd_mc_plain(*t_in, mode=mode)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_wrappers_route_by_device():
     """CPU tensors take the plain version (no launch is counted); a device
     with no kernel raises; so do a bad mode and too few slots."""
@@ -139,12 +238,16 @@ def test_wrappers_route_by_device():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("shape", [(1001, 37, 5), (67, 338, 5), (50, 3, 4),
+                                   (129, 40, 8), (9, 0, 3)])
+def test_kernel_matches_plain_on_card(shape):
     """The CUDA kernels against the plain versions on the card, single
-    mode and fused, with a ragged last block and r past the slots."""
+    mode and fused, r past the slots: a ragged last block (1001, 129),
+    job blocks that start off 16-byte boundaries (67 x 338 x 5 floats), a
+    job smaller than one warp's load (3 x 4), an even R and no tasks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    J, N, R = 1001, 37, 5
+    J, N, R = shape
     _, t_in = mc_inputs(J, N, R, seed=3, r_high=R + 1)
     t_in = tuple(x.cuda() for x in t_in)
     for mode in pm.MODES:
@@ -159,3 +262,13 @@ def test_kernel_matches_plain_on_card():
         one = pm.pocd_mc(*t_in, mode=mode)
         assert torch.equal(got[0][m], one[0])
         assert torch.equal(got[1][m], one[1])
+
+
+@pytest.mark.cuda
+def test_monotone_premise_on_card():
+    """The kernel's range minima rest on logf and expf being
+    non-decreasing over every f32 input they get; its build checks that
+    with its own logf and expf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    assert pm.monotone_violations("cuda") == (0, 0)

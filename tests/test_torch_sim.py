@@ -181,3 +181,43 @@ def test_generate_matches_reference_column_for_column():
             getattr(port, f).numpy(),
             np.asarray(getattr(ref, f)).astype(getattr(port, f).numpy().dtype),
             err_msg=f)
+
+
+@pytest.fixture(scope="module")
+def paper_trace():
+    """The paper's 2700-job trace (912,199 tasks) in both packages."""
+    ref = ref_generate(n_jobs=2700, seed=0)
+    port = convert.jobset(ref.n_jobs, {f: np.asarray(getattr(ref, f))
+                                       for f in ref._fields[1:]},
+                          device="cpu")
+    return ref, port
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+def test_aggregate_is_a_fixed_order_segment_sum(paper_trace, scale):
+    """aggregate's per-job sum against the reference's segment_sum on the
+    paper trace, within the sims' tolerance, and the same bits on a second
+    call; scale 1e3 puts job sums near 1e8, where an order that changed
+    from run to run would show in the last bits."""
+    ref_jobs, jobs = paper_trace
+    rng = np.random.default_rng(11)
+    T = jobs.total_tasks
+    comp = rng.uniform(10.0, 500.0, T).astype(np.float32)
+    mach = (scale * rng.uniform(10.0, 500.0, T)).astype(np.float32)
+    got = metrics.aggregate(jobs, torch.from_numpy(comp),
+                            torch.from_numpy(mach))
+    again = metrics.aggregate(jobs, torch.from_numpy(comp),
+                              torch.from_numpy(mach))
+    want = ref_metrics.aggregate(ref_jobs, jnp.asarray(comp),
+                                 jnp.asarray(mach))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(got.job_cost.numpy(),
+                               np.asarray(want.job_cost), rtol=RTOL)
+    np.testing.assert_array_equal(got.job_completion.numpy(),
+                                  np.asarray(want.job_completion))
+    np.testing.assert_allclose(float(got.mean_cost), float(want.mean_cost),
+                               rtol=RTOL)
+    # the cost is the shared segment_sum (Mantri's gate sums with it too)
+    assert torch.equal(metrics.segment_sum(torch.from_numpy(mach), jobs)
+                       * jobs.C, got.job_cost)
