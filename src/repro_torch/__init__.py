@@ -8,7 +8,7 @@ plain PyTorch path (kernel wrappers route CPU tensors to their plain
 versions). Random numbers come from explicit `torch.Generator`s through a
 uniform source the caller hands in (`repro_torch.sim.draws`).
 
-Ported so far, in three slices:
+Ported so far:
 1. the paper's trace pipeline, `sim.runner.run_all`, with the Algorithm-1
    grid solve as a hand-written CUDA kernel (`kernels/csrc/grid_solve.cu`);
 2. the quickstart path (`core`: closed forms, `solve_grid` and
@@ -16,7 +16,10 @@ Ported so far, in three slices:
    and `pocd_mc_all` (`kernels/csrc/pocd_mc.cu`);
 3. the text serving engine (`serve.Engine` over `models`, `configs`:
    gemma2-2b, prefill then greedy decode), with flash attention
-   (`kernels/csrc/flash_attention.cu`).
+   (`kernels/csrc/flash_attention_sm90.cu`, `flash_attention.cu`);
+4. workload scenarios (`workloads`), the joint budget solve (`coupled`)
+   and span tracing (`obs`), through `run_all(source, "<scenario>", p,
+   budget=B)`.
 """
 from .device import resolve_device
 from .sim import (JobSet, Philox, SimParams, SimResult, build_jobset,

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import trace as obs_trace
 from .utility import JobSpec, cost_of, gamma, jobspec_to, pocd_of, utility
 
 
@@ -69,16 +70,19 @@ def solve_grid(strategy: str, job: JobSpec, r_max: int | None = None, *,
     r < r_max; r_max=None takes the certified bound. One device-to-host
     transfer for the four results."""
     from ..strategies import solve_jobs
-    dev = resolve_device(device)
-    job = jobspec_to(job, dev)
-    if r_max is None:
-        u0 = float(utility(strategy, _r(0.0, job), job))
-        r_max = max(r_upper_bound(strategy, job, u0), 2)
-    r, _, u, p, c, _ = solve_jobs(strategy,
-                                  JobSpec(*(x.reshape(1) for x in job)),
-                                  int(r_max), device=dev)
-    r, u, p, c = torch.stack([r.to(torch.float32), u, p, c])[:, 0].tolist()
-    return Solution(strategy, int(r), u, p, c)
+    with obs_trace.span("optimizer.solve_grid", strategy=strategy) as sp:
+        dev = resolve_device(device)
+        job = jobspec_to(job, dev)
+        if r_max is None:
+            u0 = float(utility(strategy, _r(0.0, job), job))
+            r_max = max(r_upper_bound(strategy, job, u0), 2)
+        sp.set(r_max=int(r_max))
+        r, _, u, p, c, _ = solve_jobs(strategy,
+                                      JobSpec(*(x.reshape(1) for x in job)),
+                                      int(r_max), device=dev)
+        out = torch.stack([r.to(torch.float32), u, p, c])[:, 0]
+        r, u, p, c = out.tolist()
+        return Solution(strategy, int(r), u, p, c)
 
 
 def solve(job: JobSpec, strategies=None, *, device=None) -> Solution:
@@ -87,12 +91,13 @@ def solve(job: JobSpec, strategies=None, *, device=None) -> Solution:
     if strategies is None:
         from ..strategies import names
         strategies = names(kind="chronos")
-    best = None
-    for s in strategies:
-        sol = solve_grid(s, job, device=device)
-        if best is None or sol.utility > best.utility:
-            best = sol
-    return best
+    with obs_trace.span("optimizer.solve", n_strategies=len(strategies)):
+        best = None
+        for s in strategies:
+            sol = solve_grid(s, job, device=device)
+            if best is None or sol.utility > best.utility:
+                best = sol
+        return best
 
 
 def solve_batch(strategy: str, jobs: JobSpec, r_max: int = 64, *,

@@ -18,6 +18,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 
+#: nvcc builds run in this process; `obs.fenced` marks a span in which it
+#: grew
+compiles = 0
+
 # IEEE powf/logf/expf (no --use_fast_math): the grid solve's argmax must
 # match the plain version's
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,9 +51,11 @@ def compile_sources(names) -> dict:
     per source, all started together. Returns {name: .so path}; the
     compiler's output (ptxas register and spill report) is kept beside
     each library as `.log`."""
+    global compiles
     targets = {n: _target(n) for n in names}
     todo = {n: t for n, t in targets.items() if not t.exists()}
     if todo:
+        compiles += len(todo)
         BUILD.mkdir(exist_ok=True)
         exe = nvcc()
         procs = {}

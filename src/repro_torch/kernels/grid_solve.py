@@ -45,33 +45,52 @@ def _sub_specs(spec):
     return (spec,)
 
 
-def grid_solve_plain(spec, job: JobSpec, r_max: int):
-    """(r_opt i32, choice i32, utility, pocd, cost, sat i32), all (J,)."""
+def job_columns(job: JobSpec) -> JobSpec:
+    """The JobSpec as (J, 1) columns, to broadcast against (1, r) rows."""
+    return JobSpec(*(x[:, None] for x in job))
+
+
+def utility_rows(spec, col: JobSpec, rs: torch.Tensor) -> torch.Tensor:
+    """(J, r) grid of U over `rs`, (1, r); a composite takes the largest
+    of its components' U at each r."""
     subs = _sub_specs(spec)
-    col = JobSpec(*(x[:, None] for x in job))        # (J, 1) columns
-    J = job.t_min.shape[0]
-    rs = torch.arange(r_max, dtype=torch.float32,
-                      device=job.t_min.device)[None, :]
     u = utility_of(subs[0], rs, col)
     for s in subs[1:]:
         u = torch.maximum(u, utility_of(s, rs, col))  # U(r) = max_s U_s(r)
+    return u
+
+
+def evaluate_at(spec, i: torch.Tensor, col: JobSpec):
+    """(choice i32, pocd, cost), all (J,), at r = i per job, evaluated from
+    the closed forms, not read back from a grid; a composite picks the
+    component with the largest U there."""
+    subs = _sub_specs(spec)
+    J = i.shape[0]
+    rf = i.to(torch.float32)[:, None]
+    if len(subs) == 1:
+        choice = torch.zeros(J, dtype=torch.int32, device=i.device)
+        return (choice, pocd_of_spec(spec, rf, col)[:, 0],
+                cost_of_spec(spec, rf, col)[:, 0])
+    su = torch.stack([utility_of(s, rf, col)[:, 0] for s in subs])
+    choice = torch.argmax(su, dim=0).to(torch.int32)
+    p_star = pocd_of_spec(subs[0], rf, col)[:, 0]
+    c_star = cost_of_spec(subs[0], rf, col)[:, 0]
+    for k, s in enumerate(subs[1:], start=1):
+        hit = choice == k
+        p_star = torch.where(hit, pocd_of_spec(s, rf, col)[:, 0], p_star)
+        c_star = torch.where(hit, cost_of_spec(s, rf, col)[:, 0], c_star)
+    return choice, p_star, c_star
+
+
+def grid_solve_plain(spec, job: JobSpec, r_max: int):
+    """(r_opt i32, choice i32, utility, pocd, cost, sat i32), all (J,)."""
+    col = job_columns(job)
+    rs = torch.arange(r_max, dtype=torch.float32,
+                      device=job.t_min.device)[None, :]
+    u = utility_rows(spec, col, rs)
     i = torch.argmax(u, dim=1)    # first maximum; an all -inf row gives 0
     u_star = torch.gather(u, 1, i[:, None])[:, 0]
-    rf = i.to(torch.float32)[:, None]
-    # PoCD / cost evaluated at r*, not read back from the grid
-    if len(subs) == 1:
-        choice = torch.zeros(J, dtype=torch.int32, device=u.device)
-        p_star = pocd_of_spec(spec, rf, col)[:, 0]
-        c_star = cost_of_spec(spec, rf, col)[:, 0]
-    else:
-        su = torch.stack([utility_of(s, rf, col)[:, 0] for s in subs])
-        choice = torch.argmax(su, dim=0).to(torch.int32)
-        p_star = pocd_of_spec(subs[0], rf, col)[:, 0]
-        c_star = cost_of_spec(subs[0], rf, col)[:, 0]
-        for k, s in enumerate(subs[1:], start=1):
-            hit = choice == k
-            p_star = torch.where(hit, pocd_of_spec(s, rf, col)[:, 0], p_star)
-            c_star = torch.where(hit, cost_of_spec(s, rf, col)[:, 0], c_star)
+    choice, p_star, c_star = evaluate_at(spec, i, col)
     sat = (i >= r_max - 1).to(torch.int32)
     return i.to(torch.int32), choice, u_star, p_star, c_star, sat
 

@@ -11,6 +11,14 @@ and the two clone_* specs).
 `Philox` is the production source. A test can hand the runner any object
 with the same method, for example one that replays the reference's
 `jax.random` draws under the reference's own keys.
+
+Workload synthesis (`repro_torch.workloads`) draws through a second kind
+of source, with one method per law: `categorical`, `normal`, `uniform`,
+`exponential` and `bernoulli`, each taking a draw name from
+`WORKLOAD_DRAWS` (the reference's key splits, `workloads/traces.py` and
+`generators.py`). `WorkloadPhilox` is its production form; a test hands in
+a source that returns the reference's own variates, so parity covers the
+transforms from variates to columns.
 """
 from __future__ import annotations
 
@@ -57,3 +65,63 @@ class Philox:
         u = torch.rand(tuple(shape), generator=gen, device=device,
                        dtype=torch.float32)
         return to_uniform(u)
+
+
+#: stable ids of the workload draw names, part of each generator's seed.
+#: The reference splits PRNGKey(seed) into four keys (mix, counts,
+#: Pareto parameters, arrivals); "t_min"/"beta" are the two halves of the
+#: parameter key, and each arrival process names the halves of the
+#: arrival key it splits
+WORKLOAD_DRAWS = ("classes", "task_counts", "t_min", "beta", "arrival",
+                  "arrival.new_batch", "arrival.gap", "arrival.dwell",
+                  "arrival.unit")
+
+
+class WorkloadPhilox:
+    """torch.Generator-backed workload source: one generator per draw
+    name, seeded from (seed, index of the name in WORKLOAD_DRAWS); Philox
+    on the card. Each method returns the variates of its law directly
+    from uniforms or normals of that generator.
+    """
+
+    def __init__(self, seed: int = 0):
+        self.seed = int(seed)
+
+    def generator(self, name: str, device) -> torch.Generator:
+        entropy = (self.seed, WORKLOAD_DRAWS.index(name))
+        lo, hi = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
+        gen = torch.Generator(device=device)
+        gen.manual_seed((int(hi) << 32 | int(lo)) & (2**63 - 1))
+        return gen
+
+    def uniform(self, name: str, shape, device) -> torch.Tensor:
+        """f32 uniforms in [0, 1)."""
+        return torch.rand(tuple(shape), generator=self.generator(name, device),
+                          device=device, dtype=torch.float32)
+
+    def normal(self, name: str, shape, device) -> torch.Tensor:
+        return torch.randn(tuple(shape),
+                           generator=self.generator(name, device),
+                           device=device, dtype=torch.float32)
+
+    def exponential(self, name: str, shape, device) -> torch.Tensor:
+        """Exp(1) by inverse CDF, -log(1 - u), u in [0, 1)."""
+        return torch.log1p(-self.uniform(name, shape, device)).neg_()
+
+    def bernoulli(self, name: str, p: float, shape, device) -> torch.Tensor:
+        """bool, True with probability p: u < p."""
+        return self.uniform(name, shape, device) < p
+
+    def categorical(self, name: str, logits: torch.Tensor,
+                    shape) -> torch.Tensor:
+        """int32 class ids ~ softmax(logits) by inverse CDF: the number of
+        cumulative probabilities at or below u, clamped to the last
+        class."""
+        probs = torch.softmax(logits.to(torch.float32), dim=0)
+        cdf = probs.clone()     # summed in order (cumsum is not, on CUDA)
+        for k in range(1, cdf.shape[0]):
+            cdf[k] = cdf[k - 1] + probs[k]
+        u = self.uniform(name, shape, logits.device)
+        k = torch.searchsorted(cdf, u.reshape(-1), right=True)
+        return k.clamp_(max=logits.shape[0] - 1).to(torch.int32).reshape(
+            tuple(shape))

@@ -35,6 +35,19 @@ def segment_sum(x, jobs: JobSet):
     return torch.segment_reduce(x, "sum", lengths=jobs.n_tasks, unsafe=True)
 
 
+def scan_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a 1-D tensor, the same bits on the CPU and
+    the card, run after run (`torch.cumsum` of floats on CUDA is not
+    deterministic): doubling steps (Hillis-Steele), each one elementwise
+    add."""
+    out = x.clone()
+    k = 1
+    while k < out.shape[0]:
+        out = torch.cat([out[:k], out[k:] + out[:-k]])
+        k *= 2
+    return out
+
+
 def aggregate(jobs: JobSet, completion, machine) -> SimResult:
     """Segment max of completion and segment sum of machine time per job;
     both give the same bits on every run, on the card as on the CPU (the
@@ -58,6 +71,28 @@ def mean_over_reps(results) -> SimResult:
     return SimResult(*(_mean(torch.stack([x.to(torch.float32)
                                           for x in field]), dim=0)
                        for field in zip(*results)))
+
+
+def class_summary(jobs: JobSet, result: SimResult) -> dict:
+    """Per-workload-class breakdown of a SimResult, on the host in
+    float64: {class_id: {"n_jobs", "pocd", "mean_cost",
+    "mean_completion"}}. With reps > 1 `job_met` is a met frequency, so
+    `pocd` stays the class's deadline-met probability."""
+    import numpy as np
+    cls = jobs.job_class.cpu().numpy()
+    met = result.job_met.cpu().numpy().astype(np.float64)
+    cost = result.job_cost.cpu().numpy().astype(np.float64)
+    comp = result.job_completion.cpu().numpy().astype(np.float64)
+    out = {}
+    for c in np.unique(cls):
+        m = cls == c
+        out[int(c)] = {
+            "n_jobs": int(m.sum()),
+            "pocd": float(met[m].mean()),
+            "mean_cost": float(cost[m].mean()),
+            "mean_completion": float(comp[m].mean()),
+        }
+    return out
 
 
 def net_utility(pocd, mean_cost, r_min, theta):

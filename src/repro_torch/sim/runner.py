@@ -7,15 +7,22 @@ replication of the whole trace per `rep`, and segment reductions give
 empirical PoCD, cost and net utility: the pipeline behind the paper's
 Figures 2-5 and Tables I-II. PyTorch runs eagerly, so replications are a
 loop; the reference vmaps them inside one compiled program.
+
+`budget=` routes the solve through the joint budget solve
+(`repro_torch.coupled`), and `run_all` takes a workload scenario's name
+in place of a JobSet. Each strategy's run is one `obs.fenced` span pair.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..core.utility import JobSpec, cost_of, pocd_of
+from ..coupled.solver import (CoupledInfo, solve_jobs_coupled,
+                              warn_infeasible)
 from ..device import resolve_device
+from ..obs import trace as obs_trace
 from ..strategies import get, names, solve_jobs
 from .metrics import SimResult, aggregate, mean_over_reps, net_utility
 from .strategies import SimParams
@@ -29,6 +36,7 @@ class RunOutput(NamedTuple):
     theory_pocd: torch.Tensor    # (J,) closed-form PoCD at r_opt
     theory_cost: torch.Tensor    # (J,) closed-form E[T] * C at r_opt
     n_saturated: torch.Tensor    # jobs whose r* hit the grid edge
+    coupled: Optional[CoupledInfo] = None   # the joint solve's, budget= runs
 
 
 def jobspecs_of(jobs: JobSet, p: SimParams, theta, r_min=0.0) -> JobSpec:
@@ -48,23 +56,15 @@ def jobspecs_of(jobs: JobSet, p: SimParams, theta, r_min=0.0) -> JobSpec:
         R_min=torch.full((J,), r_min, **f32))
 
 
-def run_strategy(source, jobs: JobSet, strategy: str, p: SimParams,
-                 theta=1e-4, r_min=0.0, max_r: int = 8, oracle: bool = True,
-                 r_override=None, reps: int = 1, *,
-                 device=None) -> RunOutput:
-    """Solve and simulate one strategy on `device` (default the card).
-
-    `source` hands out the uniforms (`sim.draws`). `r_override` pins every
-    job's r in place of the solve. With reps > 1 the SimResult is the mean
-    over replications (job_met becomes a per-job met frequency).
-    """
-    dev = resolve_device(device)
-    jobs = jobset_to(jobs, dev)
+def _run_core(source, jobs: JobSet, strategy: str, p: SimParams, theta,
+              r_min, max_r: int, oracle: bool, r_override, reps: int,
+              budget) -> RunOutput:
+    """Solve, then `reps` Monte-Carlo replications, then the metrics."""
+    dev = jobs.t_min.device
     spec = get(strategy)
     J = jobs.n_jobs
-    if not spec.detectable:
-        oracle = True
     n_sat = torch.zeros((), dtype=torch.int64, device=dev)
+    info = None
     if not spec.optimized:
         r_j = torch.zeros(J, dtype=torch.int32, device=dev)
         choice_j = torch.zeros(J, dtype=torch.int32, device=dev)
@@ -81,8 +81,13 @@ def run_strategy(source, jobs: JobSet, strategy: str, p: SimParams,
             th_p = pocd_of(strategy, rf, specs)
             th_c = cost_of(strategy, rf, specs) * specs.C
         else:
-            r_j, choice_j, _, th_p, th_c, sat_j = solve_jobs(
-                strategy, specs, max_r + 1, device=dev)
+            if budget is not None:
+                (r_j, choice_j, _, th_p, th_c, sat_j), info = \
+                    solve_jobs_coupled(strategy, specs, max_r + 1, budget,
+                                       device=dev)
+            else:
+                r_j, choice_j, _, th_p, th_c, sat_j = solve_jobs(
+                    strategy, specs, max_r + 1, device=dev)
             th_c = th_c * specs.C
             n_sat = sat_j.sum()
 
@@ -99,16 +104,55 @@ def run_strategy(source, jobs: JobSet, strategy: str, p: SimParams,
     return RunOutput(result=res, r_opt=r_j,
                      utility=net_utility(res.pocd, res.mean_cost, r_min,
                                          theta),
-                     theory_pocd=th_p, theory_cost=th_c, n_saturated=n_sat)
+                     theory_pocd=th_p, theory_cost=th_c, n_saturated=n_sat,
+                     coupled=info)
 
 
-def run_all(source, jobs: JobSet, p: SimParams, theta=1e-4, strategies=None,
-            r_min_from_ns: bool = True, max_r: int = 8, reps: int = 1, *,
-            device=None):
+def run_strategy(source, jobs: JobSet, strategy: str, p: SimParams,
+                 theta=1e-4, r_min=0.0, max_r: int = 8, oracle: bool = True,
+                 r_override=None, reps: int = 1, budget=None, *,
+                 device=None) -> RunOutput:
+    """Solve and simulate one strategy on `device` (default the card).
+
+    `source` hands out the uniforms (`sim.draws`). `r_override` pins every
+    job's r in place of the solve. With reps > 1 the SimResult is the mean
+    over replications (job_met becomes a per-job met frequency).
+
+    `budget=` caps priced machine time, sum(C E[T]) <= budget, through the
+    joint solve (`coupled.solve_jobs_coupled`; RunOutput.coupled holds its
+    CoupledInfo). Baselines run at r = 0 and ignore it, and `r_override`
+    takes precedence. The run is fenced as `sim.run[<strategy>]`.
+    """
+    dev = resolve_device(device)
+    jobs = jobset_to(jobs, dev)
+    spec = get(strategy)
+    if not spec.detectable:
+        oracle = True
+    if not spec.optimized or r_override is not None:
+        budget = None
+    out = obs_trace.fenced(f"sim.run[{strategy}]", _run_core, source, jobs,
+                           strategy, p, theta, r_min, max_r, oracle,
+                           r_override, reps, budget)
+    if budget is not None:
+        warn_infeasible(strategy, out.coupled)
+    return out
+
+
+def run_all(source, jobs, p: SimParams, theta=1e-4, strategies=None,
+            r_min_from_ns: bool = True, max_r: int = 8, reps: int = 1,
+            budget=None, *, device=None):
     """Run every strategy (default: all registered, in registry order) on
     `device`; R_min for the utilities is Hadoop-NS's PoCD minus 1e-3, as
-    in the paper. Returns ({name: RunOutput}, r_min)."""
+    in the paper. Returns ({name: RunOutput}, r_min).
+
+    `jobs` is a JobSet or a workload scenario's name
+    (`workloads.make_jobset(name, device=device)`: its default size and
+    seed). `budget=` goes to every optimized strategy (`run_strategy`).
+    """
     dev = resolve_device(device)
+    if isinstance(jobs, str):
+        from ..workloads.registry import make_jobset
+        jobs = make_jobset(jobs, device=dev)
     jobs = jobset_to(jobs, dev)
     if strategies is None:
         strategies = names()
@@ -125,5 +169,5 @@ def run_all(source, jobs: JobSet, p: SimParams, theta=1e-4, strategies=None,
             continue
         outs[name] = run_strategy(source, jobs, name, p, theta=theta,
                                   r_min=r_min, max_r=max_r, reps=reps,
-                                  device=dev)
+                                  budget=budget, device=dev)
     return outs, r_min

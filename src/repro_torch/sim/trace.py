@@ -103,3 +103,14 @@ def generate(n_jobs=2700, mean_tasks=370, seed=0, deadline_ratio=2.0,
         np.float32)
     C = np.full(n_jobs, spot_price, np.float32)
     return build_jobset(n_tasks, t_min, beta, D, arrival, C, device=device)
+
+
+def uniform_jobset(n_jobs, n_tasks, t_min, beta, D, C=1.0, *,
+                   device=None) -> JobSet:
+    """All jobs identical, on `device`: for holding the sims against the
+    closed forms."""
+    ones = np.ones(n_jobs, np.float32)
+    return build_jobset(
+        np.full(n_jobs, n_tasks, np.int32),
+        t_min * ones, beta * ones, D * ones, 0 * ones, C * ones,
+        device=device)

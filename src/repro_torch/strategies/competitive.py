@@ -3,8 +3,8 @@ counterpart of `repro.strategies.competitive`.
 
 Both reuse `clone`'s closed forms and draw; without a budget they are
 `clone` under their own registry slots. Their `allocate` policies split a
-shared budget and are read only by the joint budget solve, which the port
-does not have yet.
+shared budget and are read only by the joint budget solve
+(`repro_torch.coupled`).
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch
 
 from .chronos import (closed_cost_clone, draw_clone, gamma_clone,
                       log_fail_clone, slope_clone)
+from ..sim.metrics import scan_sum
 from .spec import StrategySpec, register
 
 
@@ -38,7 +39,7 @@ def allocate_sjf(jobs, U, cost, budget):
     r_cheap = torch.argmin(cost, dim=1).to(torch.int32)
     want = torch.argmax(U, dim=-1).to(torch.int32)
     extra = torch.gather(cost, 1, want[:, None].long())[:, 0] - base
-    grant_sorted = (torch.sum(base) + torch.cumsum(extra[order], 0)) <= budget
+    grant_sorted = (torch.sum(base) + scan_sum(extra[order])) <= budget
     grant = torch.empty_like(grant_sorted)
     grant[order] = grant_sorted
     return torch.where(grant, want, r_cheap)

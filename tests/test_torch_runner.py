@@ -144,11 +144,13 @@ def test_registry_order_equals_reference():
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """The package and chip_smoke.py import torch and numpy only."""
+    """The package (with its workloads, coupled and obs packages) and
+    chip_smoke.py import torch and numpy only."""
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.convert\n"
         "import repro_torch.kernels.build, repro_torch.kernels.grid_solve\n"
+        "import repro_torch.workloads, repro_torch.coupled, repro_torch.obs\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
