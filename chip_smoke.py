@@ -7,9 +7,10 @@ Phases; each raises on failure, so any failure exits non-zero:
 
 1. print the card (nvidia-smi name and power limit) and build every kernel
    of the main path from `src/repro_torch/kernels/csrc/` (grid_solve.cu,
-   pocd_mc.cu, flash_attention.cu, flash_attention_sm90.cu), timed, with
-   ptxas's registers and spills, and the tensor-core kernel's dynamic
-   shared memory;
+   pocd_mc.cu, flash_attention.cu, flash_attention_sm90.cu,
+   dispatch_scan.cu), one nvcc process per source, timed, with ptxas's
+   registers and spills (dispatch_scan's for both pool placements), and
+   the tensor-core kernel's dynamic shared memory;
 2. hold each kernel against its plain PyTorch version on the card, for
    every optimized strategy at (J, r_max) = (37, 9), (64, 33), (2700, 9)
    and (65536, 64): r*, choice and sat equal; U rtol 1e-4 / atol 1e-5,
@@ -77,6 +78,40 @@ Phases; each raises on failure, so any failure exits non-zero:
    sim.run[<s>].wait for every strategy, stage_breakdown's top entries,
    coverage, the Chrome trace written to chiprun_out/spans.json, and the
    traced wall beside the untraced one;
+10b. the capacity replay (repro_torch.cluster): the dispatch kernel
+   (csrc/dispatch_scan.cu) against its plain version, whole outputs
+   (starts and final pool) bit-equal, on tests/test_torch_cluster.py's
+   inputs (ties in release and in free times, 20% inactive), FIFO and
+   EDF, at K = 1, 5, 37, 300, 20,000 (the pool in shared memory) and
+   100,000 (in device memory); the uniform 150x10 trace at K = 20,000
+   (starts equal releases, mean wait 0); the paper trace's offered
+   primary load at 500 slots (cluster.offered_load, 3600 s windows: mean,
+   p95, max); then the main path,
+   run_cluster(Philox(0), generate(2700, seed=0), SimParams(), slots=500,
+   theta=1e-4) over all 10 strategies at reps 1, twice, traced: 6
+   grid-solve and 20 dispatch launches a run, job_cost and job_met the
+   same bits, each strategy's first and warm wall from its spans, and its
+   PoCD, utilization and mean wait printed beside the JAX package's (a
+   sanity line); every strategy's full replay (build_strategy_table +
+   replay, the table not narrowed): the main path's bits, start >=
+   release, at most 500 units in service (an integer sweep over start
+   and start + hold events), 0 <= utilization <= 1 + 1e-6; for clone and
+   hadoop_s both passes' dispatch-ordered inputs rebuilt with the
+   engine's functions, the kernel on the full arrays equal to the plain
+   version on the CPU over the first 100,000 rows; slots=None against
+   run_all (r* equal, job_met equal but at deadline ties, 0 dispatch
+   launches); EDF with passes=3, the governor and admission (slack 1.0)
+   for sresume; slots 250 to 2000 and None for sresume and hadoop_s; a
+   budgeted run_cluster on 2700 multi-tenant-sla jobs at phase 9's B
+   (spend <= B wherever feasible). Timed at the very end of the script,
+   after every other profiler session (a large session can cost the next
+   one its first records): a profiled warm run_cluster (busy, idle share,
+   top ops; the kernel's device time per run, per pass and per step,
+   the sorts'), taken again until it records all 20 dispatch launches
+   (up to three times; else the mean over those recorded, at least
+   half, times 20), the wrapper's call on clone's pass 2 and the small
+   case's kernel and plain times. Its JSON is also written to
+   chiprun_out/cluster.json;
 11. the quickstart path (examples/quickstart.py step for step, through the
    port, on the card): JobSpec.make, the closed forms at r = 0..3,
    solve_grid and solve_algorithm1 (equal r*), gamma, the Theorem 7
@@ -147,8 +182,8 @@ Phases; each raises on failure, so any failure exits non-zero:
    the warm generate; then one prefill and the 32 decode steps profiled
    apart.
 
-The last lines are the scenarios JSON (phases 6-10), the kernels JSON, the
-card line and the result JSON.
+The last lines are the cluster JSON (phase 10b), the scenarios JSON
+(phases 6-10), the kernels JSON, the card line and the result JSON.
 The script needs one CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
@@ -163,6 +198,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -173,20 +210,29 @@ from repro_torch import run_strategy  # noqa: E402
 from repro_torch.core import (JobSpec, cost_of, gamma, pocd_of,  # noqa: E402
                               solve_algorithm1, solve_grid, theory, utility)
 from repro_torch import obs  # noqa: E402
+from repro_torch.cluster import (DISCIPLINES, AdmissionConfig,  # noqa: E402
+                                 GovernorConfig, admit_jobs,
+                                 build_strategy_table, dispatch_key_order,
+                                 masked_dispatch, offered_load,
+                                 predicted_holds, replay, run_cluster,
+                                 run_cluster_strategy)
+from repro_torch.cluster.engine import (combined_release,  # noqa: E402
+                                        primary_slice)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.coupled import (repair_independent,  # noqa: E402
                                  solve_jobs_coupled, total_utility,
                                  utility_cost_grids)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import dispatch_scan as ds  # noqa: E402
 from repro_torch.kernels import grid_solve as gs  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.inputs import make_batch  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
 from repro_torch.serve import Engine  # noqa: E402
 from repro_torch.sim.draws import WorkloadPhilox  # noqa: E402
-from repro_torch.sim.metrics import class_summary  # noqa: E402
+from repro_torch.sim.metrics import aggregate, class_summary  # noqa: E402
 from repro_torch.sim.runner import jobspecs_of  # noqa: E402
-from repro_torch.sim.trace import jobset_to  # noqa: E402
+from repro_torch.sim.trace import jobset_to, uniform_jobset  # noqa: E402
 from repro_torch.strategies import get  # noqa: E402
 from repro_torch.workloads import (PAPER_TRACE_STATS,  # noqa: E402
                                    TRACE_COLUMNS, get_scenario,
@@ -291,7 +337,7 @@ FA_PATH = (SERVE["batch"], 8, 4, SERVE["prompt"], 256, "bfloat16", True,
            50.0)
 CHECK_SERVE = dict(layers=2, batch=2, prompt=200, tokens=4, tol=1e-4)
 SOURCES = ("grid_solve", "pocd_mc", "flash_attention",
-           "flash_attention_sm90")
+           "flash_attention_sm90", "dispatch_scan")
 CHECK_SHAPES = ((37, 9), (64, 33), (2700, 9), (65536, 64))
 FLEET_SHAPE = (65536, 64)   # a fleet-sized chunk (ROADMAP A.5)
 THETA = 1e-4
@@ -303,6 +349,24 @@ BUDGET_JOBS = 2700
 # budget-share policy that ignores U, so a slack budget does not give
 # the independent solve (as in the reference)
 SLACK_EXEMPT = ("clone_prop",)
+# the capacity replay: the paper trace on a pool of 500 slots (a loaded
+# pool, not a drowned one: phase 10b prints the offered primary load over
+# 3600 s windows), a sweep of pool sizes, the kernel's
+# test cases (K 20,000 keeps the pool in shared memory, 100,000 puts it in
+# device memory) and the rows of the full-size prefix check
+CLUSTER_SLOTS = 500
+CLUSTER_SWEEP = (250, 500, 1000, 2000, None)
+DISPATCH_KS = (1, 5, 37, 300, 20_000, 100_000)
+PREFIX_ROWS = 100_000
+# (PoCD, utilization, mean wait s) of the JAX package's run_cluster on the
+# same trace at 500 slots, run on a CPU with its own jax.random draws:
+# printed beside the port's as a sanity line, not a check
+REF_AT_500 = {
+    "hadoop_ns": (0.019, 0.080, 82.8), "hadoop_s": (0.169, 0.475, 44.9),
+    "mantri": (0.257, 0.475, 42.3), "clone": (0.515, 0.562, 77.3),
+    "srestart": (0.600, 0.400, 32.9), "sresume": (0.614, 0.391, 31.7),
+    "hedge": (0.033, 0.487, 45.6), "adaptive": (0.619, 0.391, 31.6),
+    "clone_prop": (0.520, 0.562, 77.4), "clone_sjf": (0.518, 0.562, 77.3)}
 
 
 def card() -> str:
@@ -600,14 +664,22 @@ def phase_profile(fn, label: str, wall_s: float) -> dict:
     if busy_us <= 0:
         raise AssertionError("profiler recorded no device time")
     ours = {k: sum(e.device_time_total for e in rows if k in e.key) / 1e3
-            for k in ("grid_solve", "pocd_mc", "flash_attention")}
+            for k in ("grid_solve", "pocd_mc", "flash_attention",
+                      "dispatch_scan")}
+    sort_ms = sum(e.device_time_total for e in rows
+                  if "sort" in e.key.lower()) / 1e3
+    # each dispatch_scan launch's device time, in launch order
+    dispatch_ms = [e.time_range.elapsed_us() / 1e3 for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA
+         and "dispatch_scan" in e.name), key=lambda e: e.time_range.start)]
     idle = 1.0 - (busy_us / 1e3) / (wall_s * 1e3)
     print(f"profile {label}: device busy {busy_us / 1e3:.3f} ms in "
           f"{n_ops} device ops; unprofiled warm wall {wall_s * 1e3:.3f} ms; "
           f"device idle share {idle:.3f}; grid_solve kernel "
           f"{ours['grid_solve']:.3f} ms, pocd_mc kernels "
           f"{ours['pocd_mc']:.3f} ms, flash_attention kernels "
-          f"{ours['flash_attention']:.3f} ms")
+          f"{ours['flash_attention']:.3f} ms, dispatch_scan kernel "
+          f"{ours['dispatch_scan']:.3f} ms, sorts {sort_ms:.3f} ms")
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms "
               f"{100 * e.device_time_total / busy_us:5.1f}% x{e.count:<5d} "
@@ -615,7 +687,11 @@ def phase_profile(fn, label: str, wall_s: float) -> dict:
     return dict(device_busy_ms=busy_us / 1e3, device_ops=n_ops,
                 idle_share=idle, grid_solve_ms=ours["grid_solve"],
                 pocd_mc_ms=ours["pocd_mc"],
-                flash_attention_ms=ours["flash_attention"])
+                flash_attention_ms=ours["flash_attention"],
+                dispatch_scan_ms=ours["dispatch_scan"],
+                dispatch_scan_launches=sum(e.count for e in rows
+                                           if "dispatch_scan" in e.key),
+                dispatch_scan_each_ms=dispatch_ms, sort_ms=sort_ms)
 
 
 class WorkloadRecording:
@@ -1040,6 +1116,394 @@ def phase_spans(dev, p: SimParams) -> dict:
                                 key=lambda kv: -kv[1]["self_ms"])[:12]))
 
 
+def dispatch_inputs(n: int = 3000, seed: int = 0):
+    """tests/test_torch_cluster.py's recursion inputs: releases and holds
+    on coarse grids (ties in release and in the times slots come free),
+    deadlines with ties, 20% inactive units; numpy f32 / bool."""
+    rng = np.random.default_rng(seed)
+    release = (rng.integers(0, n // 6, n) * 0.5).astype(np.float32)
+    hold = (1.0 + rng.integers(0, 12, n) * 0.25).astype(np.float32)
+    deadline = (release + rng.integers(1, 8, n) * 2.0).astype(np.float32)
+    return release, hold, deadline, rng.random(n) >= 0.2
+
+
+def sorted_case(discipline: str, seed: int = 0):
+    """(release, hold, count) of dispatch_inputs in dispatch order, on the
+    CPU."""
+    t = torch.from_numpy
+    release, hold, deadline, active = dispatch_inputs(seed=seed)
+    order = dispatch_key_order(discipline, t(release), t(deadline),
+                               inactive=~t(active))
+    return (t(release)[order], t(hold)[order],
+            t(active).sum(dtype=torch.int32))
+
+
+def kernel_vs_plain(rel, hold, count, slots: int, dev, rows=None) -> float:
+    """The kernel on the card against the plain version on the CPU: starts
+    and final pool bit-equal; with `rows`, the kernel runs on the whole
+    arrays and only their first `rows` starts are compared (the recursion
+    is causal: the first n starts depend on the first n rows alone).
+    Returns the largest |difference| of the starts compared (0 when it
+    passes)."""
+    free = torch.zeros(slots, device=dev)
+    got = ds.dispatch_scan_cuda(rel.to(dev), hold.to(dev), count.to(dev),
+                                free)
+    n = rel.shape[0] if rows is None else min(rows, rel.shape[0])
+    free_p = torch.zeros(slots)
+    want = ds.dispatch_scan_plain(rel[:n].cpu(), hold[:n].cpu(),
+                                  count.cpu().clamp(max=n), free_p)
+    torch.cuda.synchronize()
+    if not torch.equal(got[:n].cpu(), want):
+        bad = int((got[:n].cpu() != want).sum())
+        raise AssertionError(f"dispatch_scan K={slots}: {bad} of {n} starts "
+                             f"differ from the plain version")
+    if rows is None and not torch.equal(free.cpu(), free_p):
+        raise AssertionError(f"dispatch_scan K={slots}: final pool differs")
+    return float((got[:n].cpu() - want).abs().max())
+
+
+def pass_inputs(table, race, jobs, slots: int):
+    """Both passes' dispatch-ordered (release, hold, count), built with the
+    engine's own functions; pass 1's starts come from masked_dispatch."""
+    T = jobs.total_tasks
+    hold = predicted_holds(table, race, T)
+    arrival_u = jobs.arrival[table.job_id]
+    deadline_u = (jobs.arrival + jobs.D)[table.job_id]
+    act_prim = primary_slice(table.active & table.is_primary, T)
+    p1 = (primary_slice(arrival_u, T), primary_slice(hold, T), act_prim,
+          primary_slice(deadline_u, T))
+    o1 = dispatch_key_order("fifo", p1[0], p1[3], inactive=~act_prim)
+    release = combined_release(table, arrival_u, act_prim,
+                               masked_dispatch(slots, "fifo", *p1))
+    o2 = dispatch_key_order("fifo", release, deadline_u,
+                            inactive=~table.active)
+    return ((p1[0][o1], p1[1][o1], act_prim.sum(dtype=torch.int32)),
+            (release[o2], hold[o2], table.active.sum(dtype=torch.int32)))
+
+
+def max_in_service(start, hold, active) -> int:
+    """The most units holding a slot at once: events (start, +1) and
+    (start + hold, -1), a release before a start at one time (a slot freed
+    at t is taken at t), summed as integers."""
+    st = start[active]
+    times = torch.cat([st, st + hold[active]])
+    delta = torch.cat([torch.ones_like(st, dtype=torch.int32),
+                       -torch.ones_like(st, dtype=torch.int32)])
+    o = torch.sort(delta, stable=True).indices
+    o = o[torch.sort(times[o], stable=True).indices]
+    return int(torch.cumsum(delta[o], 0).max())
+
+
+def cluster_run(dev, jobs, p, traced: bool = False, **kw):
+    """One run_cluster on the card: (outs, r_min, wall s, (grid-solve,
+    dispatch) launches, {strategy: span ms}); the counts are set to 0
+    just before and read just after."""
+    gs.launches = ds.launches = 0
+    if traced:
+        obs.enable()
+    (outs, r_min), wall = synced(lambda: run_cluster(
+        Philox(0), jobs, p, theta=THETA, device=dev, **kw))
+    spans = {}
+    if traced:
+        obs.disable()
+        for sp in obs.get_tracer().closed_spans():
+            for s in outs:
+                if sp.name in (f"cluster.replay[{s}]",
+                               f"cluster.replay[{s}].wait"):
+                    spans[s] = spans.get(s, 0.0) + sp.duration_ns / 1e6
+                elif sp.name == "cluster.solve" and \
+                        sp.attrs.get("strategy") == s:
+                    spans[s] = spans.get(s, 0.0) + sp.duration_ns / 1e6
+    return outs, r_min, wall, (gs.launches, ds.launches), spans
+
+
+def queue_line(o) -> str:
+    return (f"pocd {float(o.result.pocd):.4f} util "
+            f"{float(o.queue.utilization):.4f} mean wait "
+            f"{float(o.queue.mean_wait):.2f} s")
+
+
+def phase_cluster(dev, p: SimParams, budget_B: float):
+    """The capacity replay on the card (phase 10b): (its JSON, the state
+    `cluster_times` needs)."""
+    out = {}
+    # 1. the kernel against the plain version on the test cases
+    t0 = time.perf_counter()
+    err = max(kernel_vs_plain(*sorted_case(disc), K, dev)
+              for K in DISPATCH_KS for disc in DISCIPLINES)
+    print(f"dispatch_scan: bit-equal to the plain version (starts and final"
+          f" pool) at K = {DISPATCH_KS}, FIFO and EDF; the pool in shared "
+          f"memory at K = " + ", ".join(
+              f"{K}: {ds.pool_in_shared_memory(K)}" for K in DISPATCH_KS)
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    uni = uniform_jobset(150, 10, t_min=10.0, beta=2.0, D=50.0, device=dev)
+    for s in ("sresume", "hadoop_s"):
+        table, race = build_strategy_table(Philox(0), uni, s, p, theta=1e-3,
+                                           device=dev)
+        _, rel, st = replay(table, race, uni, 20_000, device=dev)
+        o = run_cluster_strategy(Philox(0), uni, s, p, slots=20_000,
+                                 theta=1e-3, device=dev)
+        if not (torch.equal(st[table.active], rel[table.active])
+                and float(o.queue.mean_wait) == 0.0):
+            raise AssertionError(f"uniform 150x10 at K=20,000, {s}: a unit "
+                                 f"waited")
+    print("uniform 150x10 trace at K = 20,000: starts equal releases, mean "
+          "wait 0 (sresume, hadoop_s)")
+
+    # 2. the main path, twice
+    jobs = generate(2700, seed=0, device=dev)
+    rho = offered_load(jobs, CLUSTER_SLOTS, 3600.0)
+    out["offered_load"] = dict(mean=float(rho.mean()),
+                               p95=float(np.quantile(rho, 0.95)),
+                               max=float(rho.max()))
+    print(f"offered primary load at {CLUSTER_SLOTS} slots over 3600 s "
+          f"windows: " + ", ".join(f"{k} {v:.4f}"
+                                   for k, v in out["offered_load"].items()))
+    runs = [cluster_run(dev, jobs, p, traced=True, slots=CLUSTER_SLOTS)
+            for _ in range(2)]
+    (outs, r_min, _, launches, _), second = runs[0], runs[1][0]
+    for k, run in enumerate(runs):
+        if run[3] != (len(names("optimized")), 2 * len(names())):
+            raise AssertionError(f"run_cluster {k + 1}: (grid-solve, "
+                                 f"dispatch) launches {run[3]}, expected "
+                                 f"(6, 20)")
+    for name, o in outs.items():
+        y = second[name].result
+        if not (torch.equal(o.result.job_cost, y.job_cost)
+                and torch.equal(o.result.job_met, y.job_met)):
+            raise AssertionError(f"run_cluster {name}: job_cost or job_met "
+                                 f"differs between two runs")
+    print(f"run_cluster(Philox(0), generate(2700), slots={CLUSTER_SLOTS}): "
+          f"r_min {r_min:.6f}; walls {runs[0][2]:.3f} s, {runs[1][2]:.3f} s;"
+          f" launches (grid-solve, dispatch) {runs[0][3]}, {runs[1][3]}; "
+          f"job_cost and job_met bit-equal over the two runs")
+    for name, o in outs.items():
+        ref = REF_AT_500[name]
+        print(f"  {name:10s} {queue_line(o)} (the JAX package, its own "
+              f"draws: pocd {ref[0]}, util {ref[1]}, wait {ref[2]} s); "
+              f"run_cluster_strategy first {runs[0][4][name]:.1f} ms, warm "
+              f"{runs[1][4][name]:.1f} ms")
+    out["main"] = dict(
+        r_min=r_min, wall_s=[r[2] for r in runs], launches=list(launches),
+        strategy_ms={"first": runs[0][4], "warm": runs[1][4]},
+        per_strategy={n: dict(pocd=float(o.result.pocd),
+                              utilization=float(o.queue.utilization),
+                              mean_wait=float(o.queue.mean_wait),
+                              max_wait=float(o.queue.max_wait),
+                              preempted=float(o.queue.preempted),
+                              mean_cost=float(o.result.mean_cost),
+                              sum_r=int(o.r_opt.sum()))
+                      for n, o in outs.items()})
+
+    # 3-4. every strategy's full replay: invariants, the same bits as the
+    # main path (the table not narrowed), the steps; the prefix check
+    T = jobs.total_tasks
+    steps, rows, prefix = {}, {}, {}
+    for s in names():
+        table, race = build_strategy_table(
+            Philox(0), jobs, s, p, theta=THETA,
+            r_min=0.0 if s == "hadoop_ns" else r_min, device=dev)
+        realized, rel, st = replay(table, race, jobs, CLUSTER_SLOTS,
+                                   device=dev)
+        act = table.active
+        res = aggregate(jobs, realized.task_completion
+                        - jobs.arrival[jobs.job_id], realized.task_machine)
+        if not (torch.equal(res.job_cost, outs[s].result.job_cost)
+                and torch.equal(res.job_met, outs[s].result.job_met)):
+            raise AssertionError(f"replay {s}: the full-width table gives "
+                                 f"other bits than the main path")
+        if bool((st[act] < rel[act]).any()):
+            raise AssertionError(f"replay {s}: a unit starts before its "
+                                 f"release")
+        busy = max_in_service(st, predicted_holds(table, race, T), act)
+        util = float(realized.busy_time / (CLUSTER_SLOTS * realized.span))
+        if busy > CLUSTER_SLOTS or not 0.0 <= util <= 1.0 + 1e-6:
+            raise AssertionError(f"replay {s}: {busy} units in service at "
+                                 f"once, utilization {util}")
+        width = act.shape[0] // T
+        if get(s).optimized:
+            width = min(width, int(outs[s].r_opt.max()) + 2)
+        n_prim = int(primary_slice(act & table.is_primary, T).sum())
+        steps[s] = [n_prim, int(act.sum())]
+        rows[s] = [T, T * width]
+        print(f"  replay {s:10s}: start >= release, at most {busy} of "
+              f"{CLUSTER_SLOTS} slots held, util {util:.4f}; steps "
+              f"{steps[s]} over rows {rows[s]}; the main path's bits")
+        if s in ("clone", "hadoop_s"):
+            both = pass_inputs(table, race, jobs, CLUSTER_SLOTS)
+            err = max(err, *(kernel_vs_plain(*args, CLUSTER_SLOTS, dev,
+                                             rows=PREFIX_ROWS)
+                             for args in both))
+            prefix[s] = PREFIX_ROWS
+            print(f"  {s}: the kernel's starts on both passes' full arrays "
+                  f"equal the plain version's on the CPU over the first "
+                  f"{PREFIX_ROWS} rows")
+            if s == "clone":
+                big = both[1]
+        del table, realized, rel, st
+    out.update(steps=steps, rows=rows, prefix_rows=prefix, max_abs_err=err)
+
+    # 5. slots=None on the paper trace against run_all
+    flat, r_flat = run_all(Philox(0), jobs, p, theta=THETA, device=dev)
+    inf, r_inf, _, (_, n_ds), _ = cluster_run(dev, jobs, p, slots=None)
+    D = jobs.D.cpu()
+    # the replay computes completions on the trace's clock, arrival +
+    # offset + dur in f32, less the arrival; at the last arrivals (1.08e5
+    # s) that clock's spacing is 2^-7 s, so a completion moves by up to
+    # about two spacings of arrival + D against run_all's: a deadline tie
+    # is a completion within rtol 1e-5 of D or within two such spacings
+    due = (jobs.arrival + jobs.D).cpu()
+    clock = 2.0 * (torch.nextafter(due, torch.tensor(torch.inf)) - due)
+    n_ties = 0
+    for s, f in flat.items():
+        c = inf[s]
+        if not torch.equal(c.r_opt, f.r_opt):
+            raise AssertionError(f"slots=None {s}: r* differs from run_all")
+        flips = (c.result.job_met != f.result.job_met).cpu()
+        ties = (f.result.job_completion.cpu() - D).abs() <= 1e-5 * D + clock
+        if bool((flips & ~ties).any()):
+            raise AssertionError(f"slots=None {s}: job_met differs away "
+                                 f"from the deadline")
+        n_ties += int(flips.sum())
+        dp = abs(float(c.result.pocd) - float(f.result.pocd))
+        dc = abs(float(c.result.mean_cost) - float(f.result.mean_cost))
+        if dp > 1e-6 + int(flips.sum()) / jobs.n_jobs or \
+                dc > 1e-4 * abs(float(f.result.mean_cost)):
+            raise AssertionError(f"slots=None {s}: pocd or mean_cost")
+    if n_ds != 0 or r_inf != r_flat:
+        raise AssertionError(f"slots=None: {n_ds} dispatch launches, r_min "
+                             f"{r_inf} vs {r_flat}")
+    print(f"slots=None equals run_all on the card: r* equal, {n_ties} "
+          f"job_met flips, all at deadline ties (rtol 1e-5 or two clock "
+          f"spacings), 0 dispatch launches")
+    out["slots_none"] = dict(deadline_tie_flips=n_ties)
+
+    # 6. printed runs
+    adm = admit_jobs(jobs, CLUSTER_SLOTS, AdmissionConfig(slack=1.0))
+    ds.launches = 0
+    o, wall = synced(lambda: run_cluster_strategy(
+        Philox(0), jobs, "sresume", p, slots=CLUSTER_SLOTS, theta=THETA,
+        r_min=r_min, discipline="edf", passes=3, governor=GovernorConfig(),
+        admitted=adm, device=dev))
+    print(f"sresume EDF, passes=3, governor, admission slack 1.0: admitted "
+          f"{float(o.queue.admitted_frac):.4f}, mean r* "
+          f"{float(o.r_opt.float().mean()):.3f} (FIFO run "
+          f"{float(outs['sresume'].r_opt.float().mean()):.3f}); "
+          f"{queue_line(o)}; {ds.launches} dispatch launches, "
+          f"{1e3 * wall:.1f} ms")
+    out["edf_governed"] = dict(admitted=float(o.queue.admitted_frac),
+                               mean_r=float(o.r_opt.float().mean()),
+                               pocd=float(o.result.pocd),
+                               utilization=float(o.queue.utilization),
+                               mean_wait=float(o.queue.mean_wait))
+    out["sweep"] = {}
+    for s in ("sresume", "hadoop_s"):
+        for slots in CLUSTER_SWEEP:
+            o = run_cluster_strategy(Philox(0), jobs, s, p, slots=slots,
+                                     theta=THETA, r_min=r_min, device=dev)
+            out["sweep"][f"{s}@{slots}"] = [float(o.result.pocd),
+                                            float(o.queue.mean_wait),
+                                            float(o.queue.utilization)]
+            print(f"  {s:8s} slots {str(slots):>5s}: {queue_line(o)}")
+    mts = make_jobset("multi-tenant-sla", n_jobs=BUDGET_JOBS, device=dev)
+    bud, _, wall, (n_gs, n_ds), _ = cluster_run(
+        dev, mts, p, slots=CLUSTER_SLOTS, budget=budget_B)
+    out["budget"] = {}
+    for s, o in bud.items():
+        c = o.coupled
+        spend = None if c is None else float(c.spend)
+        if c is not None and bool(c.feasible) and spend > budget_B:
+            raise AssertionError(f"budget {s}: spend {spend} > B {budget_B}")
+        out["budget"][s] = dict(spend=spend, pocd=float(o.result.pocd),
+                                utilization=float(o.queue.utilization),
+                                mean_wait=float(o.queue.mean_wait))
+    print(f"budget B {budget_B:.1f} at {CLUSTER_SLOTS} slots on "
+          f"multi-tenant-sla ({mts.n_jobs} jobs): {1e3 * wall:.1f} ms, "
+          f"{n_gs} grid-solve and {n_ds} dispatch launches; spend <= B "
+          f"wherever feasible: " + ", ".join(
+              f"{s} {v['spend']:.0f}" for s, v in out["budget"].items()
+              if v["spend"] is not None))
+
+    # 7. the times come last in the script (cluster_times): a profiler
+    # session this large can cost the next session its first records
+    n_steps = sum(sum(v) for v in steps.values())
+    return out, dict(jobs=jobs, warm_wall_s=runs[1][2], big=big,
+                     n_steps=n_steps, steps=steps,
+                     n_rows=sum(sum(v) for v in rows.values()))
+
+
+def cluster_times(dev, p: SimParams, state: dict) -> dict:
+    """The dispatch kernel's times (phase 10b, run at the end): one
+    profiled warm run_cluster (busy, idle share, top ops; the kernel's
+    device time per run and per step, the sorts'), taken again up to
+    three times until it records all 20 dispatch launches (else the mean
+    over those it recorded, if at least half, times 20); the wrapper's
+    call on clone's pass 2 and the small case's kernel and plain times
+    (CUDA events)."""
+    jobs, n_steps, n_rows = state["jobs"], state["n_steps"], state["n_rows"]
+    want = 2 * len(names())
+    seen = []
+    for _ in range(3):
+        prof = phase_profile(lambda: run_cluster(
+            Philox(0), jobs, p, slots=CLUSTER_SLOTS, theta=THETA,
+            device=dev), f"run_cluster slots={CLUSTER_SLOTS}",
+            state["warm_wall_s"])
+        seen.append(prof["dispatch_scan_launches"])
+        if seen[-1] == want:
+            break
+    got = seen[-1]
+    if 2 * got < want or got > want:
+        raise AssertionError(f"profiler saw {seen} dispatch_scan launches, "
+                             f"expected {want}")
+    kernel_ms = prof["dispatch_scan_ms"] * want / got
+    per_pass = {}
+    if got == want:     # launches in run order: two passes a strategy
+        each = prof["dispatch_scan_each_ms"]
+        for k, s in enumerate(names()):
+            per_pass[s] = [dict(ms=each[2 * k + i],
+                                steps=state["steps"][s][i],
+                                ns_per_step=1e6 * each[2 * k + i]
+                                / state["steps"][s][i]) for i in (0, 1)]
+            print(f"  dispatch_scan {s:10s}: " + "; ".join(
+                f"pass {i + 1} {v['ms']:.2f} ms over {v['steps']} steps "
+                f"({v['ns_per_step']:.1f} ns a step)"
+                for i, v in enumerate(per_pass[s])))
+    bytes_ms = 1e3 * (12 * n_steps + 8 * (n_rows - n_steps)) \
+        / HBM_BYTES_PER_S
+    rel, hold, count = state["big"]
+    call_ms = cuda_ms(lambda: ds.dispatch_scan_cuda(
+        rel, hold, count, torch.zeros(CLUSTER_SLOTS, device=dev)), 2)
+    small = [x.to(dev) for x in sorted_case("fifo")]
+    small_ms = cuda_ms(lambda: ds.dispatch_scan_cuda(
+        *small, torch.zeros(CLUSTER_SLOTS, device=dev)), 20)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ds.dispatch_scan_plain(*small, torch.zeros(CLUSTER_SLOTS,
+                                                   device=dev))
+    plain_ms = 1e3 * (time.perf_counter() - t0) / 3
+    times = dict(
+        kernel_ms_per_run=kernel_ms, launches_recorded=seen,
+        per_pass=per_pass,
+        kernel_ms_per_launch=kernel_ms / want,
+        ns_per_step=1e6 * kernel_ms / n_steps,
+        steps_per_run=n_steps, rows_per_run=n_rows,
+        sort_ms_per_run=prof["sort_ms"], bytes_ms=bytes_ms,
+        call_ms_clone_pass2=call_ms, clone_pass2_steps=int(count),
+        small_case=dict(rows=int(small[0].shape[0]),
+                        steps=int(small[2]), slots=CLUSTER_SLOTS,
+                        kernel_ms=small_ms, plain_ms=plain_ms),
+        profile=prof)
+    print(f"dispatch_scan: {kernel_ms:.2f} ms of device time per "
+          f"run_cluster in {want} launches (recorded {seen}) over {n_steps} "
+          f"steps ({times['ns_per_step']:.1f} ns a step); sorts "
+          f"{prof['sort_ms']:.2f} ms; bound {bytes_ms:.5f} ms (bytes); "
+          f"wrapper call on clone's pass 2 ({int(count)} steps) "
+          f"{call_ms:.2f} ms; small case ({small[0].shape[0]} rows, K "
+          f"{CLUSTER_SLOTS}) kernel {small_ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms")
+    return times
+
+
 def uniforms(shape, seed: int, dev, low: float = 1e-7):
     """Seeded uniforms on the card in [low, 1)."""
     g = torch.Generator(device=dev)
@@ -1425,7 +1889,9 @@ def fa_times(dev) -> dict:
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
     out = dict(ms=kernel_ms(launch, 20, "flash_attention_sm90_kernel"),
                call_ms=cuda_ms(launch, 20),
-               previous_ms=kernel_ms(previous, 5, "flash_attention_kernel"),
+               # 20 launches, as every kernel_ms: the profiler has been
+               # seen to drop 3 records a session, which 5 could not take
+               previous_ms=kernel_ms(previous, 20, "flash_attention_kernel"),
                previous_call_ms=cuda_ms(previous, 3),
                plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20),
                bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms,
@@ -1646,6 +2112,10 @@ def main() -> None:
     sm90 = ptxas_report("flash_attention_sm90", "Li256E")
     print(f"  flash_attention_sm90 at D 256: {sm90}, dynamic shared memory "
           f"{fa.SM90_SMEM_BYTES[256]} bytes")
+    dsk = {where: ptxas_report("dispatch_scan", f"dispatch_scan_kernelILb{b}")
+           for where, b in (("shared", 1), ("device", 0))}
+    print(f"  dispatch_scan, pool in shared memory: {dsk['shared']}; in "
+          f"device memory: {dsk['device']}")
     p = SimParams()
 
     check = phase_check(dev, p)
@@ -1681,6 +2151,7 @@ def main() -> None:
     scen_runs = phase_scenario_runs(dev, p)
     budget = phase_budget(dev, p)
     spans = phase_spans(dev, p)
+    cluster, cluster_state = phase_cluster(dev, p, budget["budget"])
     path = phase_quickstart(dev)
     warm = quietly(phase_quickstart, dev)
     print("quickstart path, warm second run: " + ", ".join(
@@ -1709,6 +2180,8 @@ def main() -> None:
     # first kernel records, and kernel_ms counts every launch
     qs_prof = phase_profile(lambda: quietly(phase_quickstart, dev),
                             "quickstart path", sum(warm["steps"].values()))
+    cluster["times"] = cluster_times(dev, p, cluster_state)
+    del cluster_state
 
     at_main = check["main"].values()
     bound_ms, bound_by = bound_of(sum(m["bytes_ms"] for m in at_main),
@@ -1819,6 +2292,42 @@ def main() -> None:
                              "softcap"), FA_PATH)),
              serve=serve, serve_check=serve_check),
     ]
+    ct = cluster["times"]
+    kernels.append(dict(
+        name="dispatch_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/dispatch_scan.cu",
+        replaces="src/repro/cluster/events.py:106 (lax.scan; no Pallas "
+                 "kernel)",
+        # one run_cluster over the 10 strategies at reps 1: 2 passes each;
+        # ms is its device time (profiler), summed over the run's launches
+        launches=cluster["main"]["launches"][1],
+        # over every case and both strategies' prefixes (bit-equal: 0)
+        max_abs_err=cluster["max_abs_err"],
+        ms=ct["kernel_ms_per_run"], ms_per_launch=ct["kernel_ms_per_launch"],
+        ns_per_step=ct["ns_per_step"], steps=ct["steps_per_run"],
+        per_pass=ct["per_pass"],
+        rows=ct["rows_per_run"],
+        # the wrapper's call on clone's pass 2 (CUDA events), and the small
+        # case (3000 rows, 2400 steps, K 500), kernel and plain
+        call_ms=ct["call_ms_clone_pass2"],
+        call_steps=ct["clone_pass2_steps"],
+        plain_ms=ct["small_case"]["plain_ms"],
+        small_case=ct["small_case"],
+        # 12 bytes a row below count (release and hold read, start
+        # written), 8 past it (release read, start written)
+        bound_ms=ct["bytes_ms"], bound_by="bytes",
+        sort_ms=ct["sort_ms_per_run"],
+        library_ms=None,
+        library="none: no PyTorch call computes the slot recursion (a "
+                "serial argmin-and-update over a pool)",
+        registers={k: v["registers"] for k, v in dsk.items()},
+        spills={k: v["spill_stores"] + v["spill_loads"]
+                for k, v in dsk.items()},
+        profile_run_cluster=ct["profile"]))
+    cluster_line = json.dumps({"cluster": cluster})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "cluster.json").write_text(cluster_line)
+    print(cluster_line)
     print(json.dumps({"scenarios": {
         "workloads": workloads, "runs": scen_runs, "budget": budget,
         "spans": spans}}))

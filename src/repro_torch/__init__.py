@@ -19,8 +19,13 @@ Ported so far:
    (`kernels/csrc/flash_attention_sm90.cu`, `flash_attention.cu`);
 4. workload scenarios (`workloads`), the joint budget solve (`coupled`)
    and span tracing (`obs`), through `run_all(source, "<scenario>", p,
-   budget=B)`.
+   budget=B)`;
+5. the finite-capacity replay (`cluster`: `run_cluster` over a bounded
+   slot pool, FIFO or EDF, with the governor and admission control), with
+   the slot-dispatch recursion as a hand-written CUDA kernel
+   (`kernels/csrc/dispatch_scan.cu`).
 """
+from .cluster import run_cluster, run_cluster_strategy
 from .device import resolve_device
 from .sim import (JobSet, Philox, SimParams, SimResult, build_jobset,
                   generate, run_all, run_strategy)
@@ -28,6 +33,6 @@ from .strategies import get, index_of, names, solve_jobs
 
 __all__ = [
     "JobSet", "Philox", "SimParams", "SimResult", "build_jobset", "generate",
-    "get", "index_of", "names", "resolve_device", "run_all", "run_strategy",
-    "solve_jobs",
+    "get", "index_of", "names", "resolve_device", "run_all", "run_cluster",
+    "run_cluster_strategy", "run_strategy", "solve_jobs",
 ]

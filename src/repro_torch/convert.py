@@ -1,7 +1,8 @@
 """Converters from the reference's state to the port's.
 
 The simulator's state is the trace (a JobSet), the per-job Algorithm-1
-inputs (a JobSpec) and the simulator parameters; the model's is its
+inputs (a JobSpec), the simulator parameters and, under capacity, a
+strategy's AttemptTable; the model's is its
 parameter tree. These functions take that state as plain numpy arrays
 and numbers, e.g. `{f: np.asarray(getattr(ref_jobs, f)) for f in ...}`,
 so that both packages can be fed the same inputs without this package
@@ -18,6 +19,7 @@ from .core.utility import JobSpec
 from .device import resolve_device
 from .sim.strategies import SimParams
 from .sim.trace import JobSet
+from .strategies.table import AttemptTable
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -57,6 +59,17 @@ def simparams(fields: Mapping[str, float]) -> SimParams:
     if unknown:
         raise ValueError(f"simparams: unknown fields {sorted(unknown)}")
     return SimParams(**fields)
+
+
+def attempt_table(columns: Mapping[str, np.ndarray], *,
+                  device=None) -> AttemptTable:
+    """An AttemptTable from the reference AttemptTable's arrays by field
+    name: task_id / job_id become int64, the times f32, the flags bool."""
+    dev = resolve_device(device)
+    dtypes = {"task_id": np.int64, "job_id": np.int64, "can_win": np.bool_,
+              "active": np.bool_, "is_primary": np.bool_}
+    return AttemptTable(*(_tensor(columns[f], dtypes.get(f, np.float32), dev)
+                          for f in AttemptTable._fields))
 
 
 def _param(a, dev) -> torch.Tensor:

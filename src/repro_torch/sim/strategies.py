@@ -149,8 +149,10 @@ def _rank_among_job(values, job_id, n_jobs):
     return ranks.to(torch.int32)
 
 
-def sim_hadoop_s(draw, jobs: JobSet, p: SimParams):
-    """Default Hadoop speculation (rank approximation)."""
+def hadoop_s_launch(draw, jobs: JobSet, p: SimParams):
+    """(T1, T2, s_launch): the primary and copy times, and the copy's
+    launch, one check period per rank after the job's first completion
+    (shared with the capacity lowering, `strategies.baselines`)."""
     T = jobs.total_tasks
     t_min, beta = jobs.task_t_min, jobs.task_beta
     T1 = _pareto(draw("k1", (T,)), t_min, beta)
@@ -159,7 +161,12 @@ def sim_hadoop_s(draw, jobs: JobSet, p: SimParams):
     t_first = _segment_min(T1, jobs.job_id, jobs.n_jobs)[jobs.job_id]
     delta = p.check_period_frac * t_min
     rank = _rank_among_job(T1, jobs.job_id, jobs.n_jobs).to(torch.float32)
-    s_launch = t_first + (rank + 1.0) * delta
+    return T1, T2, t_first + (rank + 1.0) * delta
+
+
+def sim_hadoop_s(draw, jobs: JobSet, p: SimParams):
+    """Default Hadoop speculation (rank approximation)."""
+    T1, T2, s_launch = hadoop_s_launch(draw, jobs, p)
     speculate = T1 > s_launch                     # still running at launch
     completion = torch.where(speculate, torch.minimum(T1, s_launch + T2), T1)
     # both attempts run until the task completes (loser killed then)
@@ -169,8 +176,10 @@ def sim_hadoop_s(draw, jobs: JobSet, p: SimParams):
     return completion, machine
 
 
-def sim_mantri(draw, jobs: JobSet, p: SimParams):
-    """Mantri-style duplication (the reference's approximation)."""
+def mantri_launch(draw, jobs: JobSet, p: SimParams):
+    """(T1, extras, launch): extra attempt i launches at the job's mean T1
+    plus a gate, plus i check periods (shared with the capacity lowering,
+    `strategies.baselines`)."""
     T = jobs.total_tasks
     t_min, beta = jobs.task_t_min, jobs.task_beta
     T1 = _pareto(draw("k1", (T,)), t_min, beta)
@@ -180,10 +189,15 @@ def sim_mantri(draw, jobs: JobSet, p: SimParams):
     extras = _pareto(draw("k2", (T, p.mantri_max_extra)), t_min[:, None],
                      beta[:, None])
     delta = p.check_period_frac * t_min
-    # extra attempt i launches at gate + i * delta while the task still runs
     launch = gate[:, None] + delta[:, None] * \
         _slots(p.mantri_max_extra, T1)
-    launched = T1[:, None] > launch
+    return T1, extras, launch
+
+
+def sim_mantri(draw, jobs: JobSet, p: SimParams):
+    """Mantri-style duplication (the reference's approximation)."""
+    T1, extras, launch = mantri_launch(draw, jobs, p)
+    launched = T1[:, None] > launch     # launched while the task still runs
     att_completion = torch.where(launched, launch + extras, torch.inf)
     completion = torch.minimum(T1, att_completion.amin(dim=1))
     extra_machine = torch.where(

@@ -1,7 +1,8 @@
 """The three Chronos strategies (paper Section IV) as StrategySpecs;
 counterpart of `repro.strategies.chronos`: closed forms (Thms 1-6), the
 Thm-8 concavity thresholds, the certified grid-bound slopes, the
-Monte-Carlo draw, and the tile bodies of the `kernels.pocd_mc` modes."""
+Monte-Carlo draw, the capacity replay's AttemptTable lowerings (the same
+draws as the sims), and the tile bodies of the `kernels.pocd_mc` modes."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,8 +11,10 @@ import torch
 from ..core.cost import cost_clone, cost_srestart, cost_sresume
 from ..core.pocd import (log_task_fail_clone, log_task_fail_srestart,
                          log_task_fail_sresume)
-from ..sim.strategies import sim_clone, sim_srestart, sim_sresume
+from ..sim.strategies import (_detect, _pareto, sim_clone, sim_srestart,
+                              sim_sresume)
 from .spec import StrategySpec, register
+from .table import assemble
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +113,80 @@ def tile_sresume(att, t_min, tau_est, tau_kill, D, r, *, phi):
 
 
 # ---------------------------------------------------------------------------
+# AttemptTable lowerings (draws as in sim/strategies.py)
+# ---------------------------------------------------------------------------
+
+
+def build_clone(draw, jobs, r_task, choice_task, p, *, max_r=8,
+                oracle=True):
+    """r + 1 attempts from t = 0; losers are killed at tau_kill."""
+    T = jobs.total_tasks
+    t_min, beta = jobs.task_t_min, jobs.task_beta
+    tau_kill = (p.tau_est_frac + p.tau_kill_gap_frac) * t_min
+    att = _pareto(draw("key", (T, max_r + 1)), t_min[:, None], beta[:, None])
+    active = _slots(max_r + 1, att)[None, :] <= r_task[:, None]
+    return assemble(jobs, torch.zeros((T, 1), device=att.device), att,
+                    tau_kill[:, None],
+                    torch.ones((T, 1), dtype=torch.bool, device=att.device),
+                    active)
+
+
+def build_srestart(draw, jobs, r_task, choice_task, p, *, max_r=8,
+                   oracle=True):
+    """A detected straggler gets r fresh restarts at tau_est. A losing
+    primary is killed at tau_kill; losing copies at tau_kill too, billed
+    from their tau_est launch (Thm 3's r (tau_kill - tau_est) term)."""
+    T = jobs.total_tasks
+    t_min, beta, D = jobs.task_t_min, jobs.task_beta, jobs.task_D
+    tau_est = p.tau_est_frac * t_min
+    tau_kill = tau_est + p.tau_kill_gap_frac * t_min
+    T1 = _pareto(draw("k1", (T,)), t_min, beta)
+    extras = _pareto(draw("k2", (T, max_r)), t_min[:, None], beta[:, None])
+    straggler = _detect(T1, t_min, D, tau_est, p, oracle)
+    spec_active = ((_slots(max_r, T1)[None, :] < r_task[:, None])
+                   & straggler[:, None])
+    rel = torch.cat([torch.zeros((T, 1), device=T1.device),
+                     tau_est[:, None].expand(T, max_r)], 1)
+    dur = torch.cat([T1[:, None], extras], 1)
+    hold = torch.cat([tau_kill[:, None],
+                      (tau_kill - tau_est)[:, None].expand(T, max_r)], 1)
+    active = torch.cat([torch.ones((T, 1), dtype=torch.bool,
+                                   device=T1.device), spec_active], 1)
+    return assemble(jobs, rel, dur, hold,
+                    torch.ones((T, 1), dtype=torch.bool, device=T1.device),
+                    active)
+
+
+def build_sresume(draw, jobs, r_task, choice_task, p, *, max_r=8,
+                  oracle=True):
+    """A detected straggler is killed at tau_est (its work handed off) and
+    can never win; r + 1 resumed attempts start at tau_est, and losers
+    are killed at tau_kill."""
+    T = jobs.total_tasks
+    t_min, beta, D = jobs.task_t_min, jobs.task_beta, jobs.task_D
+    tau_est = p.tau_est_frac * t_min
+    tau_kill = tau_est + p.tau_kill_gap_frac * t_min
+    T1 = _pareto(draw("k1", (T,)), t_min, beta)
+    fresh = _pareto(draw("k2", (T, max_r + 1)), t_min[:, None],
+                    beta[:, None])
+    resumed = torch.maximum(t_min[:, None], (1.0 - p.phi_est) * fresh)
+    straggler = _detect(T1, t_min, D, tau_est, p, oracle)
+    spec_active = ((_slots(max_r + 1, T1)[None, :] <= r_task[:, None])
+                   & straggler[:, None])
+    rel = torch.cat([torch.zeros((T, 1), device=T1.device),
+                     tau_est[:, None].expand(T, max_r + 1)], 1)
+    dur = torch.cat([T1[:, None], resumed], 1)
+    hold = torch.cat([torch.where(straggler, tau_est, T1)[:, None],
+                      (tau_kill - tau_est)[:, None].expand(T, max_r + 1)], 1)
+    can_win = torch.cat([~straggler[:, None],
+                         torch.ones((T, max_r + 1), dtype=torch.bool,
+                                    device=T1.device)], 1)
+    active = torch.cat([torch.ones((T, 1), dtype=torch.bool,
+                                   device=T1.device), spec_active], 1)
+    return assemble(jobs, rel, dur, hold, can_win, active)
+
+
+# ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
 
@@ -129,7 +206,8 @@ def draw_clone(draw_u, jobs, r_task, choice_task, p, *, max_r, oracle):
 CLONE = register(StrategySpec(
     name="clone", kind="chronos", detectable=False, draw=draw_clone,
     log_task_fail=log_fail_clone, cost=closed_cost_clone, form="clone",
-    gamma=gamma_clone, r_slope=slope_clone, tile_outcome=tile_clone))
+    gamma=gamma_clone, r_slope=slope_clone, tile_outcome=tile_clone,
+    build_table=build_clone))
 
 SRESTART = register(StrategySpec(
     name="srestart", kind="chronos", detectable=True,
@@ -141,7 +219,7 @@ SRESTART = register(StrategySpec(
         cost_srestart(r, job.t_min, job.beta, job.D, job.N, job.tau_est,
                       job.tau_kill),
     form="srestart", gamma=gamma_srestart, r_slope=slope_reactive,
-    tile_outcome=tile_srestart))
+    tile_outcome=tile_srestart, build_table=build_srestart))
 
 SRESUME = register(StrategySpec(
     name="sresume", kind="chronos", detectable=True,
@@ -154,4 +232,4 @@ SRESUME = register(StrategySpec(
         cost_sresume(r, job.t_min, job.beta, job.D, job.N, job.tau_est,
                      job.tau_kill, job.phi_est),
     form="sresume", gamma=gamma_sresume, r_slope=slope_reactive,
-    tile_outcome=tile_sresume))
+    tile_outcome=tile_sresume, build_table=build_sresume))

@@ -1,17 +1,17 @@
 """Competitive task-cloning baselines (arXiv 1501.02330) as StrategySpecs;
 counterpart of `repro.strategies.competitive`.
 
-Both reuse `clone`'s closed forms and draw; without a budget they are
-`clone` under their own registry slots. Their `allocate` policies split a
-shared budget and are read only by the joint budget solve
-(`repro_torch.coupled`).
+Both reuse `clone`'s closed forms, draw and table lowering; without a
+budget they are `clone` under their own registry slots. Their `allocate`
+policies split a shared budget and are read only by the joint budget
+solve (`repro_torch.coupled`).
 """
 from __future__ import annotations
 
 import torch
 
-from .chronos import (closed_cost_clone, draw_clone, gamma_clone,
-                      log_fail_clone, slope_clone)
+from .chronos import (build_clone, closed_cost_clone, draw_clone,
+                      gamma_clone, log_fail_clone, slope_clone)
 from ..sim.metrics import scan_sum
 from .spec import StrategySpec, register
 
@@ -50,7 +50,7 @@ def _clone_spec(name: str, allocate) -> StrategySpec:
         name=name, kind="chronos", detectable=False, draw=draw_clone,
         log_task_fail=log_fail_clone, cost=closed_cost_clone,
         gamma=gamma_clone, r_slope=slope_clone, allocate=allocate,
-        form="clone")
+        form="clone", build_table=build_clone)
 
 
 CLONE_PROP = register(_clone_spec("clone_prop", allocate_proportional))

@@ -38,9 +38,15 @@ class StrategySpec(NamedTuple):
           -> (completion, machine) (J, N) Monte-Carlo body of the
           `kernels.pocd_mc` mode of this name              [optional]
       allocate(job, U, cost, budget) -> (J,) int32 r per job [optional]
+      build_table(draw_u, jobs, r_task, choice_task, p, *, max_r, oracle)
+          -> AttemptTable: the capacity replay's lowering
+          (`repro_torch.cluster`), drawing what `draw` draws, under the
+          same names and shapes
 
-    `form` names the closed-form family of `log_task_fail`/`cost` (one of
-    FORMS) for the CUDA grid solve; `components` names the registered
+    `race` marks strategies whose losing attempts hold their slot until
+    the task completes (a kill timer, `hold_cap`, otherwise). `form`
+    names the closed-form family of `log_task_fail`/`cost` (one of FORMS)
+    for the CUDA grid solve; `components` names the registered
     sub-strategies a composite maximizes over, in `choose`-id order.
     """
     name: str
@@ -56,6 +62,8 @@ class StrategySpec(NamedTuple):
     allocate: Optional[Callable] = None
     form: Optional[str] = None
     components: Optional[tuple] = None
+    race: bool = False
+    build_table: Optional[Callable] = None
 
     @property
     def optimized(self) -> bool:
@@ -72,6 +80,9 @@ def register(spec: StrategySpec) -> StrategySpec:
     if spec.optimized and (spec.log_task_fail is None or spec.cost is None):
         raise ValueError(f"strategy {spec.name!r} is kind={spec.kind!r} but "
                          f"lacks the closed forms Algorithm 1 needs")
+    if spec.build_table is None:
+        raise ValueError(f"strategy {spec.name!r} lacks the build_table "
+                         f"lowering the capacity replay needs")
     if spec.form is not None and spec.form not in FORMS:
         raise ValueError(f"unknown closed-form family {spec.form!r}")
     if spec.components:
