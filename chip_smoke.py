@@ -9,8 +9,10 @@ Phases; each raises on failure, so any failure exits non-zero:
    of the main path from `src/repro_torch/kernels/csrc/` (grid_solve.cu,
    pocd_mc.cu, flash_attention.cu, flash_attention_sm90.cu,
    dispatch_scan.cu), one nvcc process per source, timed, with ptxas's
-   registers and spills (dispatch_scan's for both pool placements), and
-   the tensor-core kernel's dynamic shared memory;
+   registers and spills (dispatch_scan's for each of its three designs,
+   which must show 0 bytes of stack and 0 spills), the sorted design's
+   SASS instructions for one dispatch step (cuobjdump), and the
+   tensor-core kernel's dynamic shared memory;
 2. hold each kernel against its plain PyTorch version on the card, for
    every optimized strategy at (J, r_max) = (37, 9), (64, 33), (2700, 9)
    and (65536, 64): r*, choice and sat equal; U rtol 1e-4 / atol 1e-5,
@@ -82,8 +84,11 @@ Phases; each raises on failure, so any failure exits non-zero:
    (csrc/dispatch_scan.cu) against its plain version, whole outputs
    (starts and final pool) bit-equal, on tests/test_torch_cluster.py's
    inputs (ties in release and in free times, 20% inactive), FIFO and
-   EDF, at K = 1, 5, 37, 300, 20,000 (the pool in shared memory) and
-   100,000 (in device memory); the uniform 150x10 trace at K = 20,000
+   EDF, at K = 1, 5, 37, 300, 500, 512 (the sorted pool in registers),
+   513, 20,000 (lane-private groups in shared memory) and 100,000 (in
+   device memory); the batched kernel, one launch for P = 1, 3 and 8
+   segments (unequal counts, 0 and n among them) at K = 500 and 513,
+   against the batched plain version; the uniform 150x10 trace at K = 20,000
    (starts equal releases, mean wait 0); the paper trace's offered
    primary load at 500 slots (cluster.offered_load, 3600 s windows: mean,
    p95, max); then the main path,
@@ -91,14 +96,19 @@ Phases; each raises on failure, so any failure exits non-zero:
    theta=1e-4) over all 10 strategies at reps 1, twice, traced: 6
    grid-solve and 20 dispatch launches a run, job_cost and job_met the
    same bits, each strategy's first and warm wall from its spans, and its
-   PoCD, utilization and mean wait printed beside the JAX package's (a
-   sanity line); every strategy's full replay (build_strategy_table +
+   PoCD, utilization and mean wait equal, to the printed digits, to the
+   first dispatch kernel's (PR18_AT_500) and printed beside the JAX
+   package's (a sanity line); the same at reps 8, twice: 6 grid-solve and
+   20 dispatch launches a run (a launch a pass for all eight
+   replications), the same bits; every strategy's full replay (build_strategy_table +
    replay, the table not narrowed): the main path's bits, start >=
    release, at most 500 units in service (an integer sweep over start
    and start + hold events), 0 <= utilization <= 1 + 1e-6; for clone and
    hadoop_s both passes' dispatch-ordered inputs rebuilt with the
    engine's functions, the kernel on the full arrays equal to the plain
-   version on the CPU over the first 100,000 rows; slots=None against
+   version on the CPU over the first 100,000 rows; clone's both passes
+   for eight replications, stacked as P = 8 segments, one launch each
+   bit-equal to eight single-segment launches; slots=None against
    run_all (r* equal, job_met equal but at deadline ties, 0 dispatch
    launches); EDF with passes=3, the governor and admission (slack 1.0)
    for sresume; slots 250 to 2000 and None for sresume and hadoop_s; a
@@ -109,9 +119,14 @@ Phases; each raises on failure, so any failure exits non-zero:
    top ops; the kernel's device time per run, per pass and per step,
    the sorts'), taken again until it records all 20 dispatch launches
    (up to three times; else the mean over those recorded, at least
-   half, times 20), the wrapper's call on clone's pass 2 and the small
-   case's kernel and plain times. Its JSON is also written to
-   chiprun_out/cluster.json;
+   half, times 20), the same at reps 8, the wrapper's call on clone's
+   pass 2, ns a step on clone's pass 2 at K = 500, 512, 513, 1,000 and
+   20,000 (each K's own design) and at K = 500 and 512 with the
+   lane-private groups forced (the cutover's evidence), the sorted design
+   built with 1 and 2 warps in place of 4 at K 512 (held to the shipped
+   kernel's starts), the SM clock
+   while the kernel runs, and the small case's kernel and plain times.
+   Its JSON is also written to chiprun_out/cluster.json;
 11. the quickstart path (examples/quickstart.py step for step, through the
    port, on the card): JobSpec.make, the closed forms at r = 0..3,
    solve_grid and solve_algorithm1 (equal r*), gamma, the Theorem 7
@@ -190,7 +205,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import importlib
+import importlib.util
 import io
 import json
 import subprocess
@@ -356,8 +371,35 @@ SLACK_EXEMPT = ("clone_prop",)
 # device memory) and the rows of the full-size prefix check
 CLUSTER_SLOTS = 500
 CLUSTER_SWEEP = (250, 500, 1000, 2000, None)
-DISPATCH_KS = (1, 5, 37, 300, 20_000, 100_000)
+DISPATCH_KS = (1, 5, 37, 300, 500, 512, 513, 20_000, 100_000)
 PREFIX_ROWS = 100_000
+# the batched launch: segments a launch and pools (both designs); the
+# replications of the reps-8 runs and of the stacked clone check
+BATCH_PS = (1, 3, 8)
+BATCH_KS = (500, 513)
+REPS_BIG = 8
+# ns a step on clone's pass 2: each K's own design, and the lane-private
+# groups forced below the cutover
+STEP_KS = (500, 512, 513, 1000, 20_000)
+FORCED_KS = (500, 512)
+# the sorted design built with 1 and 2 warps, timed at K 512 beside the
+# 4 that ship (csrc/dispatch_scan.cu's DISPATCH_SORTED_WARPS)
+SORTED_WARP_VARIANTS = (1, 2)
+SORTED_WARPS = 4
+# (PoCD, utilization, mean wait s) of every strategy at 500 slots, reps 1,
+# as PR 18's final run printed them with the first dispatch kernel: a
+# redesign that keeps the semantics prints the same digits
+PR18_AT_500 = {
+    "hadoop_ns": ("0.0222", "0.0250", "84.31"),
+    "hadoop_s": ("0.1759", "0.4752", "45.09"),
+    "mantri": ("0.2522", "0.4762", "42.30"),
+    "clone": ("0.5219", "0.5622", "77.28"),
+    "srestart": ("0.6015", "0.3994", "32.91"),
+    "sresume": ("0.6204", "0.3909", "31.46"),
+    "hedge": ("0.0289", "0.4866", "45.54"),
+    "adaptive": ("0.6133", "0.3910", "31.64"),
+    "clone_prop": ("0.5233", "0.5623", "77.39"),
+    "clone_sjf": ("0.5215", "0.5621", "77.27")}
 # (PoCD, utilization, mean wait s) of the JAX package's run_cluster on the
 # same trace at 500 slots, run on a CPU with its own jax.random draws:
 # printed beside the port's as a sanity line, not a check
@@ -397,6 +439,65 @@ def ptxas_report(name: str, marker: str) -> dict:
     if "registers" not in out:
         raise AssertionError(f"no ptxas report of {marker} in {name}'s log")
     return out
+
+
+def cuobjdump() -> str:
+    """The CUDA toolkit's cuobjdump, else the copy Triton's package
+    carries."""
+    exe = Path(build.nvcc()).with_name("cuobjdump")
+    if exe.exists():
+        return str(exe)
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin is not None:
+        exe = Path(spec.origin).parent / "backends/nvidia/bin/cuobjdump"
+        if exe.exists():
+            return str(exe)
+    raise AssertionError("cuobjdump not found (CUDA toolkit or triton)")
+
+
+def sass_step(name: str, marker: str, op: str) -> dict:
+    """SASS instructions of one dispatch step of the kernel of
+    `csrc/<name>.cu` whose mangled name holds `marker`: every loop (a
+    branch back to an earlier address) that holds the instruction `op`,
+    which the kernel issues once a step, is counted, instructions over
+    steps, and the loop with the fewest a step (the steady state, where
+    the compiler unrolled) is reported."""
+    import re
+    lib = build.compile_sources([name])[name]
+    text = subprocess.run([cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    funcs = [f for f in text.split("Function : ")[1:]
+             if marker in f.split("\n", 1)[0]]
+    if len(funcs) != 1:
+        raise AssertionError(f"{len(funcs)} SASS functions hold {marker}")
+    addrs, instrs = [], []
+    for line in funcs[0].splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addrs.append(int(m[1], 16))
+            instrs.append(m[2])
+    index = {a: i for i, a in enumerate(addrs)}
+    loops = []
+    for i, ins in enumerate(instrs):
+        m = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", ins)
+        if m and index.get(int(m[1], 16), i + 1) <= i:
+            body = instrs[index[int(m[1], 16)]:i + 1]
+            codes = [x.split()[1] if x.startswith("@") else x.split()[0]
+                     for x in body]
+            steps = sum(c.startswith(op) for c in codes)
+            if steps:
+                loops.append((len(body) / steps, len(body), steps, codes))
+    if not loops:
+        raise AssertionError(f"no loop of {marker} holds a dispatch step")
+    per_step, n, steps, codes = min(loops, key=lambda x: x[0])
+    mix = {}
+    for c in codes:     # by opcode, without its modifiers
+        mix[c.split(".")[0]] = mix.get(c.split(".")[0], 0) + 1 / steps
+    return dict(instructions_per_step=per_step, loop_instructions=n,
+                steps_per_loop=steps, kernel_instructions=len(instrs),
+                mix_per_step=dict(sorted(mix.items(), key=lambda kv: -kv[1])),
+                loops=[dict(instructions=b, steps=k) for _, b, k, _ in loops])
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1162,6 +1263,61 @@ def kernel_vs_plain(rel, hold, count, slots: int, dev, rows=None) -> float:
     return float((got[:n].cpu() - want).abs().max())
 
 
+def batched_case(P: int, K: int, n: int = 3000, seed: int = 0):
+    """tests/test_torch_cluster.py's batched_inputs on the CPU: P segments
+    of rows on coarse grids (ties in release), holds with zeros among
+    them, pools with tied free times, counts n and 0 first, then draws."""
+    rng = np.random.default_rng(seed)
+    release = (rng.integers(0, n // 6, (P, n)) * 0.5).astype(np.float32)
+    hold = (rng.integers(0, 12, (P, n)) * 0.25).astype(np.float32)
+    free = (rng.integers(0, 4, (P, K)) * 0.5).astype(np.float32)
+    count = np.array([n, 0] + list(rng.integers(1, n, max(P - 2, 0))),
+                     np.int32)[:P]
+    return tuple(map(torch.from_numpy, (release, hold, count, free)))
+
+
+def batched_vs_plain(P: int, K: int, dev) -> None:
+    """One launch for P segments against the batched plain version on the
+    CPU: starts and final pools bit-equal."""
+    release, hold, count, free = batched_case(P, K, seed=P)
+    free_k = free.to(dev)
+    got = ds.dispatch_scan_batched_cuda(release.to(dev), hold.to(dev),
+                                        count.to(dev), free_k)
+    want = ds.dispatch_scan_batched_plain(release, hold, count, free)
+    torch.cuda.synchronize()
+    if not (torch.equal(got.cpu(), want) and torch.equal(free_k.cpu(),
+                                                          free)):
+        raise AssertionError(f"dispatch_scan_batched P={P} K={K}: starts or "
+                             f"pools differ from the plain version")
+
+
+def segments_vs_single(cases, slots: int, dev) -> None:
+    """The (release, hold, count) cases stacked as segments of one launch
+    against one single-segment launch each: starts and final pools
+    bit-equal."""
+    free = torch.zeros(len(cases), slots, device=dev)
+    got = ds.dispatch_scan_batched_cuda(
+        torch.stack([c[0] for c in cases]), torch.stack([c[1] for c in cases]),
+        torch.stack([c[2].reshape(()) for c in cases]), free)
+    for k, (rel, hold, count) in enumerate(cases):
+        one = torch.zeros(slots, device=dev)
+        want = ds.dispatch_scan_cuda(rel, hold, count, one)
+        if not (torch.equal(got[k], want) and torch.equal(free[k], one)):
+            raise AssertionError(f"dispatch_scan_batched: segment {k} of "
+                                 f"{len(cases)} differs from its own launch")
+
+
+class RepSource:
+    """A uniform source whose replication 0 is replication `rep` of
+    `inner`, so build_strategy_table draws that replication's table."""
+
+    def __init__(self, inner, rep: int):
+        self.inner, self.rep = inner, rep
+
+    def uniform(self, strategy, rep, name, shape, device):
+        return self.inner.uniform(strategy, self.rep, name, shape, device)
+
+
 def pass_inputs(table, race, jobs, slots: int):
     """Both passes' dispatch-ordered (release, hold, count), built with the
     engine's own functions; pass 1's starts come from masked_dispatch."""
@@ -1217,10 +1373,24 @@ def cluster_run(dev, jobs, p, traced: bool = False, **kw):
     return outs, r_min, wall, (gs.launches, ds.launches), spans
 
 
+def queue_digits(o) -> tuple:
+    """(PoCD, utilization, mean wait s) as queue_line prints them."""
+    return (f"{float(o.result.pocd):.4f}",
+            f"{float(o.queue.utilization):.4f}",
+            f"{float(o.queue.mean_wait):.2f}")
+
+
 def queue_line(o) -> str:
-    return (f"pocd {float(o.result.pocd):.4f} util "
-            f"{float(o.queue.utilization):.4f} mean wait "
-            f"{float(o.queue.mean_wait):.2f} s")
+    return "pocd {} util {} mean wait {} s".format(*queue_digits(o))
+
+
+def same_bits(a: dict, b: dict, what: str) -> None:
+    for name, o in a.items():
+        y = b[name].result
+        if not (torch.equal(o.result.job_cost, y.job_cost)
+                and torch.equal(o.result.job_met, y.job_met)):
+            raise AssertionError(f"{what} {name}: job_cost or job_met "
+                                 f"differs between two runs")
 
 
 def phase_cluster(dev, p: SimParams, budget_B: float):
@@ -1231,11 +1401,17 @@ def phase_cluster(dev, p: SimParams, budget_B: float):
     t0 = time.perf_counter()
     err = max(kernel_vs_plain(*sorted_case(disc), K, dev)
               for K in DISPATCH_KS for disc in DISCIPLINES)
+    out["designs"] = {str(K): ds.design_of(K) for K in DISPATCH_KS}
     print(f"dispatch_scan: bit-equal to the plain version (starts and final"
-          f" pool) at K = {DISPATCH_KS}, FIFO and EDF; the pool in shared "
-          f"memory at K = " + ", ".join(
-              f"{K}: {ds.pool_in_shared_memory(K)}" for K in DISPATCH_KS)
+          f" pool) at K = {DISPATCH_KS}, FIFO and EDF; designs " + ", ".join(
+              f"{K}: {d}" for K, d in out["designs"].items())
           + f" ({time.perf_counter() - t0:.1f} s)")
+    for P in BATCH_PS:
+        for K in BATCH_KS:
+            batched_vs_plain(P, K, dev)
+    print(f"dispatch_scan_batched: one launch bit-equal to the batched plain "
+          f"version (starts and final pools) for P = {BATCH_PS} segments at "
+          f"K = {BATCH_KS}")
     uni = uniform_jobset(150, 10, t_min=10.0, beta=2.0, D=50.0, device=dev)
     for s in ("sresume", "hadoop_s"):
         table, race = build_strategy_table(Philox(0), uni, s, p, theta=1e-3,
@@ -1262,27 +1438,48 @@ def phase_cluster(dev, p: SimParams, budget_B: float):
     runs = [cluster_run(dev, jobs, p, traced=True, slots=CLUSTER_SLOTS)
             for _ in range(2)]
     (outs, r_min, _, launches, _), second = runs[0], runs[1][0]
+    want_launches = (len(names("optimized")), 2 * len(names()))
     for k, run in enumerate(runs):
-        if run[3] != (len(names("optimized")), 2 * len(names())):
+        if run[3] != want_launches:
             raise AssertionError(f"run_cluster {k + 1}: (grid-solve, "
                                  f"dispatch) launches {run[3]}, expected "
-                                 f"(6, 20)")
+                                 f"{want_launches}")
+    same_bits(outs, second, "run_cluster")
     for name, o in outs.items():
-        y = second[name].result
-        if not (torch.equal(o.result.job_cost, y.job_cost)
-                and torch.equal(o.result.job_met, y.job_met)):
-            raise AssertionError(f"run_cluster {name}: job_cost or job_met "
-                                 f"differs between two runs")
+        if queue_digits(o) != PR18_AT_500[name]:
+            raise AssertionError(f"run_cluster {name}: {queue_line(o)}, the "
+                                 f"first kernel's digits are "
+                                 f"{PR18_AT_500[name]}")
     print(f"run_cluster(Philox(0), generate(2700), slots={CLUSTER_SLOTS}): "
           f"r_min {r_min:.6f}; walls {runs[0][2]:.3f} s, {runs[1][2]:.3f} s;"
           f" launches (grid-solve, dispatch) {runs[0][3]}, {runs[1][3]}; "
-          f"job_cost and job_met bit-equal over the two runs")
+          f"job_cost and job_met bit-equal over the two runs; every "
+          f"strategy's PoCD, utilization and mean wait PR 18's digits")
     for name, o in outs.items():
         ref = REF_AT_500[name]
         print(f"  {name:10s} {queue_line(o)} (the JAX package, its own "
               f"draws: pocd {ref[0]}, util {ref[1]}, wait {ref[2]} s); "
               f"run_cluster_strategy first {runs[0][4][name]:.1f} ms, warm "
               f"{runs[1][4][name]:.1f} ms")
+    many = [cluster_run(dev, jobs, p, slots=CLUSTER_SLOTS, reps=REPS_BIG)
+            for _ in range(2)]
+    for k, run in enumerate(many):
+        if run[3] != want_launches:
+            raise AssertionError(f"run_cluster reps={REPS_BIG} run {k + 1}: "
+                                 f"(grid-solve, dispatch) launches {run[3]},"
+                                 f" expected {want_launches}")
+    same_bits(many[0][0], many[1][0], f"run_cluster reps={REPS_BIG}")
+    print(f"run_cluster reps={REPS_BIG}: walls {many[0][2]:.3f} s, "
+          f"{many[1][2]:.3f} s; launches (grid-solve, dispatch) "
+          f"{many[0][3]}, {many[1][3]}; the same bits twice; " + ", ".join(
+              f"{n} {float(o.result.pocd):.4f}"
+              for n, o in many[0][0].items()))
+    out["reps8"] = dict(
+        wall_s=[r[2] for r in many], launches=list(many[0][3]),
+        pocd={n: float(o.result.pocd) for n, o in many[0][0].items()},
+        mean_wait={n: float(o.queue.mean_wait)
+                   for n, o in many[0][0].items()})
+    del many
     out["main"] = dict(
         r_min=r_min, wall_s=[r[2] for r in runs], launches=list(launches),
         strategy_ms={"first": runs[0][4], "warm": runs[1][4]},
@@ -1342,6 +1539,19 @@ def phase_cluster(dev, p: SimParams, budget_B: float):
                 big = both[1]
         del table, realized, rel, st
     out.update(steps=steps, rows=rows, prefix_rows=prefix, max_abs_err=err)
+    passes = []
+    for rep in range(REPS_BIG):
+        table, race = build_strategy_table(RepSource(Philox(0), rep), jobs,
+                                           "clone", p, theta=THETA,
+                                           r_min=r_min, device=dev)
+        passes.append(pass_inputs(table, race, jobs, CLUSTER_SLOTS))
+        del table
+    for k in (0, 1):
+        segments_vs_single([ps[k] for ps in passes], CLUSTER_SLOTS, dev)
+    print(f"  clone, {REPS_BIG} replications: pass 1 ({T} rows) and pass 2 "
+          f"({passes[0][1][0].shape[0]} rows) as {REPS_BIG} segments of one "
+          f"launch each, bit-equal to {REPS_BIG} single-segment launches")
+    del passes
 
     # 5. slots=None on the paper trace against run_all
     flat, r_flat = run_all(Philox(0), jobs, p, theta=THETA, device=dev)
@@ -1428,26 +1638,23 @@ def phase_cluster(dev, p: SimParams, budget_B: float):
     # session this large can cost the next session its first records
     n_steps = sum(sum(v) for v in steps.values())
     return out, dict(jobs=jobs, warm_wall_s=runs[1][2], big=big,
+                     reps8_warm_wall_s=out["reps8"]["wall_s"][1],
                      n_steps=n_steps, steps=steps,
                      n_rows=sum(sum(v) for v in rows.values()))
 
 
-def cluster_times(dev, p: SimParams, state: dict) -> dict:
-    """The dispatch kernel's times (phase 10b, run at the end): one
-    profiled warm run_cluster (busy, idle share, top ops; the kernel's
-    device time per run and per step, the sorts'), taken again up to
-    three times until it records all 20 dispatch launches (else the mean
-    over those it recorded, if at least half, times 20); the wrapper's
-    call on clone's pass 2 and the small case's kernel and plain times
-    (CUDA events)."""
-    jobs, n_steps, n_rows = state["jobs"], state["n_steps"], state["n_rows"]
+def profiled_cluster(dev, jobs, p, reps: int, wall_s: float):
+    """A profiled warm run_cluster at `reps`, taken again up to three
+    times until it records all 20 dispatch launches: (profile, kernel ms
+    per run (the mean over those recorded, if at least half, times 20),
+    launches seen per session)."""
     want = 2 * len(names())
     seen = []
     for _ in range(3):
         prof = phase_profile(lambda: run_cluster(
-            Philox(0), jobs, p, slots=CLUSTER_SLOTS, theta=THETA,
-            device=dev), f"run_cluster slots={CLUSTER_SLOTS}",
-            state["warm_wall_s"])
+            Philox(0), jobs, p, slots=CLUSTER_SLOTS, theta=THETA, reps=reps,
+            device=dev), f"run_cluster slots={CLUSTER_SLOTS} reps={reps}",
+            wall_s)
         seen.append(prof["dispatch_scan_launches"])
         if seen[-1] == want:
             break
@@ -1455,9 +1662,82 @@ def cluster_times(dev, p: SimParams, state: dict) -> dict:
     if 2 * got < want or got > want:
         raise AssertionError(f"profiler saw {seen} dispatch_scan launches, "
                              f"expected {want}")
-    kernel_ms = prof["dispatch_scan_ms"] * want / got
+    return prof, prof["dispatch_scan_ms"] * want / got, seen
+
+
+def sm_clock_while(fn) -> dict:
+    """nvidia-smi's SM clock, its maximum and the power draw, sampled while
+    the launches fn() enqueues run (about a second of kernel time)."""
+    torch.cuda.synchronize()
+    fn()
+    time.sleep(0.1)
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    sm, sm_max, watts = (float(x) for x in line.split(","))
+    return dict(sm_mhz=sm, max_sm_mhz=sm_max, power_w=watts)
+
+
+def sorted_warp_variants(rel, hold, count, want, dev) -> dict:
+    """The sorted design built with each of SORTED_WARP_VARIANTS warps
+    (DISPATCH_SORTED_WARPS; one nvcc a variant, all started together),
+    held against the shipped kernel's starts `want` at K 512 and timed
+    there (CUDA events, one launch after a warm one): {warps: ns a
+    step}."""
+    import ctypes
+    src = build.CSRC / "dispatch_scan.cu"
+    procs = {}
+    for w in SORTED_WARP_VARIANTS:
+        so = build.BUILD / f"dispatch_scan-sorted{w}.so"
+        procs[w] = (so, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, f"-DDISPATCH_SORTED_WARPS={w}",
+             "-o", str(so), str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    out, K, n = {}, 512, rel.shape[0]
+    for w, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc, sorted design with {w} warps:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.dispatch_scan_launch_as.argtypes = [i, i, vp, vp, vp, i, i, vp,
+                                                i, vp, vp]
+        got = torch.empty_like(rel)
+
+        def launch():
+            free = torch.zeros(K, device=dev)
+            err = lib.dispatch_scan_launch_as(
+                0, dev.index or 0, rel.data_ptr(), hold.data_ptr(),
+                count.reshape(1).data_ptr(), 1, n, free.data_ptr(), K,
+                got.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise AssertionError(f"sorted design, {w} warps: CUDA "
+                                     f"error {err}")
+        ms = cuda_ms(launch, 1)
+        if not torch.equal(got, want):
+            raise AssertionError(f"sorted design with {w} warps: starts "
+                                 f"differ from the shipped kernel's")
+        out[w] = 1e6 * ms / int(count)
+    return out
+
+
+def cluster_times(dev, p: SimParams, state: dict) -> dict:
+    """The dispatch kernel's times (phase 10b, run at the end): one
+    profiled warm run_cluster at reps 1 (busy, idle share, top ops; the
+    kernel's device time per run, per pass and per step, the sorts') and
+    one at reps 8; the wrapper's call on clone's pass 2; ns a step on
+    clone's pass 2 at STEP_KS with each K's design and at FORCED_KS with
+    the lane-private groups (CUDA events, one launch after a warm one);
+    the SM clock while the kernel runs; the small case's kernel and plain
+    times."""
+    jobs, n_steps, n_rows = state["jobs"], state["n_steps"], state["n_rows"]
+    want = 2 * len(names())
+    prof, kernel_ms, seen = profiled_cluster(dev, jobs, p, 1,
+                                             state["warm_wall_s"])
     per_pass = {}
-    if got == want:     # launches in run order: two passes a strategy
+    if seen[-1] == want:    # launches in run order: two passes a strategy
         each = prof["dispatch_scan_each_ms"]
         for k, s in enumerate(names()):
             per_pass[s] = [dict(ms=each[2 * k + i],
@@ -1468,11 +1748,29 @@ def cluster_times(dev, p: SimParams, state: dict) -> dict:
                 f"pass {i + 1} {v['ms']:.2f} ms over {v['steps']} steps "
                 f"({v['ns_per_step']:.1f} ns a step)"
                 for i, v in enumerate(per_pass[s])))
+    prof8, kernel_ms8, seen8 = profiled_cluster(
+        dev, jobs, p, REPS_BIG, state["reps8_warm_wall_s"])
     bytes_ms = 1e3 * (12 * n_steps + 8 * (n_rows - n_steps)) \
         / HBM_BYTES_PER_S
     rel, hold, count = state["big"]
+    steps = int(count)
     call_ms = cuda_ms(lambda: ds.dispatch_scan_cuda(
         rel, hold, count, torch.zeros(CLUSTER_SLOTS, device=dev)), 2)
+    per_k = {}
+    for K, design in ([(K, None) for K in STEP_KS]
+                      + [(K, "groups_shared") for K in FORCED_KS]):
+        ms = cuda_ms(lambda: ds._launch(*ds._one_segment(
+            rel, hold, count, torch.zeros(K, device=dev)), design), 1)
+        d = design or ds.design_of(K)
+        per_k[f"{K} {d}"] = dict(K=K, design=d, ms=ms,
+                                 ns_per_step=1e6 * ms / steps)
+    variants = sorted_warp_variants(
+        rel, hold, count, ds.dispatch_scan_cuda(
+            rel, hold, count, torch.zeros(512, device=dev)), dev)
+    variants[SORTED_WARPS] = per_k["512 sorted"]["ns_per_step"]
+    clock = sm_clock_while(lambda: [ds.dispatch_scan_cuda(
+        rel, hold, count, torch.zeros(CLUSTER_SLOTS, device=dev))
+        for _ in range(5)])
     small = [x.to(dev) for x in sorted_case("fifo")]
     small_ms = cuda_ms(lambda: ds.dispatch_scan_cuda(
         *small, torch.zeros(CLUSTER_SLOTS, device=dev)), 20)
@@ -1488,19 +1786,32 @@ def cluster_times(dev, p: SimParams, state: dict) -> dict:
         ns_per_step=1e6 * kernel_ms / n_steps,
         steps_per_run=n_steps, rows_per_run=n_rows,
         sort_ms_per_run=prof["sort_ms"], bytes_ms=bytes_ms,
-        call_ms_clone_pass2=call_ms, clone_pass2_steps=int(count),
+        call_ms_clone_pass2=call_ms, clone_pass2_steps=steps,
+        ns_per_step_by_K=per_k, clock=clock,
+        sorted_ns_per_step_by_warps=variants,
+        reps8=dict(kernel_ms_per_run=kernel_ms8, launches_recorded=seen8,
+                   each_ms=prof8["dispatch_scan_each_ms"],
+                   over_reps1=kernel_ms8 / kernel_ms, profile=prof8),
         small_case=dict(rows=int(small[0].shape[0]),
                         steps=int(small[2]), slots=CLUSTER_SLOTS,
                         kernel_ms=small_ms, plain_ms=plain_ms),
         profile=prof)
     print(f"dispatch_scan: {kernel_ms:.2f} ms of device time per "
           f"run_cluster in {want} launches (recorded {seen}) over {n_steps} "
-          f"steps ({times['ns_per_step']:.1f} ns a step); sorts "
+          f"steps ({times['ns_per_step']:.1f} ns a step); at reps "
+          f"{REPS_BIG} {kernel_ms8:.2f} ms in {want} launches (recorded "
+          f"{seen8}), {kernel_ms8 / kernel_ms:.3f} x reps 1; sorts "
           f"{prof['sort_ms']:.2f} ms; bound {bytes_ms:.5f} ms (bytes); "
-          f"wrapper call on clone's pass 2 ({int(count)} steps) "
-          f"{call_ms:.2f} ms; small case ({small[0].shape[0]} rows, K "
-          f"{CLUSTER_SLOTS}) kernel {small_ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms")
+          f"wrapper call on clone's pass 2 ({steps} steps) {call_ms:.2f} ms;"
+          f" small case ({small[0].shape[0]} rows, K {CLUSTER_SLOTS}) kernel "
+          f"{small_ms:.4f} ms, plain {plain_ms:.2f} ms")
+    print(f"dispatch_scan ns a step on clone's pass 2 ({steps} steps): "
+          + ", ".join(f"K {v['K']} {v['design']} {v['ns_per_step']:.1f}"
+                      for v in per_k.values())
+          + "; the sorted design at K 512 with " + ", ".join(
+              f"{w} warps {v:.1f}" for w, v in sorted(variants.items()))
+          + f"; SM clock {clock['sm_mhz']:.0f} MHz (max "
+          f"{clock['max_sm_mhz']:.0f}), {clock['power_w']:.1f} W")
     return times
 
 
@@ -2112,10 +2423,22 @@ def main() -> None:
     sm90 = ptxas_report("flash_attention_sm90", "Li256E")
     print(f"  flash_attention_sm90 at D 256: {sm90}, dynamic shared memory "
           f"{fa.SM90_SMEM_BYTES[256]} bytes")
-    dsk = {where: ptxas_report("dispatch_scan", f"dispatch_scan_kernelILb{b}")
-           for where, b in (("shared", 1), ("device", 0))}
-    print(f"  dispatch_scan, pool in shared memory: {dsk['shared']}; in "
-          f"device memory: {dsk['device']}")
+    dsk = {d: ptxas_report("dispatch_scan", f"dispatch_scan_kernelILi{i}E")
+           for i, d in enumerate(ds.DESIGNS)}
+    print("  dispatch_scan by design: " + "; ".join(
+        f"{d} {r}" for d, r in dsk.items()))
+    for d, r in dsk.items():
+        if r["stack"] or r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"dispatch_scan design {d}: {r} (a stack "
+                                 f"frame or spills)")
+    # the sorted design's warps meet at one named barrier a step
+    sass = sass_step("dispatch_scan", "dispatch_scan_kernelILi0E",
+                     "BAR.SYNC")
+    print(f"  dispatch_scan sorted design, SASS: "
+          f"{sass['instructions_per_step']:.1f} instructions a step (a loop "
+          f"of {sass['loop_instructions']} over {sass['steps_per_loop']} "
+          f"steps; loops holding a step {sass['loops']}); a step's mix "
+          + ", ".join(f"{k} {v:g}" for k, v in sass["mix_per_step"].items()))
     p = SimParams()
 
     check = phase_check(dev, p)
@@ -2323,6 +2646,23 @@ def main() -> None:
         registers={k: v["registers"] for k, v in dsk.items()},
         spills={k: v["spill_stores"] + v["spill_loads"]
                 for k, v in dsk.items()},
+        stack={k: v["stack"] for k, v in dsk.items()},
+        # the sorted pool in registers up to the cutover, lane-private
+        # groups above; ns a step on clone's pass 2 by K and design
+        cutover_slots=ds.SORTED_MAX_SLOTS, designs=cluster["designs"],
+        ns_per_step_by_K=ct["ns_per_step_by_K"], sass_step=sass,
+        sorted_warps=SORTED_WARPS,
+        sorted_ns_per_step_by_warps=ct["sorted_ns_per_step_by_warps"],
+        # one warp issues at most one instruction a cycle: the step's
+        # instructions over the SM clock measured while the kernel ran
+        issue_floor_ns_per_step=1e3 * sass["instructions_per_step"]
+        / ct["clock"]["sm_mhz"],
+        clock=ct["clock"],
+        # run_cluster at reps 8: 20 launches of 8 segments each
+        reps8=dict(launches=cluster["reps8"]["launches"][1],
+                   ms=ct["reps8"]["kernel_ms_per_run"],
+                   over_reps1=ct["reps8"]["over_reps1"],
+                   wall_s=cluster["reps8"]["wall_s"]),
         profile_run_cluster=ct["profile"]))
     cluster_line = json.dumps({"cluster": cluster})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)

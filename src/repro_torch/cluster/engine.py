@@ -14,10 +14,12 @@ The replay is a small fixed-point relaxation (default 2 passes):
   pass k  recomputes speculative releases as primary start + rel_offset
           and reschedules the combined unit set in dispatch order.
 
-Each pass is one `events.masked_dispatch`: a stable key sort, one launch
-of the dispatch kernel (`kernels/csrc/dispatch_scan.cu`) on the card, and
-the unsort. No pass reads a value back to the host. Replications are a
-loop, as in the port's runner; the reference vmaps them.
+Replications are built first, all at one width, and replayed together,
+as the reference vmaps them: each pass is one `events.masked_dispatch`
+over all replications, a stable key sort of each, one launch of the
+dispatch kernel (`kernels/csrc/dispatch_scan.cu`) on the card with a
+segment a replication, and the unsort. No pass reads a value back to the
+host.
 """
 from __future__ import annotations
 
@@ -131,32 +133,40 @@ def combined_release(table: AttemptTable, arrival_u, act_prim, prim_starts):
                        ps[table.task_id] + table.rel_offset)
 
 
-def _replay(table: AttemptTable, race: bool, jobs: JobSet,
-            slots: Optional[int], discipline: str, passes: int):
-    """(Realized, release, start): the release the final pass dispatched
-    against, so wait = start - release is true queueing."""
+def _replay(tables, race: bool, jobs: JobSet, slots: Optional[int],
+            discipline: str, passes: int):
+    """[(Realized, release, start)] for replications' tables of one width,
+    the reference's vmap over replications: every dispatch pass is one
+    `masked_dispatch` over all of them ((reps, T) primaries, then (reps,
+    U) units), one launch on the card. `release` is what the final pass
+    dispatched against, so wait = start - release is true queueing."""
     T = jobs.total_tasks
-    sched_hold = predicted_holds(table, race, T)
-    arrival_u = jobs.arrival[table.job_id]
+    holds = [predicted_holds(t, race, T) for t in tables]
+    arrival = [jobs.arrival[t.job_id] for t in tables]
     if slots is None:
-        release = arrival_u + table.rel_offset
-        return (realize(table, release, release, sched_hold, race, T),
-                release, release)
+        release = [a + t.rel_offset for a, t in zip(arrival, tables)]
+        return [(realize(t, r, r, h, race, T), r, r)
+                for t, r, h in zip(tables, release, holds)]
 
-    deadline_u = (jobs.arrival + jobs.D)[table.job_id]
-    act_prim = primary_slice(table.active & table.is_primary, T)
-    release = combined_release(table, arrival_u, act_prim, masked_dispatch(
-        slots, discipline, primary_slice(arrival_u, T),
-        primary_slice(sched_hold, T), act_prim,
-        primary_slice(deadline_u, T)))
+    due = jobs.arrival + jobs.D
+    deadline = torch.stack([due[t.job_id] for t in tables])
+    act_prim = [primary_slice(t.active & t.is_primary, T) for t in tables]
+    prim = lambda xs: torch.stack([primary_slice(x, T) for x in xs])
+    starts = masked_dispatch(slots, discipline, prim(arrival), prim(holds),
+                             torch.stack(act_prim), prim(deadline))
+    release = [combined_release(t, a, ap, s) for t, a, ap, s in
+               zip(tables, arrival, act_prim, starts)]
+    hold = torch.stack(holds)
+    active = torch.stack([t.active for t in tables])
     for i in range(passes - 1):
-        start = masked_dispatch(slots, discipline, release, sched_hold,
-                                table.active, deadline_u)
+        start = masked_dispatch(slots, discipline, torch.stack(release),
+                                hold, active, deadline)
         if i < passes - 2:      # refreshed only for a pass that reads it
-            release = combined_release(table, arrival_u, act_prim,
-                                       primary_slice(start, T))
-    return (realize(table, release, start, sched_hold, race, T), release,
-            start)
+            release = [combined_release(t, a, ap, primary_slice(s, T))
+                       for t, a, ap, s in
+                       zip(tables, arrival, act_prim, start)]
+    return [(realize(t, r, s, h, race, T), r, s)
+            for t, r, s, h in zip(tables, release, start, holds)]
 
 
 def replay(table: AttemptTable, race: bool, jobs: JobSet,
@@ -168,8 +178,8 @@ def replay(table: AttemptTable, race: bool, jobs: JobSet,
     (passes >= 2) is needed for copies to acquire a slot."""
     _check_args(passes, discipline)
     dev = resolve_device(device)
-    return _replay(AttemptTable(*(x.to(dev) for x in table)), race,
-                   jobset_to(jobs, dev), slots, discipline, passes)
+    return _replay([AttemptTable(*(x.to(dev) for x in table))], race,
+                   jobset_to(jobs, dev), slots, discipline, passes)[0]
 
 
 def _narrow_table(table: AttemptTable, n_tasks: int,
@@ -206,7 +216,7 @@ def _cluster_core(source, jobs: JobSet, strategy: str, p: SimParams, theta,
     admitted_frac = (torch.ones((), device=dev) if admitted is None else
                      admitted.to(torch.float32).sum() / J)
     r_task, choice_task = r_j[jobs.job_id], choice_j[jobs.job_id]
-    results, queues, metrics = [], [], []
+    tables = []
     for rep in range(reps):
         draw = lambda name, shape, rep=rep: source.uniform(
             strategy, rep, name, shape, dev)
@@ -215,9 +225,11 @@ def _cluster_core(source, jobs: JobSet, strategy: str, p: SimParams, theta,
         if admitted is not None:
             table = table._replace(
                 active=table.active & admitted[table.job_id])
-        table = _narrow_table(table, T, width)
-        realized, release, start = _replay(table, spec.race, jobs, slots,
-                                           discipline, passes)
+        tables.append(_narrow_table(table, T, width))
+    results, queues, metrics = [], [], []
+    for table, (realized, release, start) in zip(
+            tables, _replay(tables, spec.race, jobs, slots, discipline,
+                            passes)):
         completion = realized.task_completion - jobs.arrival[jobs.job_id]
         results.append(aggregate(jobs, completion, realized.task_machine))
         n_active = torch.clamp(table.active.to(torch.float32).sum(),

@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.dispatch_scan import dispatch_scan as _scan
+from ..kernels.dispatch_scan import dispatch_scan_batched as _scan
 from ..strategies.table import AttemptTable
 from .slots import SlotPool, dispatch_key_order
 
@@ -80,13 +80,11 @@ def predicted_holds(table: AttemptTable, race: bool, n_tasks: int):
 
 
 def _scan_sorted(release, hold, order, count, free):
-    """The recursion over rows taken in `order`, the first `count` of them
-    dispatching; starts returned in the original row order."""
-    st = _scan(release[order].contiguous(), hold[order].contiguous(), count,
-               free)
-    out = torch.empty_like(release)
-    out[order] = st
-    return out
+    """The recursion over each segment's rows ((P, n)) taken in `order`,
+    the first count[p] of them dispatching on pool free[p]; starts returned
+    in the original row order."""
+    st = _scan(release.gather(1, order), hold.gather(1, order), count, free)
+    return torch.empty_like(release).scatter_(1, order, st)
 
 
 def dispatch_scan(pool: SlotPool, release, hold, active):
@@ -99,9 +97,9 @@ def dispatch_scan(pool: SlotPool, release, hold, active):
     their order by one stable sort, and the recursion walks that prefix.
     """
     order = torch.sort((~active).to(torch.int8), stable=True).indices
-    free = pool.free.reshape(-1).clone()
-    starts = _scan_sorted(release, hold, order,
-                          active.sum(dtype=torch.int32), free)
+    free = pool.free.reshape(1, -1).clone()
+    starts = _scan_sorted(release[None], hold[None], order[None],
+                          active.sum(dtype=torch.int32).reshape(1), free)[0]
     free = free.view(pool.free.shape)
     return SlotPool(free=free, gmin=free.amin(dim=1)), starts
 
@@ -112,12 +110,22 @@ def masked_dispatch(slots: int, discipline: str, release, hold, active,
     at t = 0: a stable key sort packs the active units into a
     dispatch-ordered prefix (inactive ones keyed +inf), the recursion walks
     that prefix (its length stays on the device), and the starts go back
-    to unit order. Inactive units report their release."""
+    to unit order. Inactive units report their release.
+
+    The inputs are one pass's (n,) columns, or (P, n): P independent
+    passes (replications), each on a pool of its own, sorted row by row
+    and dispatched in one launch."""
+    one = release.dim() == 1
+    if one:
+        release, hold, active, deadline_abs = (
+            x[None] for x in (release, hold, active, deadline_abs))
     order = dispatch_key_order(discipline, release, deadline_abs,
                                inactive=~active)
-    free = torch.zeros(slots, dtype=torch.float32, device=release.device)
-    return _scan_sorted(release, hold, order, active.sum(dtype=torch.int32),
-                        free)
+    free = torch.zeros(release.shape[0], slots, dtype=torch.float32,
+                       device=release.device)
+    starts = _scan_sorted(release, hold, order,
+                          active.sum(dim=1, dtype=torch.int32), free)
+    return starts[0] if one else starts
 
 
 def realize(table: AttemptTable, release, start, sched_hold, race: bool,

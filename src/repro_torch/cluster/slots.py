@@ -60,11 +60,12 @@ def _check(discipline: str) -> None:
 
 def dispatch_key_order(discipline: str, release, deadline_abs,
                        inactive=None) -> torch.Tensor:
-    """Permutation into dispatch order: FIFO is one stable sort of the
-    release; EDF a stable sort by release, then a stable sort by deadline
-    over that permutation (numpy's lexsort((release, deadline))). Ties
-    break by unit index. With `inactive` (bool), the first key of inactive
-    units is +inf, so active units pack into a dispatch-ordered prefix."""
+    """Permutation into dispatch order along the last dimension (each row
+    of a (P, n) batch on its own): FIFO is one stable sort of the release;
+    EDF a stable sort by release, then a stable sort by deadline over that
+    permutation (numpy's lexsort((release, deadline))). Ties break by unit
+    index. With `inactive` (bool), the first key of inactive units is +inf,
+    so active units pack into a dispatch-ordered prefix."""
     _check(discipline)
     key = release if discipline == "fifo" else deadline_abs
     if inactive is not None:
@@ -72,7 +73,8 @@ def dispatch_key_order(discipline: str, release, deadline_abs,
     if discipline == "fifo":
         return torch.sort(key, stable=True).indices
     by_release = torch.sort(release, stable=True).indices
-    return by_release[torch.sort(key[by_release], stable=True).indices]
+    return by_release.gather(-1, torch.sort(key.gather(-1, by_release),
+                                            stable=True).indices)
 
 
 def utilization(busy_time, slots: int, span):

@@ -182,6 +182,123 @@ def test_pool_and_scan_cases(case):
     case()
 
 
+def batched_inputs(P, n=600, slots=37, seed=0):
+    """P segments of rows on coarse grids (ties in release), holds with
+    zeros among them, pools with tied free times, and unequal counts: n
+    and 0 first, then draws in (0, n)."""
+    rng = np.random.default_rng(seed)
+    release = (rng.integers(0, n // 6, (P, n)) * 0.5).astype(np.float32)
+    hold = (rng.integers(0, 12, (P, n)) * 0.25).astype(np.float32)
+    free = (rng.integers(0, 4, (P, slots)) * 0.5).astype(np.float32)
+    count = np.array([n, 0] + list(rng.integers(1, n, max(P - 2, 0))),
+                     np.int32)[:P]
+    return tuple(map(torch.from_numpy, (release, hold, count, free)))
+
+
+@pytest.mark.parametrize("slots", [1, 37, 500, 512, 513])
+@pytest.mark.parametrize("P", [1, 3, 8])
+def test_batched_plain_equals_single_passes(P, slots):
+    """dispatch_scan_batched (the CPU route to the plain version) is P
+    single dispatch_scan_plain calls, bit for bit in starts and pools."""
+    release, hold, count, free = batched_inputs(P, slots=slots, seed=P)
+    free_b = free.clone()
+    got = ds.dispatch_scan_batched(release, hold, count, free_b)
+    assert got.shape == release.shape
+    for p in range(P):
+        free_p = free[p].clone()
+        want = ds.dispatch_scan_plain(release[p], hold[p], count[p], free_p)
+        assert torch.equal(got[p], want), p
+        assert torch.equal(free_b[p], free_p), p
+        assert torch.equal(got[p, int(count[p]):],
+                           release[p, int(count[p]):]), p
+
+
+@pytest.mark.parametrize("slots", [37, 500])
+@pytest.mark.parametrize("discipline", ["fifo", "edf"])
+def test_batched_masked_dispatch_equals_per_segment(discipline, slots):
+    """masked_dispatch on (P, n) stacked passes equals one call a pass."""
+    cols = [recursion_inputs(seed=s) for s in range(3)]
+    t = lambda i: torch.from_numpy(np.stack([c[i] for c in cols]))
+    release, hold, deadline, active = t(0), t(1), t(2), t(3)
+    got = masked_dispatch(slots, discipline, release, hold, active, deadline)
+    for p in range(3):
+        want = masked_dispatch(slots, discipline, release[p], hold[p],
+                               active[p], deadline[p])
+        assert torch.equal(got[p], want), p
+
+
+def _key_of(v):
+    """csrc/dispatch_scan.cu's order-preserving u32 key of f32 values
+    (-0.0 taken as +0.0)."""
+    b = (np.asarray(v, np.float32) + np.float32(0.0)).view(np.uint32)
+    return np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint64)
+
+
+def _value_of(k):
+    k = np.uint32(k)
+    return (k & np.uint32(0x7FFFFFFF) if k & np.uint32(0x80000000)
+            else ~k).view(np.float32)
+
+
+def sorted_pool_emulated(release, hold, count, free):
+    """The sorted design's arithmetic step by step in numpy: the pool as a
+    sorted array of (key << 9 | slot) entries padded to 512 with (kNone,
+    slot), updated by n[p] = min(old[p + 1], max(old[p], new)); the copies
+    of positions 0-2 refreshed with position 3 of the old state; the next
+    start from floats alone (position 1 comes first if its time is below
+    start + hold, or equal with the lower slot; a padding entry's time is
+    NaN). Returns (starts, final pool)."""
+    K, inf, low = free.shape[0], np.uint64(0x7FF0000000000000), 0x1FF
+    keys = np.full(512, 0xFFFFFFFF, np.uint64)
+    keys[:K] = _key_of(free)
+    old = np.sort((keys << np.uint64(9)) | np.arange(512, dtype=np.uint64))
+    hold = hold + np.float32(0.0)      # as the kernel loads it
+    t = lambda e: _value_of(int(e) >> 9)
+    med = lambda lo, x, hi: min(hi, max(lo, x))
+    h0, h1, h2 = old[:3]
+    st = np.maximum(release[0], t(h0))
+    fr = np.float32(st + hold[0])
+    start = release.copy()
+    for i in range(int(count)):
+        start[i] = st
+        t1 = t(h1)
+        one_first = t1 < fr or (t1 == fr and int(h1) & low < int(h0) & low)
+        if i + 1 < int(count):
+            st = np.maximum(release[i + 1], t1 if one_first else fr)
+        nw = np.uint64((int(_key_of(fr)) << 9) | (int(h0) & low))
+        h0, h1, h2 = (h1 if one_first else nw), med(h1, nw, h2), \
+            med(h2, nw, old[3])
+        old = np.minimum(np.append(old[1:], inf), np.maximum(old, nw))
+        assert [h0, h1, h2] == list(old[:3])
+        assert (old[1:] > old[:-1]).all()
+        if i + 1 < int(count):
+            fr = np.float32(st + hold[i + 1])
+    pool = np.empty(K, np.float32)
+    for e in old:
+        if int(e) & low < K:
+            pool[int(e) & low] = _value_of(int(e) >> 9)
+    return start, pool
+
+
+@pytest.mark.parametrize("slots", [1, 5, 37, 500, 512])
+def test_sorted_pool_rule_emulated(slots):
+    """The kernel's sorted-pool update, emulated on the CPU, equals the
+    plain version bit for bit: ties in release and free times, zero holds,
+    a negative and a -0.0 free time, -0.0 releases and holds."""
+    release, hold, count, free = batched_inputs(1, n=1500, slots=slots,
+                                                seed=slots)
+    release[0, :40:3] = -0.0
+    hold[0, :40:2] = -0.0
+    free = free[0].numpy().copy()
+    free[: min(2, slots)] = (-1.5, -0.0)[: min(2, slots)]
+    want_pool = torch.from_numpy(free.copy())
+    want = ds.dispatch_scan_plain(release[0], hold[0], count[0], want_pool)
+    got, pool = sorted_pool_emulated(release[0].numpy(), hold[0].numpy(),
+                                     count[0], free)
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(pool, want_pool.numpy())
+
+
 # ---------------------------------------------------------------------------
 # 2. table builders
 # ---------------------------------------------------------------------------
@@ -276,17 +393,12 @@ def test_replay_on_reference_table_bit_equal(small_jobs, ref_tables,
 # ---------------------------------------------------------------------------
 
 
-def test_run_cluster_matches_reference(small_jobs):
-    """slots 200, every strategy, replayed draws. Starts and releases of a
-    shared table are bit-equal (above); here the two frameworks' Pareto
-    transforms differ by ulps, which can move a dispatch order at a
-    near-tie in release, so the outcomes are held to the tolerances
-    above."""
+def _run_cluster_against_reference(small_jobs, reps):
     ref_jobs, jobs = small_jobs
     want, ref_r_min = ref_run_cluster(KEY, ref_jobs, REF_P, slots=200,
-                                      theta=1e-3)
-    got, r_min = run_cluster(JaxReplay(KEY), jobs, P, slots=200, theta=1e-3,
-                             device="cpu")
+                                      theta=1e-3, reps=reps)
+    got, r_min = run_cluster(JaxReplay(KEY, reps=reps), jobs, P, slots=200,
+                             theta=1e-3, reps=reps, device="cpu")
     assert set(got) == set(want) == set(repro_torch.names())
     assert abs(r_min - ref_r_min) <= 1.0 / jobs.n_jobs
     D = np.asarray(ref_jobs.D)
@@ -305,6 +417,22 @@ def test_run_cluster_matches_reference(small_jobs):
             np.testing.assert_allclose(float(a), float(b), rtol=1e-4,
                                        err_msg=name)
         assert g.queue.slots == 200
+
+
+def test_run_cluster_matches_reference(small_jobs):
+    """slots 200, every strategy, replayed draws. Starts and releases of a
+    shared table are bit-equal (above); here the two frameworks' Pareto
+    transforms differ by ulps, which can move a dispatch order at a
+    near-tie in release, so the outcomes are held to the tolerances
+    above."""
+    _run_cluster_against_reference(small_jobs, 1)
+
+
+def test_run_cluster_matches_reference_at_reps_3(small_jobs):
+    """The same at reps 3: the port replays the three replications in one
+    dispatch launch a pass, the reference vmaps them; job_met is a met
+    frequency on both sides."""
+    _run_cluster_against_reference(small_jobs, 3)
 
 
 def test_slots_none_matches_run_all(uniform_jobs):
@@ -487,10 +615,35 @@ def _kernel_against_plain(slots, discipline, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("discipline", ["fifo", "edf"])
-@pytest.mark.parametrize("slots", [1, 5, 37, 300, 20_000, 100_000])
+@pytest.mark.parametrize("slots", [1, 5, 37, 300, 500, 512, 513, 20_000,
+                                   100_000])
 def test_cuda_kernel_matches_plain_on_card(slots, discipline):
-    """Bit-equal starts and final pools; 20,000 slots keep the pool in
-    shared memory, 100,000 in device memory."""
+    """Bit-equal starts and final pools; up to 512 slots the sorted pool
+    in registers, 513 and 20,000 lane-private groups in shared memory,
+    100,000 in device memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    assert ds.design_of(slots) == ("sorted" if slots <= 512 else
+                                   "groups_shared" if slots <= 20_000 else
+                                   "groups_device")
     _kernel_against_plain(slots, discipline)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [37, 500, 513])
+@pytest.mark.parametrize("P", [1, 3, 8])
+def test_cuda_batched_kernel_matches_plain_on_card(P, slots):
+    """One launch for P segments, bit-equal in starts and final pools to
+    the batched plain version (unequal counts, 0 and n among them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    release, hold, count, free = batched_inputs(P, n=3000, slots=slots,
+                                                seed=P)
+    dev = torch.device("cuda")
+    free_k = free.to(dev)
+    want = ds.dispatch_scan_batched_plain(release, hold, count, free)
+    got = ds.dispatch_scan_batched_cuda(release.to(dev), hold.to(dev),
+                                        count.to(dev), free_k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(free_k.cpu(), free)
