@@ -127,6 +127,23 @@ Phases; each raises on failure, so any failure exits non-zero:
    kernel's starts), the SM clock
    while the kernel runs, and the small case's kernel and plain times.
    Its JSON is also written to chiprun_out/cluster.json;
+10c. the fleet layer (`repro_torch.fleet`): the paper-hadoop scenario at
+   100,000 jobs synthesized on the card and run through `run_all` in
+   chunks of 8,192 jobs (blocks of 64) and monolithically
+   (`devices=1`), first and warm: every strategy's job_met, job_cost,
+   job_completion and r* bit-equal between the two and between runs;
+   grid-solve launches one a strategy and chunk; the chunked peak device
+   memory below the whole task axis's (T, 9) f32 draw; walls, cells drawn
+   and their host ms, Tb against the mean block, and a profiled chunked
+   sresume run (idle share). The paper trace at reps 8 through the fleet
+   against run_all: every PoCD within 6 standard errors (from the runs'
+   per-job met frequencies), r* equal at run_all's R_min. The capacity
+   replay in windows (`run_cluster(chunk_jobs=675)`, 4 windows x 8
+   replications at 500 slots): 20 dispatch launches of 32 segments a
+   run, bit-equal to one launch a window (80), start >= release, at most
+   500 in service in any window, utilization in [0, 1]; kernel ms a run
+   both ways, ns a step; how many rows of two windows' draws coincide.
+   Its JSON is also written to chiprun_out/fleet.json;
 11. the quickstart path (examples/quickstart.py step for step, through the
    port, on the card): JobSpec.make, the closed forms at r = 0..3,
    solve_grid and solve_algorithm1 (equal r*), gamma, the Theorem 7
@@ -197,8 +214,9 @@ Phases; each raises on failure, so any failure exits non-zero:
    the warm generate; then one prefill and the 32 decode steps profiled
    apart.
 
-The last lines are the cluster JSON (phase 10b), the scenarios JSON
-(phases 6-10), the kernels JSON, the card line and the result JSON.
+The last lines are the fleet JSON (phase 10c), the cluster JSON (phase
+10b), the scenarios JSON (phases 6-10), the kernels JSON, the card line
+and the result JSON.
 The script needs one CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
@@ -208,6 +226,7 @@ import dataclasses
 import importlib.util
 import io
 import json
+import math
 import subprocess
 import sys
 import time
@@ -233,10 +252,14 @@ from repro_torch.cluster import (DISCIPLINES, AdmissionConfig,  # noqa: E402
                                  run_cluster_strategy)
 from repro_torch.cluster.engine import (combined_release,  # noqa: E402
                                         primary_slice)
+from repro_torch.cluster import engine as cluster_engine  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.coupled import (repair_independent,  # noqa: E402
                                  solve_jobs_coupled, total_utility,
                                  utility_cost_grids)
+from repro_torch.fleet import blocks as fleet_blocks  # noqa: E402
+from repro_torch.fleet import runner as fleet_runner  # noqa: E402
+from repro_torch.fleet import run_fleet_strategy  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import dispatch_scan as ds  # noqa: E402
 from repro_torch.kernels import grid_solve as gs  # noqa: E402
@@ -386,6 +409,17 @@ FORCED_KS = (500, 512)
 # 4 that ship (csrc/dispatch_scan.cu's DISPATCH_SORTED_WARPS)
 SORTED_WARP_VARIANTS = (1, 2)
 SORTED_WARPS = 4
+# the fleet (phase 10c): the paper-hadoop scenario at 100,000 jobs
+# streamed in chunks of FLEET_CHUNK jobs, blocks of FLEET_BLOCK, held
+# bit for bit against the monolithic fleet run; the paper trace at reps 8
+# against run_all within FLEET_SIGMAS standard errors; the capacity
+# replay in windows of FLEET_WINDOW jobs (4 windows x 8 replications, 32
+# segments a launch)
+FLEET_JOBS = 100_000
+FLEET_CHUNK = 8192
+FLEET_BLOCK = 64
+FLEET_SIGMAS = 6.0
+FLEET_WINDOW = 675
 # (PoCD, utilization, mean wait s) of every strategy at 500 slots, reps 1,
 # as PR 18's final run printed them with the first dispatch kernel: a
 # redesign that keeps the semantics prints the same digits
@@ -1643,6 +1677,344 @@ def phase_cluster(dev, p: SimParams, budget_B: float):
                      n_rows=sum(sum(v) for v in rows.values()))
 
 
+class TimedCells:
+    """A uniform source that passes Philox's cells through, counting them
+    and the host seconds spent making them (the draws' host cost; the
+    card runs on)."""
+
+    def __init__(self, inner):
+        self.inner, self.cells, self.host_s = inner, 0, 0.0
+
+    def uniform_cell(self, strategy, rep, block, name, shape, device):
+        t0 = time.perf_counter()
+        u = self.inner.uniform_cell(strategy, rep, block, name, shape,
+                                    device)
+        self.host_s += time.perf_counter() - t0
+        self.cells += 1
+        return u
+
+
+def fleet_run(dev, jobs, p, **kw):
+    """One fleet run_all on the card: (outs, r_min, wall s, grid-solve
+    launches, peak bytes allocated above what was allocated before, the
+    TimedCells source); the counts are set to 0 just before and read
+    just after."""
+    src = TimedCells(Philox(0))
+    gs.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (outs, r_min), wall = synced(lambda: run_all(
+        src, jobs, p, theta=THETA, block_jobs=FLEET_BLOCK, device=dev,
+        **kw))
+    return (outs, r_min, wall, gs.launches,
+            torch.cuda.max_memory_allocated() - base, src)
+
+
+def fleet_same_bits(a: dict, b: dict, what: str) -> None:
+    for name, o in a.items():
+        x, y = o.result, b[name].result
+        for f in ("job_met", "job_cost", "job_completion"):
+            if not torch.equal(getattr(x, f), getattr(y, f)):
+                bad = int((getattr(x, f) != getattr(y, f)).sum())
+                raise AssertionError(f"{what} {name}: {f} differs in {bad} "
+                                     f"jobs")
+        if not torch.equal(o.r_opt, b[name].r_opt):
+            raise AssertionError(f"{what} {name}: r* differs")
+
+
+class ReplayCheck:
+    """Wraps `cluster.engine._replay` while a capacity fleet run calls
+    it: every segment's starts at or after its releases, at most `slots`
+    units in service at once, utilization in [0, 1]; records each
+    launch group's segments and its steps (the largest segment's active
+    units, pass 1 and pass 2)."""
+
+    def __init__(self, slots: int):
+        self.slots, self.inner = slots, cluster_engine._replay
+        self.groups, self.steps, self.max_busy = [], [0, 0], 0
+
+    def __call__(self, segments, race, slots, discipline, passes):
+        out = self.inner(segments, race, slots, discipline, passes)
+        self.groups.append(len(segments))
+        prim = [int(primary_slice(t.active & t.is_primary,
+                                  j.total_tasks).sum())
+                for t, j in segments]
+        self.steps[0] += max(prim)
+        self.steps[1] += max(int(t.active.sum()) for t, _ in segments)
+        for (t, j), (realized, rel, st) in zip(segments, out):
+            act = t.active
+            if bool((st[act] < rel[act]).any()):
+                raise AssertionError("fleet replay: a unit starts before "
+                                     "its release")
+            busy = max_in_service(st, predicted_holds(t, race,
+                                                      j.total_tasks), act)
+            util = float(realized.busy_time / (slots * realized.span))
+            if busy > self.slots or not 0.0 <= util <= 1.0 + 1e-6:
+                raise AssertionError(f"fleet replay: {busy} units in "
+                                     f"service, utilization {util}")
+            self.max_busy = max(self.max_busy, busy)
+        return out
+
+
+def fleet_cluster_run(dev, jobs, p, cap: int = cluster_engine.MAX_SEGMENTS,
+                      check: bool = False):
+    """One windowed run_cluster on the card with at most `cap` segments a
+    dispatch launch: (outs, r_min, wall s, (grid-solve, dispatch)
+    launches, the ReplayCheck or None)."""
+    chk = ReplayCheck(CLUSTER_SLOTS) if check else None
+    saved = cluster_engine.MAX_SEGMENTS, cluster_engine._replay
+    cluster_engine.MAX_SEGMENTS = cap
+    if chk is not None:
+        cluster_engine._replay = chk
+    try:
+        gs.launches = ds.launches = 0
+        (outs, r_min), wall = synced(lambda: run_cluster(
+            Philox(0), jobs, p, theta=THETA, slots=CLUSTER_SLOTS,
+            reps=REPS_BIG, chunk_jobs=FLEET_WINDOW, device=dev))
+        launches = (gs.launches, ds.launches)
+    finally:
+        cluster_engine.MAX_SEGMENTS, cluster_engine._replay = saved
+    return outs, r_min, wall, launches, chk
+
+
+def cluster_same_bits(a: dict, b: dict, what: str) -> None:
+    fleet_same_bits(a, b, what)
+    for name, o in a.items():
+        for f in ("mean_wait", "max_wait", "utilization", "preempted"):
+            if not torch.equal(getattr(o.queue, f),
+                               getattr(b[name].queue, f)):
+                raise AssertionError(f"{what} {name}: queue {f} differs")
+
+
+def device_kernel_ms(fn, key: str) -> dict:
+    """fn() under a device-only profiler session (lighter than
+    phase_profile's, which also records the host's ops): the device time
+    and launches of the kernels whose name holds `key`, and the device's
+    busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    ours = [e for e in rows if key in e.key]
+    return dict(ms=sum(e.device_time_total for e in ours) / 1e3,
+                launches=sum(e.count for e in ours),
+                device_busy_ms=sum(e.device_time_total for e in rows) / 1e3)
+
+
+def until_complete(take, want: int):
+    """take() -> (profile, launches it recorded, their kernel ms), taken
+    again up to three times until it records all `want` launches (the
+    profiler can drop kernel records): (profile, kernel ms a run, the mean
+    over those recorded, at least half, times `want`, launches seen)."""
+    seen = []
+    for _ in range(3):
+        prof, got, ms = take()
+        seen.append(got)
+        if got == want:
+            break
+    if 2 * got < want or got > want:
+        raise AssertionError(f"profiler saw {seen} dispatch_scan launches, "
+                             f"expected {want}")
+    return prof, ms * want / got, seen
+
+
+def pocd_se(met: torch.Tensor, reps: int) -> float:
+    """Monte-Carlo standard error of a PoCD from per-job met frequencies:
+    sqrt(sum m (1 - m) / (reps - 1)) / J."""
+    m = met.double()
+    return float(torch.sqrt((m * (1 - m)).sum() / (reps - 1))) / m.numel()
+
+
+def phase_fleet(dev, p: SimParams) -> dict:
+    """The fleet layer on the card (phase 10c)."""
+    out = {}
+    # 1. the flat fleet streamed over 100,000 paper-hadoop jobs
+    t_flat = time.perf_counter()
+    tr, synth_s = synced(lambda: make_trace("paper-hadoop",
+                                            n_jobs=FLEET_JOBS, device=dev))
+    T = int(tr.n_tasks.astype(np.int64).sum())
+    counts = fleet_blocks.block_task_counts(tr.n_tasks, FLEET_BLOCK)
+    Tb = int(counts.max())
+    draw_bytes = T * 9 * 4
+    print(f"fleet: paper-hadoop at {FLEET_JOBS} jobs, {T} tasks "
+          f"(synthesized in {synth_s:.2f} s); blocks of {FLEET_BLOCK}: "
+          f"{counts.shape[0]}, Tb {Tb} against {counts.mean():.1f} tasks "
+          f"in the mean block; the whole task axis's (T, 9) f32 draw "
+          f"{draw_bytes / 2**30:.3f} GiB")
+    runs, draws = {}, {}
+    for label, kw in (("monolithic", dict(devices=1)),
+                      ("chunked", dict(chunk_jobs=FLEET_CHUNK))):
+        first = fleet_run(dev, tr, p, **kw)
+        warm = fleet_run(dev, tr, p, **kw)
+        draws[label] = dict(cells=warm[5].cells, host_s=warm[5].host_s)
+        fleet_same_bits(first[0], warm[0], f"fleet {label} twice")
+        runs[label] = (first, warm)
+        print(f"  {label}: wall first {first[2]:.3f} s, warm {warm[2]:.3f}"
+              f" s; peak {first[4] / 2**30:.3f} / {warm[4] / 2**30:.3f} GiB"
+              f" above the phase's base; grid-solve launches {first[3]}; "
+              f"{draws[label]['cells']} cells drawn (warm), "
+              f"{1e3 * draws[label]['host_s']:.1f} ms of host time in them;"
+              f" r_min {first[1]:.6f}; the same bits twice")
+    mono, chunked = runs["monolithic"][0], runs["chunked"][0]
+    fleet_same_bits(chunked[0], mono[0], "fleet chunked vs monolithic")
+    n_chunks = -(-FLEET_JOBS // FLEET_CHUNK)
+    want = len(names("optimized"))
+    if (mono[3], chunked[3]) != (want, want * n_chunks):
+        raise AssertionError(f"fleet grid-solve launches {mono[3]}, "
+                             f"{chunked[3]}; expected {want}, "
+                             f"{want * n_chunks}")
+    peak = max(r[4] for r in runs["chunked"])
+    if peak >= draw_bytes:
+        raise AssertionError(f"fleet chunked peak {peak} bytes is not below "
+                             f"the whole (T, 9) draw's {draw_bytes}")
+    print(f"  chunks of {FLEET_CHUNK} jobs ({n_chunks} chunks) give the "
+          f"monolithic run's job_met, job_cost, job_completion and r* bits "
+          f"for all {len(mono[0])} strategies; chunked peak "
+          f"{peak / 2**30:.3f} GiB < {draw_bytes / 2**30:.3f} GiB")
+    for name, o in chunked[0].items():
+        print(f"    {name:10s} pocd {float(o.result.pocd):.6f} mean_cost "
+              f"{float(o.result.mean_cost):.4f} sum_r {int(o.r_opt.sum())}")
+    one = lambda: run_fleet_strategy(
+        Philox(0), tr, "sresume", p, theta=THETA, r_min=chunked[1],
+        block_jobs=FLEET_BLOCK, chunk_jobs=FLEET_CHUNK, device=dev)
+    prof = phase_profile(one, "fleet sresume chunked", synced(one)[1])
+    t_flat = time.perf_counter() - t_flat
+    print(f"  flat fleet part: {t_flat:.1f} s")
+    out["flat"] = dict(
+        phase_s=t_flat, jobs=FLEET_JOBS, tasks=T, Tb=Tb,
+        mean_block_tasks=float(counts.mean()), chunk_jobs=FLEET_CHUNK,
+        n_chunks=n_chunks,
+        draw_bytes=draw_bytes,
+        wall_s={k: [r[2] for r in v] for k, v in runs.items()},
+        peak_bytes={k: [r[4] for r in v] for k, v in runs.items()},
+        grid_solve_launches={k: v[0][3] for k, v in runs.items()},
+        draws=draws, profile_sresume_chunked=prof,
+        pocd={n: float(o.result.pocd) for n, o in chunked[0].items()})
+    del runs, mono, chunked
+
+    # 2. the flat fleet against run_all on the paper trace at reps 8
+    t_vs = time.perf_counter()
+    jobs = generate(2700, seed=0, device=dev)
+    legacy, r_leg = run_all(Philox(0), jobs, p, theta=THETA, reps=REPS_BIG,
+                            device=dev)
+    fleet, r_fl = run_all(Philox(0), jobs, p, theta=THETA, reps=REPS_BIG,
+                          devices=1, block_jobs=FLEET_BLOCK, device=dev)
+    worst = 0.0
+    for name, lg in legacy.items():
+        pinned = run_fleet_strategy(Philox(0), jobs, name, p, theta=THETA,
+                                    r_min=0.0 if name == "hadoop_ns"
+                                    else r_leg, reps=REPS_BIG,
+                                    block_jobs=FLEET_BLOCK, device=dev)
+        if not torch.equal(pinned.r_opt, lg.r_opt):
+            raise AssertionError(f"fleet {name}: r* differs from run_all's "
+                                 f"at run_all's R_min")
+        fl = fleet[name]
+        se = math.hypot(pocd_se(fl.result.job_met, REPS_BIG),
+                        pocd_se(lg.result.job_met, REPS_BIG))
+        gap = abs(float(fl.result.pocd) - float(lg.result.pocd))
+        if gap > FLEET_SIGMAS * se + 1.0 / (jobs.n_jobs * REPS_BIG):
+            raise AssertionError(f"fleet {name}: pocd {float(fl.result.pocd)}"
+                                 f" vs run_all's {float(lg.result.pocd)}, "
+                                 f"{gap / se:.2f} standard errors")
+        worst = max(worst, gap / se if se else 0.0)
+        print(f"  fleet vs run_all reps {REPS_BIG} {name:10s} pocd "
+              f"{float(fl.result.pocd):.6f} vs {float(lg.result.pocd):.6f} "
+              f"({gap / se if se else 0.0:.2f} se); r* equal at run_all's "
+              f"R_min")
+    t_vs = time.perf_counter() - t_vs
+    print(f"  fleet against run_all: {t_vs:.1f} s")
+    out["vs_run_all"] = dict(r_min=[r_fl, r_leg], worst_se=worst,
+                             phase_s=t_vs)
+    del legacy, fleet
+
+    # 3. the capacity replay in windows: one launch for every (window,
+    # replication) against one launch a window
+    windows = -(-jobs.n_jobs // FLEET_WINDOW)
+    t_cap = time.perf_counter()
+    first = fleet_cluster_run(dev, jobs, p, check=True)   # wall: checked
+    warm = fleet_cluster_run(dev, jobs, p)
+    per_window = fleet_cluster_run(dev, jobs, p, cap=REPS_BIG)
+    cluster_same_bits(first[0], warm[0], "fleet run_cluster twice")
+    cluster_same_bits(first[0], per_window[0],
+                      "fleet run_cluster batched vs per window")
+    want = (len(names("optimized")) * windows, 2 * len(names()))
+    per_w = (want[0], want[1] * windows)
+    if first[3] != want or per_window[3] != per_w:
+        raise AssertionError(f"fleet run_cluster launches {first[3]}, "
+                             f"{per_window[3]}; expected {want}, {per_w}")
+    chk = first[4]
+    segs = windows * REPS_BIG
+    if set(chk.groups) != {segs}:
+        raise AssertionError(f"fleet run_cluster segments a launch "
+                             f"{chk.groups}, expected {segs}")
+    steps = sum(chk.steps)
+    def batched():
+        prof_ = phase_profile(lambda: fleet_cluster_run(dev, jobs, p),
+                              "fleet run_cluster", warm[2])
+        return prof_, prof_["dispatch_scan_launches"], \
+            prof_["dispatch_scan_ms"]
+
+    def one_a_window():
+        prof_ = device_kernel_ms(lambda: fleet_cluster_run(
+            dev, jobs, p, cap=REPS_BIG), "dispatch_scan")
+        return prof_, prof_["launches"], prof_["ms"]
+
+    cprof, kernel_ms, seen = until_complete(batched, want[1])
+    wprof, kernel_ms_w, seen_w = until_complete(one_a_window, per_w[1])
+    ns_step = 1e6 * kernel_ms / steps
+    print(f"  run_cluster(slots={CLUSTER_SLOTS}, reps={REPS_BIG}, "
+          f"chunk_jobs={FLEET_WINDOW}): {windows} windows, {segs} segments "
+          f"a launch ({segs} of the card's SMs); walls first (with the "
+          f"checks) {first[2]:.3f} s, warm {warm[2]:.3f} s, one launch a "
+          f"window "
+          f"{per_window[2]:.3f} s; launches (grid-solve, dispatch) "
+          f"{first[3]}, one a window {per_window[3]}; bit-equal; start >= "
+          f"release, at most {chk.max_busy} of {CLUSTER_SLOTS} slots held "
+          f"in any window, utilization in [0, 1]; dispatch kernel "
+          f"{kernel_ms:.1f} ms a run (one a window {kernel_ms_w:.1f} ms; "
+          f"launches recorded {seen}, {seen_w}) over {steps} steps of the "
+          f"longest segments, {ns_step:.1f} ns a step")
+    for name, o in first[0].items():
+        print(f"    {name:10s} {queue_line(o)}")
+    # the windows share their replications' streams (as in the reference)
+    j0 = fleet_runner.chunk_jobset(fleet_runner.job_columns(jobs), 0,
+                                   FLEET_WINDOW, device=dev)
+    j1 = fleet_runner.chunk_jobset(fleet_runner.job_columns(jobs),
+                                   FLEET_WINDOW, 2 * FLEET_WINDOW,
+                                   device=dev)
+    n = min(j0.total_tasks, j1.total_tasks)
+    u0, u1 = (Philox(0).uniform_cell("clone", 0, None, "key",
+                                     (j.total_tasks, 9), dev)[:n]
+              for j in (j0, j1))
+    same_rows = int((u0 == u1).all(dim=1).sum())
+    print(f"  windows 0 and 1 ({j0.total_tasks} and {j1.total_tasks} "
+          f"tasks): {same_rows} of their first {n} rows of clone's draw "
+          f"coincide under Philox")
+    t_cap = time.perf_counter() - t_cap
+    print(f"  capacity fleet part: {t_cap:.1f} s")
+    out["capacity"] = dict(
+        phase_s=t_cap, windows=windows, window_jobs=FLEET_WINDOW,
+        reps=REPS_BIG,
+        segments_per_launch=segs,
+        wall_s=dict(first=first[2], warm=warm[2], per_window=per_window[2]),
+        launches=list(first[3]), launches_per_window=list(per_window[3]),
+        kernel_ms=kernel_ms, kernel_ms_per_window_launches=kernel_ms_w,
+        profiler_launches_seen=[seen, seen_w],
+        steps_longest_segments=steps, ns_per_step=ns_step,
+        max_in_service=chk.max_busy, profile=cprof,
+        profile_per_window=wprof, window_rows_coinciding=[same_rows, n],
+        per_strategy={n_: dict(pocd=float(o.result.pocd),
+                               utilization=float(o.queue.utilization),
+                               mean_wait=float(o.queue.mean_wait))
+                      for n_, o in first[0].items()})
+    return out
+
+
 def profiled_cluster(dev, jobs, p, reps: int, wall_s: float):
     """A profiled warm run_cluster at `reps`, taken again up to three
     times until it records all 20 dispatch launches: (profile, kernel ms
@@ -2475,6 +2847,7 @@ def main() -> None:
     budget = phase_budget(dev, p)
     spans = phase_spans(dev, p)
     cluster, cluster_state = phase_cluster(dev, p, budget["budget"])
+    fleet = phase_fleet(dev, p)
     path = phase_quickstart(dev)
     warm = quietly(phase_quickstart, dev)
     print("quickstart path, warm second run: " + ", ".join(
@@ -2545,6 +2918,14 @@ def main() -> None:
             "J": scen_kernel["per_scenario"]["request-storm"]["J"],
             "r_max": 9},
         "per_strategy_request_storm": scen_kernel["request_storm"],
+        # the fleet (phase 10c), each run counted: the 100,000-job
+        # paper-hadoop run_all monolithic (one launch a strategy) and in
+        # chunks (one a chunk), and the windowed run_cluster (one a window)
+        "launches_fleet": dict(
+            flat_monolithic=fleet["flat"]["grid_solve_launches"][
+                "monolithic"],
+            flat_chunked=fleet["flat"]["grid_solve_launches"]["chunked"],
+            capacity_windows=fleet["capacity"]["launches"][0]),
     }]
 
     def mc_entry(name, line, launches, parts, err, **extra):
@@ -2663,7 +3044,22 @@ def main() -> None:
                    ms=ct["reps8"]["kernel_ms_per_run"],
                    over_reps1=ct["reps8"]["over_reps1"],
                    wall_s=cluster["reps8"]["wall_s"]),
-        profile_run_cluster=ct["profile"]))
+        profile_run_cluster=ct["profile"],
+        # the fleet's windowed run_cluster (phase 10c): every (window,
+        # replication) a segment, one launch a pass for all of them
+        launches_fleet=fleet["capacity"]["launches"][1],
+        fleet=dict(
+            segments_per_launch=fleet["capacity"]["segments_per_launch"],
+            ms=fleet["capacity"]["kernel_ms"],
+            ms_one_launch_a_window=fleet["capacity"][
+                "kernel_ms_per_window_launches"],
+            ns_per_step=fleet["capacity"]["ns_per_step"],
+            launches_one_a_window=fleet["capacity"][
+                "launches_per_window"][1])))
+    fleet_line = json.dumps({"fleet": fleet})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "fleet.json").write_text(fleet_line)
+    print(fleet_line)
     cluster_line = json.dumps({"cluster": cluster})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "cluster.json").write_text(cluster_line)

@@ -23,7 +23,13 @@ Ported so far:
 5. the finite-capacity replay (`cluster`: `run_cluster` over a bounded
    slot pool, FIFO or EDF, with the governor and admission control), with
    the slot-dispatch recursion as a hand-written CUDA kernel
-   (`kernels/csrc/dispatch_scan.cu`).
+   (`kernels/csrc/dispatch_scan.cu`);
+6. the fleet layer (`fleet`): `run_all(..., chunk_jobs=, block_jobs=,
+   devices=1)` streams a trace in chunks of job blocks whose draws are
+   keyed by (replication, global block), so chunked equals monolithic bit
+   for bit, and `run_cluster(..., chunk_jobs=)` replays windows, every
+   (window, replication) a segment of one dispatch launch. One card: a
+   larger mesh raises.
 """
 from .cluster import run_cluster, run_cluster_strategy
 from .device import resolve_device

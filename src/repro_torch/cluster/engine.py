@@ -133,40 +133,74 @@ def combined_release(table: AttemptTable, arrival_u, act_prim, prim_starts):
                        ps[table.task_id] + table.rel_offset)
 
 
-def _replay(tables, race: bool, jobs: JobSet, slots: Optional[int],
-            discipline: str, passes: int):
-    """[(Realized, release, start)] for replications' tables of one width,
-    the reference's vmap over replications: every dispatch pass is one
-    `masked_dispatch` over all of them ((reps, T) primaries, then (reps,
-    U) units), one launch on the card. `release` is what the final pass
-    dispatched against, so wait = start - release is true queueing."""
-    T = jobs.total_tasks
-    holds = [predicted_holds(t, race, T) for t in tables]
-    arrival = [jobs.arrival[t.job_id] for t in tables]
+#: the most (window, replication) segments one dispatch launch takes:
+#: the H100's 132 SMs, one segment a block
+MAX_SEGMENTS = 132
+
+
+def _stack(rows, fill):
+    """(P, n) stack of (n_p,) rows, the short ones padded with `fill`."""
+    n = max(r.shape[0] for r in rows)
+    if all(r.shape[0] == n for r in rows):
+        return torch.stack(rows)
+    out = rows[0].new_full((len(rows), n), fill)
+    for i, r in enumerate(rows):
+        out[i, :r.shape[0]] = r
+    return out
+
+
+def _replay(segments, race: bool, slots: Optional[int], discipline: str,
+            passes: int):
+    """[(Realized, release, start)] for a list of (table, jobs) segments:
+    replications of one window, or of several windows (each with its own
+    JobSet, T and width). Every segment is an independent replay on a pool
+    of its own, idle at t = 0. Each dispatch pass is one `masked_dispatch`
+    over a group of at most MAX_SEGMENTS segments (taken in order), so
+    one launch on the card: (P, T) primaries, then (P, U) units, the
+    shorter segments padded with inactive units (keyed +inf, never
+    dispatched). `release` is what the final pass dispatched against, so
+    wait = start - release is true queueing."""
+    out = []
+    for g0 in range(0, len(segments), MAX_SEGMENTS):
+        out += _replay_group(segments[g0:g0 + MAX_SEGMENTS], race, slots,
+                             discipline, passes)
+    return out
+
+
+def _replay_group(segments, race, slots, discipline, passes):
+    tables = [t for t, _ in segments]
+    Ts = [jobs.total_tasks for _, jobs in segments]
+    holds = [predicted_holds(t, race, T) for t, T in zip(tables, Ts)]
+    arrival = [jobs.arrival[t.job_id] for t, jobs in segments]
     if slots is None:
         release = [a + t.rel_offset for a, t in zip(arrival, tables)]
         return [(realize(t, r, r, h, race, T), r, r)
-                for t, r, h in zip(tables, release, holds)]
+                for t, r, h, T in zip(tables, release, holds, Ts)]
 
-    due = jobs.arrival + jobs.D
-    deadline = torch.stack([due[t.job_id] for t in tables])
-    act_prim = [primary_slice(t.active & t.is_primary, T) for t in tables]
-    prim = lambda xs: torch.stack([primary_slice(x, T) for x in xs])
-    starts = masked_dispatch(slots, discipline, prim(arrival), prim(holds),
-                             torch.stack(act_prim), prim(deadline))
+    deadline = [(jobs.arrival + jobs.D)[t.job_id] for t, jobs in segments]
+    act_prim = [primary_slice(t.active & t.is_primary, T)
+                for t, T in zip(tables, Ts)]
+    prim = lambda xs: [primary_slice(x, T) for x, T in zip(xs, Ts)]
+    unstack = lambda x, xs: [x[i, :r.shape[0]] for i, r in enumerate(xs)]
+    starts = masked_dispatch(slots, discipline, _stack(prim(arrival), 0.0),
+                             _stack(prim(holds), 0.0),
+                             _stack(act_prim, False),
+                             _stack(prim(deadline), 0.0))
     release = [combined_release(t, a, ap, s) for t, a, ap, s in
-               zip(tables, arrival, act_prim, starts)]
-    hold = torch.stack(holds)
-    active = torch.stack([t.active for t in tables])
+               zip(tables, arrival, act_prim, unstack(starts, act_prim))]
+    hold = _stack(holds, 0.0)
+    active = _stack([t.active for t in tables], False)
+    deadline = _stack(deadline, 0.0)
     for i in range(passes - 1):
-        start = masked_dispatch(slots, discipline, torch.stack(release),
-                                hold, active, deadline)
+        start = unstack(masked_dispatch(slots, discipline, _stack(release,
+                                                                  0.0),
+                                        hold, active, deadline), holds)
         if i < passes - 2:      # refreshed only for a pass that reads it
             release = [combined_release(t, a, ap, primary_slice(s, T))
-                       for t, a, ap, s in
-                       zip(tables, arrival, act_prim, start)]
+                       for t, a, ap, s, T in
+                       zip(tables, arrival, act_prim, start, Ts)]
     return [(realize(t, r, s, h, race, T), r, s)
-            for t, r, s, h in zip(tables, release, start, holds)]
+            for t, r, s, h, T in zip(tables, release, start, holds, Ts)]
 
 
 def replay(table: AttemptTable, race: bool, jobs: JobSet,
@@ -178,8 +212,9 @@ def replay(table: AttemptTable, race: bool, jobs: JobSet,
     (passes >= 2) is needed for copies to acquire a slot."""
     _check_args(passes, discipline)
     dev = resolve_device(device)
-    return _replay([AttemptTable(*(x.to(dev) for x in table))], race,
-                   jobset_to(jobs, dev), slots, discipline, passes)[0]
+    return _replay([(AttemptTable(*(x.to(dev) for x in table)),
+                     jobset_to(jobs, dev))], race, slots, discipline,
+                   passes)[0]
 
 
 def _narrow_table(table: AttemptTable, n_tasks: int,
@@ -193,6 +228,26 @@ def _narrow_table(table: AttemptTable, n_tasks: int,
         return table
     return AttemptTable(*(x.view(n_tasks, A)[:, :width].reshape(-1)
                           for x in table))
+
+
+def segment_outcome(jobs: JobSet, table: AttemptTable, replayed,
+                    slots: Optional[int], collect_metrics: bool):
+    """One replayed segment's (SimResult, (mean_wait, max_wait,
+    utilization, preempted), CapacityMetrics or None), on its device and
+    with no host read; `replayed` is `_replay`'s (Realized, release,
+    start) for `table` over `jobs`."""
+    realized, release, start = replayed
+    completion = realized.task_completion - jobs.arrival[jobs.job_id]
+    res = aggregate(jobs, completion, realized.task_machine)
+    n_active = torch.clamp(table.active.to(torch.float32).sum(), min=1.0)
+    q = (realized.wait.sum() / n_active, realized.wait.amax(),
+         (utilization(realized.busy_time, slots, realized.span)
+          if slots is not None
+          else torch.zeros((), device=completion.device)),
+         realized.preempted)
+    m = (capacity_metrics(table, release, start, realized)
+         if collect_metrics else None)
+    return res, q, m
 
 
 def _mean_queue(queues) -> QueueMetrics:
@@ -227,23 +282,16 @@ def _cluster_core(source, jobs: JobSet, strategy: str, p: SimParams, theta,
                 active=table.active & admitted[table.job_id])
         tables.append(_narrow_table(table, T, width))
     results, queues, metrics = [], [], []
-    for table, (realized, release, start) in zip(
-            tables, _replay(tables, spec.race, jobs, slots, discipline,
-                            passes)):
-        completion = realized.task_completion - jobs.arrival[jobs.job_id]
-        results.append(aggregate(jobs, completion, realized.task_machine))
-        n_active = torch.clamp(table.active.to(torch.float32).sum(),
-                               min=1.0)
-        queues.append(QueueMetrics(
-            mean_wait=realized.wait.sum() / n_active,
-            max_wait=realized.wait.amax(),
-            utilization=(utilization(realized.busy_time, slots,
-                                     realized.span) if slots is not None
-                         else torch.zeros((), device=dev)),
-            preempted=realized.preempted, admitted_frac=admitted_frac,
-            slots=None))
+    for table, replayed in zip(
+            tables, _replay([(t, jobs) for t in tables], spec.race, slots,
+                            discipline, passes)):
+        res, q, m = segment_outcome(jobs, table, replayed, slots,
+                                    collect_metrics)
+        results.append(res)
+        queues.append(QueueMetrics(*q, admitted_frac=admitted_frac,
+                                   slots=None))
         if collect_metrics:
-            metrics.append(capacity_metrics(table, release, start, realized))
+            metrics.append(m)
     if reps == 1:
         res, queue = results[0], queues[0]
     else:
@@ -310,7 +358,7 @@ def run_cluster(source, jobs, p: SimParams, slots: Optional[int] = None,
                 governor: Optional[GovernorConfig] = None,
                 admission: Optional[AdmissionConfig] = None,
                 reps: int = 1, collect_metrics: bool = False, budget=None,
-                *, device=None):
+                *, device=None, devices=None, mesh=None, chunk_jobs=None):
     """Finite-capacity mirror of `sim.runner.run_all` on `device`
     (default the card). Returns ({name: ClusterOutput}, r_min).
 
@@ -319,7 +367,24 @@ def run_cluster(source, jobs, p: SimParams, slots: Optional[int] = None,
     order; R_min is Hadoop-NS's PoCD minus 1e-3. With slots=None this is
     `run_all` draw for draw; with finite slots the same draws queue on
     the pool. `admission` rejects jobs before any strategy runs.
+
+    `devices=`, `mesh=` or `chunk_jobs=` route to the fleet layer
+    (`repro_torch.fleet.run_cluster_fleet`): windows of `chunk_jobs`
+    consecutive jobs, each on its own pool, admission and the governor
+    per window, every (window, replication) a segment of one dispatch
+    launch. `devices` above 1 or a mesh above 1 x 1 raises (one card).
     """
+    if devices is not None or mesh is not None or chunk_jobs is not None:
+        from ..fleet import fleet_mesh, run_cluster_fleet
+        if mesh is None and devices is not None:
+            fleet_mesh(devices=devices, reps=reps, device=device)
+        return run_cluster_fleet(
+            source, jobs, p, slots=slots, theta=theta,
+            strategies=strategies, r_min_from_ns=r_min_from_ns,
+            max_r=max_r, oracle=oracle, discipline=discipline,
+            passes=passes, governor=governor, admission=admission,
+            reps=reps, mesh=mesh, chunk_jobs=chunk_jobs,
+            collect_metrics=collect_metrics, budget=budget, device=device)
     dev = resolve_device(device)
     if isinstance(jobs, str):
         from ..workloads.registry import make_jobset

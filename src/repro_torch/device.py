@@ -1,4 +1,4 @@
-"""Device resolution for the port's entry points.
+"""Device resolution for the port's entry points, and host copies.
 
 Every entry point takes `device=`; `None` means the card. There is no
 fallback: asking for `cuda` where no card is visible raises, so a run can
@@ -6,6 +6,7 @@ never silently measure the CPU in place of the device.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,10 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is visible; pass device='cpu' to run the plain "
             "PyTorch path on the host")
     return dev
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -1,0 +1,40 @@
+"""Chunked fleet execution of the Chronos evaluation stack; counterpart
+of `repro.fleet`.
+
+* `mesh`: the ("rep", "job") mesh record (1 x 1 on the port's one card)
+  and the pad+mask arithmetic.
+* `blocks`: a JobSet as fixed-shape job blocks, the unit that keys the
+  draws, and the flat view the runner simulates.
+* `runner`: `run_fleet_strategy` / `run_all_fleet`, the flat simulation
+  streamed in chunks through `sim.metrics.StreamCombiner`.
+* `cluster`: `run_cluster_fleet_strategy` / `run_cluster_fleet`, the
+  capacity replay window by window, every (window, replication) a segment
+  of the batched dispatch launch.
+
+Every (replication, block) cell draws through
+`source.uniform_cell(strategy, rep, global_block, ...)`, and every
+cross-job reduction runs on the host in one fixed order, so a chunked run
+gives the bits of a monolithic one. `run_all(devices=, mesh=,
+chunk_jobs=)` and `run_cluster(devices=, mesh=, chunk_jobs=)` route here;
+without them the flat paths are untouched.
+"""
+from .blocks import FleetBlocks, block_jobset, gather_index, make_blocks
+from .cluster import run_cluster_fleet, run_cluster_fleet_strategy
+from .mesh import AXES, fleet_mesh, mesh_extents, pad_count
+from .runner import job_columns, run_all_fleet, run_fleet_strategy
+
+__all__ = [
+    "AXES",
+    "FleetBlocks",
+    "block_jobset",
+    "fleet_mesh",
+    "gather_index",
+    "job_columns",
+    "make_blocks",
+    "mesh_extents",
+    "pad_count",
+    "run_all_fleet",
+    "run_cluster_fleet",
+    "run_cluster_fleet_strategy",
+    "run_fleet_strategy",
+]

@@ -1,0 +1,294 @@
+"""Windowed finite-capacity execution (the cluster engine's fleet);
+counterpart of `repro.fleet.cluster`.
+
+Under a shared slot pool every job contends with every other, so the job
+axis cannot be split without changing the queueing; the capacity fleet
+streams the trace instead in windows of `chunk_jobs` consecutive jobs,
+each replayed on a slot pool of its own (idle at t = 0), and combines
+PoCD, cost and queue metrics with `sim.metrics.StreamCombiner`. Traces
+are arrival-sorted, so windows are time-contiguous and cross-window
+contention is ignored (exact when windows last much longer than the
+queue takes to drain). Admission and the r* governor run per window.
+
+Replication i of every window draws through
+`source.uniform_cell(strategy, i, None, ...)`, as the reference keys it
+by fold_in(strategy_key, i) alone: windows share their replications'
+streams (ROADMAP C notes the correlation).
+
+Every (window, replication) pair is an independent replay, so the pairs
+are the segments of the batched dispatch launch
+(`cluster.engine._replay`): at most `engine.MAX_SEGMENTS` of them a
+launch, windows taken in order, shorter windows padded with inactive
+units. Per-replication means and the window combination run on the host
+in numpy in one fixed order (`_rep_mean`, `obs.metrics`), never as a
+reduction over the stacked segments.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..cluster import engine
+from ..cluster.admission import (AdmissionConfig, GovernorConfig,
+                                 admit_jobs, apply_governor)
+from ..cluster.engine import ClusterOutput, QueueMetrics, _narrow_table
+from ..cluster.slots import DISCIPLINES
+from ..coupled.solver import solve_jobs_coupled, warn_infeasible
+from ..device import resolve_device, to_host
+from ..obs import trace as obs_trace
+from ..obs.metrics import reduce_reps_host
+from ..sim.metrics import StreamCombiner, net_utility
+from ..sim.runner import jobspecs_of
+from ..strategies import get, names, solve_jobs
+from .mesh import check_mesh, pad_count
+from .runner import _warn_saturated, chunk_jobset, job_columns
+
+
+def _rep_mean(tree, reps: int):
+    """Host epilogue over a tuple of per-replication leaves: drop padded
+    replications, then mean the rest in numpy f32 in replication order
+    (bool leaves become frequencies)."""
+    host = tuple(np.stack([to_host(x) for x in leaf])[:reps] for leaf in tree)
+    if reps == 1:
+        return tuple(x[0] for x in host)
+    return tuple(np.mean(x.astype(np.float32), axis=0) for x in host)
+
+
+def _window_specs(cjobs, p, theta, r_min, slots, governor):
+    """One window's solve inputs, as the flat `run_cluster_strategy`
+    forms them: the governor scales theta by the window's load."""
+    specs = jobspecs_of(cjobs, p, theta, r_min)
+    if governor is not None and slots is not None:
+        specs = apply_governor(specs, cjobs, slots, governor)
+    return specs
+
+
+def _solve_window(cjobs, strategy, p, theta, r_min, max_r, slots, governor):
+    """(r_j, choice_j, th_p, th_c, sat) of one window on its device."""
+    J = cjobs.n_jobs
+    dev = cjobs.t_min.device
+    if not get(strategy).optimized:
+        zeros = torch.zeros(J, dtype=torch.int32, device=dev)
+        return zeros, zeros, torch.zeros(J, device=dev), \
+            torch.zeros(J, device=dev), zeros
+    specs = _window_specs(cjobs, p, theta, r_min, slots, governor)
+    r_j, choice_j, _, th_p, th_c, sat = solve_jobs(strategy, specs,
+                                                   max_r + 1, device=dev)
+    return r_j, choice_j, th_p, th_c * specs.C, sat
+
+
+def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
+                               mesh=None, slots: Optional[int] = None,
+                               theta=1e-4, r_min=0.0, max_r: int = 8,
+                               oracle: bool = True,
+                               discipline: str = "fifo", passes: int = 2,
+                               governor: Optional[GovernorConfig] = None,
+                               admission: Optional[AdmissionConfig] = None,
+                               reps: int = 1, chunk_jobs=None,
+                               pad_to: Optional[int] = None,
+                               collect_metrics: bool = False,
+                               fused: bool = True, budget=None,
+                               device=None) -> ClusterOutput:
+    """Fleet mirror of `cluster.engine.run_cluster_strategy` on `device`
+    (default the card): `chunk_jobs` consecutive jobs a window, each on
+    its own pool. `pad_to` (int) pads the replication count to a multiple
+    for the pad+mask tests (mesh=None only).
+
+    fused=True (default) solves each window when it is first replayed and
+    gives an optimized strategy the static width max_r + 2; fused=False
+    solves every window first and narrows to the largest solved r* + 2.
+    Both give the same bits (`_narrow_table` drops inactive columns only).
+    Baselines take the minimal width. `budget=` is one joint solve over
+    every window's (governed) specs before any replay.
+    """
+    if passes < 2:
+        raise ValueError(f"passes must be >= 2 (pass 1 schedules primaries "
+                         f"only), got {passes}")
+    if discipline not in DISCIPLINES:
+        raise ValueError(f"unknown discipline {discipline!r}; "
+                         f"expected one of {DISCIPLINES}")
+    if pad_to is not None and mesh is not None:
+        raise ValueError("pad_to is a test-only override; incompatible "
+                         "with an explicit mesh")
+    check_mesh(mesh)
+    dev = resolve_device(device)
+    spec = get(strategy)
+    if not spec.detectable:
+        oracle = True
+    if budget is not None and not spec.optimized:
+        budget = None     # baselines run at r = 0: nothing to budget
+    reps_pad = pad_count(reps, pad_to if pad_to is not None else 1)
+
+    cols = job_columns(jobs)
+    J = cols.n_jobs
+    chunk = J if chunk_jobs is None else max(1, int(chunk_jobs))
+    n_chunks = -(-J // chunk)
+    bounds = [(ci * chunk, min((ci + 1) * chunk, J))
+              for ci in range(n_chunks)]
+    window_jobs = lambda ci: chunk_jobset(cols, *bounds[ci], device=dev)
+
+    use_fused = fused and spec.optimized and budget is None
+    solves = info = None
+    if budget is not None:
+        # one joint solve over every window's governed specs, so chunked
+        # equals monolithic: each window replays its slice
+        with obs_trace.span("fleet.cluster.coupled_solve",
+                            strategy=strategy, n_jobs=J, n_chunks=n_chunks):
+            parts = [_window_specs(window_jobs(ci), p, theta, r_min, slots,
+                                   governor) for ci in range(n_chunks)]
+            gspecs = type(parts[0])(*(torch.cat(xs) for xs in zip(*parts)))
+            (g_r, g_ch, _, g_p, g_c, g_sat), info = solve_jobs_coupled(
+                strategy, gspecs, max_r + 1, budget, device=dev)
+            g = (g_r, g_ch, g_p, g_c * gspecs.C, g_sat)
+            solves = [tuple(a[lo:hi] for a in g) for lo, hi in bounds]
+        warn_infeasible(strategy, info)
+    elif not use_fused:
+        # every window first, so width="auto" is one value for all
+        with obs_trace.span("fleet.cluster.solve", strategy=strategy,
+                            n_jobs=J, n_chunks=n_chunks):
+            solves = [_solve_window(window_jobs(ci), strategy, p, theta,
+                                    r_min, max_r, slots, governor)
+                      for ci in range(n_chunks)]
+    if not spec.optimized:
+        width = None
+    elif use_fused:
+        # r* <= max_r, and narrowing drops inactive columns only
+        width = max_r + 2
+    else:
+        width = max(int(s[0].max()) for s in solves) + 2
+
+    windows = {}
+
+    def open_window(ci):
+        cjobs = window_jobs(ci)
+        admitted = None
+        if admission is not None and slots is not None:
+            admitted = torch.from_numpy(
+                admit_jobs(cjobs, slots, admission)).to(dev)
+        if use_fused:
+            solved = _solve_window(cjobs, strategy, p, theta, r_min, max_r,
+                                   slots, governor)
+        else:
+            solved = solves[ci]
+        r_j, choice_j = solved[0], solved[1]
+        return dict(jobs=cjobs, admitted=admitted, solved=solved,
+                    r_task=r_j[cjobs.job_id], c_task=choice_j[cjobs.job_id],
+                    out=[])
+
+    def table_of(ci, rep):
+        w = windows[ci]
+        cjobs = w["jobs"]
+        draw = lambda name, shape: source.uniform_cell(
+            strategy, rep, None, name, shape, dev)
+        table = spec.build_table(draw, cjobs, w["r_task"], w["c_task"], p,
+                                 max_r=max_r, oracle=oracle)
+        if w["admitted"] is not None:
+            table = table._replace(
+                active=table.active & w["admitted"][table.job_id])
+        return _narrow_table(table, cjobs.total_tasks, width)
+
+    acc = StreamCombiner()
+    n_sat = 0
+    r_parts, thp_parts, thc_parts = [], [], []
+
+    def close_window(ci):
+        w = windows.pop(ci)
+        cjobs, out = w["jobs"], w["out"]
+        with obs_trace.span("fleet.cluster.reduce", window=ci):
+            res = _rep_mean(zip(*[o[0] for o in out]), reps)
+            q = _rep_mean(zip(*[o[1] for o in out]), reps)
+            window_metrics = None
+            if collect_metrics:
+                stacked = type(out[0][2])(*(torch.stack(xs) for xs in
+                                            zip(*[o[2] for o in out])))
+                window_metrics = reduce_reps_host(stacked, reps)
+            admitted_frac = (1.0 if w["admitted"] is None else
+                             float(np.mean(to_host(w["admitted"]))))
+            f32 = lambda v: torch.tensor(np.float32(v), device=dev)
+            queue = QueueMetrics(
+                mean_wait=f32(q[0]), max_wait=f32(q[1]),
+                utilization=f32(q[2]), preempted=f32(q[3]),
+                admitted_frac=f32(admitted_frac), slots=slots)
+            acc.add(type(out[0][0])(*res), n_jobs=cjobs.n_jobs, queue=queue,
+                    capacity=window_metrics)
+        r_j, _, th_p, th_c, sat_j = w["solved"]
+        r_parts.append(to_host(r_j))
+        thp_parts.append(to_host(th_p))
+        thc_parts.append(to_host(th_c))
+        return int(to_host(sat_j).sum()) if spec.optimized else 0
+
+    # every (window, replication) in order, MAX_SEGMENTS a dispatch launch
+    segments = [(ci, rep) for ci in range(n_chunks)
+                for rep in range(reps_pad)]
+    cap = engine.MAX_SEGMENTS
+    for g0 in range(0, len(segments), cap):
+        group = segments[g0:g0 + cap]
+        with obs_trace.span("fleet.cluster.build", strategy=strategy,
+                            segments=len(group)):
+            for ci, _ in group:
+                if ci not in windows:
+                    windows[ci] = open_window(ci)
+            tables = [table_of(ci, rep) for ci, rep in group]
+        replayed = obs_trace.fenced(
+            f"fleet.cluster.replay[{strategy}]", engine._replay,
+            [(t, windows[ci]["jobs"]) for t, (ci, _) in zip(tables, group)],
+            spec.race, slots, discipline, passes)
+        for (ci, _), table, rp in zip(group, tables, replayed):
+            w = windows[ci]
+            w["out"].append(engine.segment_outcome(
+                w["jobs"], table, rp, slots, collect_metrics))
+            if len(w["out"]) == reps_pad:
+                n_sat += close_window(ci)
+
+    if n_sat:
+        _warn_saturated(strategy, n_sat, max_r)
+    result = acc.finalize(device=dev)
+    t = lambda parts: torch.from_numpy(np.concatenate(parts)).to(dev)
+    return ClusterOutput(
+        result=result, r_opt=t(r_parts),
+        utility=net_utility(result.pocd, result.mean_cost, r_min, theta),
+        theory_pocd=t(thp_parts), theory_cost=t(thc_parts),
+        queue=acc.finalize_queue(device=dev),
+        metrics=acc.finalize_capacity(device=dev), n_saturated=n_sat,
+        coupled=info)
+
+
+def run_cluster_fleet(source, jobs, p, slots: Optional[int] = None,
+                      theta=1e-4, strategies=None,
+                      r_min_from_ns: bool = True, max_r: int = 8,
+                      oracle: bool = True, discipline: str = "fifo",
+                      passes: int = 2,
+                      governor: Optional[GovernorConfig] = None,
+                      admission: Optional[AdmissionConfig] = None,
+                      reps: int = 1, mesh=None, chunk_jobs=None,
+                      collect_metrics: bool = False, fused: bool = True,
+                      budget=None, *, device=None):
+    """Fleet mirror of `cluster.engine.run_cluster` (the same R_min
+    protocol) on `device` (default the card). `jobs` is a JobSet, a
+    WorkloadTrace or a scenario name. Returns ({name: ClusterOutput},
+    r_min)."""
+    dev = resolve_device(device)
+    if isinstance(jobs, str):
+        from ..workloads.registry import make_trace
+        jobs = make_trace(jobs, device=dev)
+    if strategies is None:
+        strategies = names()
+    kw = dict(mesh=mesh, slots=slots, theta=theta, max_r=max_r,
+              oracle=oracle, discipline=discipline, passes=passes,
+              governor=governor, admission=admission, reps=reps,
+              chunk_jobs=chunk_jobs, collect_metrics=collect_metrics,
+              fused=fused, budget=budget, device=dev)
+    outs = {}
+    r_min = 0.0
+    if "hadoop_ns" in strategies:
+        outs["hadoop_ns"] = run_cluster_fleet_strategy(
+            source, jobs, "hadoop_ns", p, r_min=0.0, **kw)
+        if r_min_from_ns:
+            r_min = float(outs["hadoop_ns"].result.pocd) - 1e-3
+    for name in strategies:
+        if name != "hadoop_ns":
+            outs[name] = run_cluster_fleet_strategy(source, jobs, name, p,
+                                                    r_min=r_min, **kw)
+    return outs, r_min

@@ -18,20 +18,31 @@ device and with no host read:
 
 Integer histograms are `index_add_` on int32, exact in any order.
 `reduce_reps` sums every field over replications (`depth_max` takes the
-max); `reps` counts them. The fleet layer's host reductions
-(`reduce_reps_host`, `combine_windows`) come with that layer.
+max); `reps` counts them. The fleet layer's reductions, `reduce_reps_host`
+(a window's replications) and `combine_windows` (a run's windows), run
+on the host in numpy in one fixed order and return numpy fields.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..device import to_host
+
 __all__ = ["CapacityMetrics", "DEPTH_BINS", "N_WINDOWS", "capacity_metrics",
-           "reduce_reps"]
+           "combine_windows", "reduce_reps", "reduce_reps_host"]
 
 DEPTH_BINS = 16      # queue-depth histogram bins (the last clips)
 N_WINDOWS = 32       # busy-period windows over the replay span
+
+
+#: how each field reduces over replications and windows
+_REDUCE = {"depth_hist": "sum", "depth_max": "max", "occupancy": "sum",
+           "spec_launched": "sum", "spec_killed": "sum",
+           "busy_windows": "sum", "wait_total": "sum",
+           "n_dispatched": "sum", "reps": "sum"}
 
 
 class CapacityMetrics(NamedTuple):
@@ -102,3 +113,32 @@ def reduce_reps(per_rep) -> CapacityMetrics:
         out[f] = (stacked.amax(dim=0) if f == "depth_max"
                   else stacked.sum(dim=0, dtype=stacked.dtype))
     return CapacityMetrics(**out)
+
+
+def _reduce_host(stacked: CapacityMetrics) -> CapacityMetrics:
+    return CapacityMetrics(**{
+        f: (np.sum(getattr(stacked, f), axis=0) if op == "sum"
+            else np.max(getattr(stacked, f), axis=0))
+        for f, op in _REDUCE.items()})
+
+
+def reduce_reps_host(stacked, reps: int) -> CapacityMetrics:
+    """Reduce a CapacityMetrics whose fields carry a leading replication
+    axis (tensors or arrays) on the host: drop padded replications, then
+    reduce the real ones in replication order with numpy."""
+    return _reduce_host(CapacityMetrics(*(to_host(x)[:reps] for x in stacked)))
+
+
+def combine_windows(parts) -> CapacityMetrics:
+    """Combine per-window metrics in window order (host numpy): counters,
+    histograms and integrals sum, `depth_max` takes the max, and `reps`
+    stays the per-window replication count (every window replays the same
+    replications, so it takes the max)."""
+    parts = list(parts)
+    if not parts:
+        raise ValueError("combine_windows of no parts")
+    stacked = CapacityMetrics(
+        *(np.stack([to_host(getattr(m, f)) for m in parts])
+          for f in CapacityMetrics._fields))
+    out = _reduce_host(stacked)
+    return out._replace(reps=np.max(stacked.reps, axis=0))

@@ -1,9 +1,18 @@
 """Uniform random numbers for the Monte-Carlo sims.
 
 Every sim draws through one source that the runner passes in. A source
-has one method, `uniform(strategy, rep, name, shape, device)`, and returns
-f32 uniforms in [1e-7, 1) for one (strategy, replication, draw name,
-shape). The draw names follow the reference's key splits: "k1"/"k2" where
+has two methods, each returning f32 uniforms in [1e-7, 1):
+
+* `uniform(strategy, rep, name, shape, device)`, for one (strategy,
+  replication, draw name, shape): the flat paths (`sim.runner`,
+  `cluster.engine`);
+* `uniform_cell(strategy, rep, block, name, shape, device)`, for one cell
+  of the fleet layer (`repro_torch.fleet`): `block` is a job block's
+  GLOBAL index (the flat fleet) or None (the capacity fleet, whose
+  windows draw per replication). A cell's draws depend on nothing else,
+  so a chunked run draws what a monolithic one does.
+
+The draw names follow the reference's key splits: "k1"/"k2" where
 a sim splits its key in two (srestart, sresume, hadoop_s, mantri, hedge,
 adaptive), "key" where it draws from its key directly (clone, hadoop_ns
 and the two clone_* specs).
@@ -39,9 +48,28 @@ def to_uniform(u01: torch.Tensor) -> torch.Tensor:
     return u01.mul_(_SPAN).add_(_MINVAL).clamp_min_(_MINVAL)
 
 
+#: first entropy word of every fleet cell's seed, so no fleet stream can
+#: coincide with a flat one (whose entropy has four words)
+FLEET_TAG = 0x666C6565
+
+
+def _seed_of(entropy) -> int:
+    lo, hi = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
+    return (int(hi) << 32 | int(lo)) & (2**63 - 1)
+
+
+def _rand(seed: int, shape, device) -> torch.Tensor:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return to_uniform(torch.rand(tuple(shape), generator=gen, device=device,
+                                 dtype=torch.float32))
+
+
 class Philox:
     """torch.Generator-backed source: one generator per draw, seeded from
-    (seed, registry index of the strategy, replication, draw name).
+    (seed, registry index of the strategy, replication, draw name), and
+    for a fleet cell from (seed, FLEET_TAG, strategy index, replication,
+    block + 1 or 0 for None, draw name).
 
     On a CUDA device `torch.rand` runs Philox4x32 on the card. A strategy's
     draws depend only on its own registry index, so subsetting or
@@ -53,18 +81,23 @@ class Philox:
 
     def generator_seed(self, strategy: str, rep: int, name: str) -> int:
         from ..strategies import index_of
-        entropy = (self.seed, index_of(strategy), int(rep),
-                   DRAW_NAMES.index(name))
-        lo, hi = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
-        return (int(hi) << 32 | int(lo)) & (2**63 - 1)
+        return _seed_of((self.seed, index_of(strategy), int(rep),
+                         DRAW_NAMES.index(name)))
+
+    def cell_seed(self, strategy: str, rep: int, block, name: str) -> int:
+        from ..strategies import index_of
+        return _seed_of((self.seed, FLEET_TAG, index_of(strategy), int(rep),
+                         0 if block is None else int(block) + 1,
+                         DRAW_NAMES.index(name)))
 
     def uniform(self, strategy: str, rep: int, name: str, shape,
                 device) -> torch.Tensor:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(self.generator_seed(strategy, rep, name))
-        u = torch.rand(tuple(shape), generator=gen, device=device,
-                       dtype=torch.float32)
-        return to_uniform(u)
+        return _rand(self.generator_seed(strategy, rep, name), shape, device)
+
+    def uniform_cell(self, strategy: str, rep: int, block, name: str, shape,
+                     device) -> torch.Tensor:
+        return _rand(self.cell_seed(strategy, rep, block, name), shape,
+                     device)
 
 
 #: stable ids of the workload draw names, part of each generator's seed.

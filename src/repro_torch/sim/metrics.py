@@ -4,8 +4,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..device import to_host
 from .trace import JobSet
 
 
@@ -103,3 +105,91 @@ def net_utility(pocd, mean_cost, r_min, theta):
     gap = torch.clamp(pocd - r_min, min=1e-9)
     return torch.where(pocd > r_min, torch.log10(gap) - theta * mean_cost,
                        -torch.inf)
+
+
+class StreamCombiner:
+    """Streaming reducer over job-contiguous chunks of a trace (the fleet
+    layer, `repro_torch.fleet`).
+
+    Each chunk's per-job columns go to host numpy (a few bytes a job; what
+    chunking bounds is the per-task draws), and `finalize` reduces the
+    concatenated (J,) columns once, with `_mean`, on the run's device: the
+    same arrays a monolithic run reduces, so a chunked run gives the same
+    bits.
+
+    Queue metrics (capacity windows) combine as means weighted by the
+    chunks' job counts, in float64 on the host; `max_wait` takes the max,
+    `preempted` the sum. Each window replays on its own slot pool, so the
+    combined queue metrics describe per-window contention.
+    """
+
+    def __init__(self):
+        self._met, self._completion, self._cost = [], [], []
+        self._weights, self._queues = [], []
+        self._capacity = []
+
+    def add(self, result: SimResult, n_jobs: int, queue=None,
+            capacity=None) -> None:
+        self._met.append(to_host(result.job_met))
+        self._completion.append(to_host(result.job_completion))
+        self._cost.append(to_host(result.job_cost))
+        self._weights.append(float(n_jobs))
+        if queue is not None:
+            # paired with this chunk's weight, so chunks without a queue
+            # can never mis-weight another chunk's
+            self._queues.append((float(n_jobs), queue))
+        if capacity is not None:
+            # one window's CapacityMetrics, combined in chunk order
+            self._capacity.append(capacity)
+
+    @property
+    def n_chunks(self) -> int:
+        return len(self._weights)
+
+    def finalize(self, *, device=None) -> SimResult:
+        """The whole trace's SimResult on `device` (default the card)."""
+        from ..device import resolve_device
+        if not self._met:
+            raise ValueError("StreamCombiner.finalize before any add()")
+        dev = resolve_device(device)
+        t = lambda parts: torch.from_numpy(np.concatenate(parts)).to(dev)
+        met, cost = t(self._met), t(self._cost)
+        return SimResult(
+            pocd=_mean(met.to(torch.float32)), job_met=met,
+            job_completion=t(self._completion), job_cost=cost,
+            mean_cost=_mean(cost))
+
+    def finalize_queue(self, *, device=None):
+        """Weighted-combined queue metrics, f32 scalars on `device`
+        (default the card); None when no chunk had any."""
+        from ..device import resolve_device
+        if not self._queues:
+            return None
+        dev = resolve_device(device)
+        w = np.asarray([wi for wi, _ in self._queues], np.float64)
+        w = w / w.sum()
+        queues = [q for _, q in self._queues]
+        f32 = lambda v: torch.tensor(np.float32(v), device=dev)
+        wmean = lambda field: f32(float(np.sum(
+            w * np.asarray([float(getattr(q, field)) for q in queues]))))
+        q0 = queues[0]
+        return type(q0)(
+            mean_wait=wmean("mean_wait"),
+            max_wait=f32(max(float(q.max_wait) for q in queues)),
+            utilization=wmean("utilization"),
+            preempted=f32(sum(float(q.preempted) for q in queues)),
+            admitted_frac=wmean("admitted_frac"),
+            slots=q0.slots)
+
+    def finalize_capacity(self, *, device=None):
+        """The per-window CapacityMetrics combined in chunk order on the
+        host (`obs.metrics.combine_windows`), as tensors on `device`
+        (default the card); None when no chunk carried any."""
+        from ..device import resolve_device
+        if not self._capacity:
+            return None
+        from ..obs.metrics import combine_windows
+        dev = resolve_device(device)
+        out = combine_windows(self._capacity)
+        return type(out)(*(torch.from_numpy(np.asarray(x)).to(dev)
+                           for x in out))

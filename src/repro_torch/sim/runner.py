@@ -11,6 +11,8 @@ loop; the reference vmaps them inside one compiled program.
 `budget=` routes the solve through the joint budget solve
 (`repro_torch.coupled`), and `run_all` takes a workload scenario's name
 in place of a JobSet. Each strategy's run is one `obs.fenced` span pair.
+`run_all(devices=, mesh=, chunk_jobs=)` runs the fleet layer instead
+(`repro_torch.fleet`).
 """
 from __future__ import annotations
 
@@ -140,7 +142,8 @@ def run_strategy(source, jobs: JobSet, strategy: str, p: SimParams,
 
 def run_all(source, jobs, p: SimParams, theta=1e-4, strategies=None,
             r_min_from_ns: bool = True, max_r: int = 8, reps: int = 1,
-            budget=None, *, device=None):
+            budget=None, *, device=None, devices=None, mesh=None,
+            block_jobs: int = 64, chunk_jobs=None):
     """Run every strategy (default: all registered, in registry order) on
     `device`; R_min for the utilities is Hadoop-NS's PoCD minus 1e-3, as
     in the paper. Returns ({name: RunOutput}, r_min).
@@ -148,7 +151,24 @@ def run_all(source, jobs, p: SimParams, theta=1e-4, strategies=None,
     `jobs` is a JobSet or a workload scenario's name
     (`workloads.make_jobset(name, device=device)`: its default size and
     seed). `budget=` goes to every optimized strategy (`run_strategy`).
+
+    `devices=`, `mesh=` or `chunk_jobs=` route to the fleet layer
+    (`repro_torch.fleet.run_all_fleet`): draws keyed by (replication,
+    global block of `block_jobs` jobs) through `source.uniform_cell`, the
+    trace streamed in chunks, a scenario name kept column-wise. The port
+    runs on one card: `devices` above 1 or a mesh above 1 x 1 raises.
+    Without them this path is unchanged.
     """
+    if devices is not None or mesh is not None or chunk_jobs is not None:
+        from ..fleet import fleet_mesh, run_all_fleet
+        if mesh is None and devices is not None:
+            fleet_mesh(devices=devices, reps=reps, device=device)
+        return run_all_fleet(source, jobs, p, theta=theta,
+                             strategies=strategies,
+                             r_min_from_ns=r_min_from_ns, max_r=max_r,
+                             reps=reps, mesh=mesh, block_jobs=block_jobs,
+                             chunk_jobs=chunk_jobs, budget=budget,
+                             device=device)
     dev = resolve_device(device)
     if isinstance(jobs, str):
         from ..workloads.registry import make_jobset

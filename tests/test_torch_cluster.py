@@ -531,7 +531,7 @@ def test_interface_and_argument_checks(small_jobs):
         run_cluster(Philox(0), jobs, P, slots=100, discipline="lifo",
                     device="cpu")
     with pytest.raises(TypeError):
-        run_cluster(Philox(0), jobs, P, slots=100, chunk_jobs=50,
+        run_cluster(Philox(0), jobs, P, slots=100, chaos=object(),
                     device="cpu")
 
 
