@@ -116,10 +116,10 @@ Phases; each raises on failure, so any failure exits non-zero:
    (spend <= B wherever feasible). Timed at the very end of the script,
    after every other profiler session (a large session can cost the next
    one its first records): a profiled warm run_cluster (busy, idle share,
-   top ops; the kernel's device time per run, per pass and per step,
-   the sorts'), taken again until it records all 20 dispatch launches
-   (up to three times; else the mean over those recorded, at least
-   half, times 20), the same at reps 8, the wrapper's call on clone's
+   top ops, the sorts'), its 20 dispatch launches each timed by CUDA
+   events around the kernel's C entry (`LaunchTimes`: per run, per pass
+   and per step; complete by construction, where the profiler can drop
+   kernel records), the same at reps 8, the wrapper's call on clone's
    pass 2, ns a step on clone's pass 2 at K = 500, 512, 513, 1,000 and
    20,000 (each K's own design) and at K = 500 and 512 with the
    lane-private groups forced (the cutover's evidence), the sorted design
@@ -141,8 +141,15 @@ Phases; each raises on failure, so any failure exits non-zero:
    replay in windows (`run_cluster(chunk_jobs=675)`, 4 windows x 8
    replications at 500 slots): 20 dispatch launches of 32 segments a
    run, bit-equal to one launch a window (80), start >= release, at most
-   500 in service in any window, utilization in [0, 1]; kernel ms a run
-   both ways, ns a step; how many rows of two windows' draws coincide.
+   500 in service in any window, utilization in [0, 1]; in sresume's
+   launches, the shortest (padded) and the longest window's segment of
+   both passes, as the path's own launch gave them, bit-equal in starts
+   and final pool to the plain version on the CPU over the same sorted
+   inputs; the grid-solve kernel on the first solve's own inputs of the
+   monolithic (100,000 jobs) and the chunked (8,192) run against the
+   plain version, as phase 2 holds it; kernel ms a run both ways (CUDA
+   events, `LaunchTimes`), ns a step; how many rows of two windows'
+   draws coincide.
    Its JSON is also written to chiprun_out/fleet.json;
 11. the quickstart path (examples/quickstart.py step for step, through the
    port, on the card): JobSpec.make, the closed forms at r = 0..3,
@@ -803,10 +810,6 @@ def phase_profile(fn, label: str, wall_s: float) -> dict:
                       "dispatch_scan")}
     sort_ms = sum(e.device_time_total for e in rows
                   if "sort" in e.key.lower()) / 1e3
-    # each dispatch_scan launch's device time, in launch order
-    dispatch_ms = [e.time_range.elapsed_us() / 1e3 for e in sorted(
-        (e for e in prof.events() if e.device_type == DeviceType.CUDA
-         and "dispatch_scan" in e.name), key=lambda e: e.time_range.start)]
     idle = 1.0 - (busy_us / 1e3) / (wall_s * 1e3)
     print(f"profile {label}: device busy {busy_us / 1e3:.3f} ms in "
           f"{n_ops} device ops; unprofiled warm wall {wall_s * 1e3:.3f} ms; "
@@ -826,7 +829,7 @@ def phase_profile(fn, label: str, wall_s: float) -> dict:
                 dispatch_scan_ms=ours["dispatch_scan"],
                 dispatch_scan_launches=sum(e.count for e in rows
                                            if "dispatch_scan" in e.key),
-                dispatch_scan_each_ms=dispatch_ms, sort_ms=sort_ms)
+                sort_ms=sort_ms)
 
 
 class WorkloadRecording:
@@ -1697,18 +1700,29 @@ class TimedCells:
 def fleet_run(dev, jobs, p, **kw):
     """One fleet run_all on the card: (outs, r_min, wall s, grid-solve
     launches, peak bytes allocated above what was allocated before, the
-    TimedCells source); the counts are set to 0 just before and read
-    just after."""
-    src = TimedCells(Philox(0))
+    TimedCells source, the first grid solve's (spec, JobSpec, r_max));
+    the counts are set to 0 just before and read just after."""
+    src, first = TimedCells(Philox(0)), []
+    inner = gs.grid_solve_cuda
+
+    def keep(spec, job, r_max):
+        if not first:
+            first.append((spec, job, r_max))
+        return inner(spec, job, r_max)
+
     gs.launches = 0
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    (outs, r_min), wall = synced(lambda: run_all(
-        src, jobs, p, theta=THETA, block_jobs=FLEET_BLOCK, device=dev,
-        **kw))
+    gs.grid_solve_cuda = keep
+    try:
+        (outs, r_min), wall = synced(lambda: run_all(
+            src, jobs, p, theta=THETA, block_jobs=FLEET_BLOCK, device=dev,
+            **kw))
+    finally:
+        gs.grid_solve_cuda = inner
     return (outs, r_min, wall, gs.launches,
-            torch.cuda.max_memory_allocated() - base, src)
+            torch.cuda.max_memory_allocated() - base, src, first[0])
 
 
 def fleet_same_bits(a: dict, b: dict, what: str) -> None:
@@ -1728,14 +1742,36 @@ class ReplayCheck:
     it: every segment's starts at or after its releases, at most `slots`
     units in service at once, utilization in [0, 1]; records each
     launch group's segments and its steps (the largest segment's active
-    units, pass 1 and pass 2)."""
+    units, pass 1 and pass 2). In launch group `hold_group` it keeps, for
+    the segment of the window with the fewest tasks (padded with
+    inactive units to the longest) and the one with the most, each
+    pass's dispatch-ordered inputs, pools before and after, and the
+    starts as the path's own launch gave them (`held`)."""
 
-    def __init__(self, slots: int):
+    def __init__(self, slots: int, hold_group=None):
         self.slots, self.inner = slots, cluster_engine._replay
         self.groups, self.steps, self.max_busy = [], [0, 0], 0
+        self.hold_group, self.held, self.held_rows = hold_group, [], None
 
     def __call__(self, segments, race, slots, discipline, passes):
-        out = self.inner(segments, race, slots, discipline, passes)
+        launch = ds.dispatch_scan_batched_cuda
+        if len(self.groups) == self.hold_group:
+            tasks = [j.total_tasks for _, j in segments]
+            rows = [int(np.argmin(tasks)), int(np.argmax(tasks))]
+            self.held_rows = [(r, tasks[r]) for r in rows]
+
+            def keep(release, hold, count, free):
+                free0 = free.clone()
+                start = launch(release, hold, count, free)
+                self.held.append(tuple(x[rows] for x in (
+                    release, hold, count, free0, start, free)))
+                return start
+
+            ds.dispatch_scan_batched_cuda = keep
+        try:
+            out = self.inner(segments, race, slots, discipline, passes)
+        finally:
+            ds.dispatch_scan_batched_cuda = launch
         self.groups.append(len(segments))
         prim = [int(primary_slice(t.active & t.is_primary,
                                   j.total_tasks).sum())
@@ -1757,12 +1793,35 @@ class ReplayCheck:
         return out
 
 
+def held_vs_plain(held) -> dict:
+    """Each held launch's rows (ReplayCheck.held, one entry a pass)
+    against the batched plain version on the CPU over the same inputs:
+    starts over every row and final pools bit-equal. Returns the rows,
+    steps and the plain version's seconds."""
+    t0, shape, steps = time.perf_counter(), [], []
+    for k, (rel, hold, count, free0, start, free) in enumerate(held):
+        pool = free0.cpu()
+        want = ds.dispatch_scan_batched_plain(rel.cpu(), hold.cpu(),
+                                              count.cpu(), pool)
+        if not torch.equal(start.cpu(), want):
+            bad = int((start.cpu() != want).sum())
+            raise AssertionError(f"fleet dispatch pass {k + 1}: {bad} "
+                                 f"starts differ from the plain version")
+        if not torch.equal(free.cpu(), pool):
+            raise AssertionError(f"fleet dispatch pass {k + 1}: final "
+                                 f"pools differ from the plain version")
+        shape.append(int(rel.shape[1]))
+        steps.append(count.tolist())
+    return dict(rows=shape, steps=steps,
+                plain_s=time.perf_counter() - t0)
+
+
 def fleet_cluster_run(dev, jobs, p, cap: int = cluster_engine.MAX_SEGMENTS,
-                      check: bool = False):
+                      check: bool = False, hold_group=None):
     """One windowed run_cluster on the card with at most `cap` segments a
     dispatch launch: (outs, r_min, wall s, (grid-solve, dispatch)
     launches, the ReplayCheck or None)."""
-    chk = ReplayCheck(CLUSTER_SLOTS) if check else None
+    chk = ReplayCheck(CLUSTER_SLOTS, hold_group) if check else None
     saved = cluster_engine.MAX_SEGMENTS, cluster_engine._replay
     cluster_engine.MAX_SEGMENTS = cap
     if chk is not None:
@@ -1785,42 +1844,6 @@ def cluster_same_bits(a: dict, b: dict, what: str) -> None:
             if not torch.equal(getattr(o.queue, f),
                                getattr(b[name].queue, f)):
                 raise AssertionError(f"{what} {name}: queue {f} differs")
-
-
-def device_kernel_ms(fn, key: str) -> dict:
-    """fn() under a device-only profiler session (lighter than
-    phase_profile's, which also records the host's ops): the device time
-    and launches of the kernels whose name holds `key`, and the device's
-    busy time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    ours = [e for e in rows if key in e.key]
-    return dict(ms=sum(e.device_time_total for e in ours) / 1e3,
-                launches=sum(e.count for e in ours),
-                device_busy_ms=sum(e.device_time_total for e in rows) / 1e3)
-
-
-def until_complete(take, want: int):
-    """take() -> (profile, launches it recorded, their kernel ms), taken
-    again up to three times until it records all `want` launches (the
-    profiler can drop kernel records): (profile, kernel ms a run, the mean
-    over those recorded, at least half, times `want`, launches seen)."""
-    seen = []
-    for _ in range(3):
-        prof, got, ms = take()
-        seen.append(got)
-        if got == want:
-            break
-    if 2 * got < want or got > want:
-        raise AssertionError(f"profiler saw {seen} dispatch_scan launches, "
-                             f"expected {want}")
-    return prof, ms * want / got, seen
 
 
 def pocd_se(met: torch.Tensor, reps: int) -> float:
@@ -1876,6 +1899,19 @@ def phase_fleet(dev, p: SimParams) -> dict:
           f"monolithic run's job_met, job_cost, job_completion and r* bits "
           f"for all {len(mono[0])} strategies; chunked peak "
           f"{peak / 2**30:.3f} GiB < {draw_bytes / 2**30:.3f} GiB")
+    # the grid-solve kernel on the fleet's own inputs: each run's first
+    # solve (its first optimized strategy, the whole trace or chunk 0)
+    grid_err = {}
+    for label, r in (("monolithic", mono), ("chunked", chunked)):
+        spec, job, r_max = r[6]
+        J = int(job.t_min.shape[0])
+        errs = check_grid(spec, job, r_max, f"fleet {label} J={J}")
+        grid_err[label] = dict(strategy=spec.name, J=J, r_max=r_max,
+                               max_abs_err=max(errs))
+        print(f"  grid_solve[{spec.name}] on the {label} run's first solve "
+              f"(J={J}, r_max={r_max}): equal r*/choice/sat to the plain "
+              f"version; max abs err u {errs[0]:.3g} pocd {errs[1]:.3g} "
+              f"cost {errs[2]:.3g}")
     for name, o in chunked[0].items():
         print(f"    {name:10s} pocd {float(o.result.pocd):.6f} mean_cost "
               f"{float(o.result.mean_cost):.4f} sum_r {int(o.r_opt.sum())}")
@@ -1894,6 +1930,7 @@ def phase_fleet(dev, p: SimParams) -> dict:
         peak_bytes={k: [r[4] for r in v] for k, v in runs.items()},
         grid_solve_launches={k: v[0][3] for k, v in runs.items()},
         draws=draws, profile_sresume_chunked=prof,
+        grid_solve_vs_plain=grid_err,
         pocd={n: float(o.result.pocd) for n, o in chunked[0].items()})
     del runs, mono, chunked
 
@@ -1936,7 +1973,10 @@ def phase_fleet(dev, p: SimParams) -> dict:
     # replication) against one launch a window
     windows = -(-jobs.n_jobs // FLEET_WINDOW)
     t_cap = time.perf_counter()
-    first = fleet_cluster_run(dev, jobs, p, check=True)   # wall: checked
+    run_order = ["hadoop_ns"] + [n for n in names() if n != "hadoop_ns"]
+    hold = run_order.index("sresume")
+    first = fleet_cluster_run(dev, jobs, p, check=True,   # wall: checked
+                              hold_group=hold)
     warm = fleet_cluster_run(dev, jobs, p)
     per_window = fleet_cluster_run(dev, jobs, p, cap=REPS_BIG)
     cluster_same_bits(first[0], warm[0], "fleet run_cluster twice")
@@ -1952,20 +1992,27 @@ def phase_fleet(dev, p: SimParams) -> dict:
     if set(chk.groups) != {segs}:
         raise AssertionError(f"fleet run_cluster segments a launch "
                              f"{chk.groups}, expected {segs}")
+    if len(chk.held) != 2:
+        raise AssertionError(f"fleet sresume: {len(chk.held)} dispatch "
+                             f"launches held, expected 2")
+    held = held_vs_plain(chk.held)
+    held.update(strategy="sresume", segments=[
+        dict(segment=r, window=r // REPS_BIG, rep=r % REPS_BIG, tasks=t)
+        for r, t in chk.held_rows])
+    print(f"  sresume's two launches ({segs} segments each): segments "
+          + " and ".join(f"{v['segment']} (window {v['window']}, "
+                         f"{v['tasks']} tasks)" for v in held["segments"])
+          + f", rows {held['rows']} a pass (the first padded), steps "
+          f"{held['steps']}: starts and final pools as the path's launch "
+          f"gave them equal the plain version's on the CPU "
+          f"({held['plain_s']:.1f} s)")
     steps = sum(chk.steps)
-    def batched():
-        prof_ = phase_profile(lambda: fleet_cluster_run(dev, jobs, p),
-                              "fleet run_cluster", warm[2])
-        return prof_, prof_["dispatch_scan_launches"], \
-            prof_["dispatch_scan_ms"]
-
-    def one_a_window():
-        prof_ = device_kernel_ms(lambda: fleet_cluster_run(
-            dev, jobs, p, cap=REPS_BIG), "dispatch_scan")
-        return prof_, prof_["launches"], prof_["ms"]
-
-    cprof, kernel_ms, seen = until_complete(batched, want[1])
-    wprof, kernel_ms_w, seen_w = until_complete(one_a_window, per_w[1])
+    cprof, each = profiled_launches(lambda: fleet_cluster_run(dev, jobs, p),
+                                    "fleet run_cluster", warm[2], want[1])
+    each_w = timed_launches(lambda: fleet_cluster_run(dev, jobs, p,
+                                                      cap=REPS_BIG),
+                            per_w[1])
+    kernel_ms, kernel_ms_w = sum(each), sum(each_w)
     ns_step = 1e6 * kernel_ms / steps
     print(f"  run_cluster(slots={CLUSTER_SLOTS}, reps={REPS_BIG}, "
           f"chunk_jobs={FLEET_WINDOW}): {windows} windows, {segs} segments "
@@ -1977,8 +2024,8 @@ def phase_fleet(dev, p: SimParams) -> dict:
           f"release, at most {chk.max_busy} of {CLUSTER_SLOTS} slots held "
           f"in any window, utilization in [0, 1]; dispatch kernel "
           f"{kernel_ms:.1f} ms a run (one a window {kernel_ms_w:.1f} ms; "
-          f"launches recorded {seen}, {seen_w}) over {steps} steps of the "
-          f"longest segments, {ns_step:.1f} ns a step")
+          f"CUDA events) over {steps} steps of the longest segments, "
+          f"{ns_step:.1f} ns a step")
     for name, o in first[0].items():
         print(f"    {name:10s} {queue_line(o)}")
     # the windows share their replications' streams (as in the reference)
@@ -2004,10 +2051,11 @@ def phase_fleet(dev, p: SimParams) -> dict:
         wall_s=dict(first=first[2], warm=warm[2], per_window=per_window[2]),
         launches=list(first[3]), launches_per_window=list(per_window[3]),
         kernel_ms=kernel_ms, kernel_ms_per_window_launches=kernel_ms_w,
-        profiler_launches_seen=[seen, seen_w],
+        each_ms=each, profiler_launches_recorded=cprof[
+            "dispatch_scan_launches"],
         steps_longest_segments=steps, ns_per_step=ns_step,
         max_in_service=chk.max_busy, profile=cprof,
-        profile_per_window=wprof, window_rows_coinciding=[same_rows, n],
+        dispatch_vs_plain=held, window_rows_coinciding=[same_rows, n],
         per_strategy={n_: dict(pocd=float(o.result.pocd),
                                utilization=float(o.queue.utilization),
                                mean_wait=float(o.queue.mean_wait))
@@ -2015,26 +2063,65 @@ def phase_fleet(dev, p: SimParams) -> dict:
     return out
 
 
-def profiled_cluster(dev, jobs, p, reps: int, wall_s: float):
-    """A profiled warm run_cluster at `reps`, taken again up to three
-    times until it records all 20 dispatch launches: (profile, kernel ms
-    per run (the mean over those recorded, if at least half, times 20),
-    launches seen per session)."""
-    want = 2 * len(names())
-    seen = []
-    for _ in range(3):
-        prof = phase_profile(lambda: run_cluster(
-            Philox(0), jobs, p, slots=CLUSTER_SLOTS, theta=THETA, reps=reps,
-            device=dev), f"run_cluster slots={CLUSTER_SLOTS} reps={reps}",
-            wall_s)
-        seen.append(prof["dispatch_scan_launches"])
-        if seen[-1] == want:
-            break
-    got = seen[-1]
-    if 2 * got < want or got > want:
-        raise AssertionError(f"profiler saw {seen} dispatch_scan launches, "
+class LaunchTimes:
+    """Inside the block, every dispatch kernel launch is timed by CUDA
+    events recorded on its stream just before and just after the
+    kernel's C entry: each launch's device ms, in launch order, complete
+    by construction (torch.profiler can drop kernel records)."""
+
+    def __enter__(self):
+        self.lib = ds._library()
+        self.inner, self.events = self.lib.dispatch_scan_launch_as, []
+
+        def timed(*args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            err = self.inner(*args)
+            ev[1].record()
+            self.events.append(ev)
+            return err
+
+        self.lib.dispatch_scan_launch_as = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.dispatch_scan_launch_as = self.inner
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def timed_launches(fn, want: int) -> list:
+    """fn() under `LaunchTimes`: each dispatch launch's ms; there must be
+    `want` of them."""
+    with LaunchTimes() as lt:
+        fn()
+    each = lt.ms()
+    if len(each) != want:
+        raise AssertionError(f"{len(each)} dispatch_scan launches timed, "
                              f"expected {want}")
-    return prof, prof["dispatch_scan_ms"] * want / got, seen
+    return each
+
+
+def profiled_launches(fn, label: str, wall_s: float, want: int):
+    """fn() in one profiler session (phase_profile), its dispatch
+    launches timed by `LaunchTimes`: (profile, each launch's ms in run
+    order)."""
+    out = {}
+    each = timed_launches(lambda: out.update(
+        prof=phase_profile(fn, label, wall_s)), want)
+    return out["prof"], each
+
+
+def profiled_cluster(dev, jobs, p, reps: int, wall_s: float):
+    """A profiled warm run_cluster at `reps`: (profile, each of its 20
+    dispatch launches' ms)."""
+    return profiled_launches(
+        lambda: run_cluster(Philox(0), jobs, p, slots=CLUSTER_SLOTS,
+                            theta=THETA, reps=reps, device=dev),
+        f"run_cluster slots={CLUSTER_SLOTS} reps={reps}", wall_s,
+        2 * len(names()))
 
 
 def sm_clock_while(fn) -> dict:
@@ -2106,22 +2193,20 @@ def cluster_times(dev, p: SimParams, state: dict) -> dict:
     times."""
     jobs, n_steps, n_rows = state["jobs"], state["n_steps"], state["n_rows"]
     want = 2 * len(names())
-    prof, kernel_ms, seen = profiled_cluster(dev, jobs, p, 1,
-                                             state["warm_wall_s"])
+    prof, each = profiled_cluster(dev, jobs, p, 1, state["warm_wall_s"])
+    kernel_ms = sum(each)
     per_pass = {}
-    if seen[-1] == want:    # launches in run order: two passes a strategy
-        each = prof["dispatch_scan_each_ms"]
-        for k, s in enumerate(names()):
-            per_pass[s] = [dict(ms=each[2 * k + i],
-                                steps=state["steps"][s][i],
-                                ns_per_step=1e6 * each[2 * k + i]
-                                / state["steps"][s][i]) for i in (0, 1)]
-            print(f"  dispatch_scan {s:10s}: " + "; ".join(
-                f"pass {i + 1} {v['ms']:.2f} ms over {v['steps']} steps "
-                f"({v['ns_per_step']:.1f} ns a step)"
-                for i, v in enumerate(per_pass[s])))
-    prof8, kernel_ms8, seen8 = profiled_cluster(
-        dev, jobs, p, REPS_BIG, state["reps8_warm_wall_s"])
+    for k, s in enumerate(names()):   # run order: two passes a strategy
+        per_pass[s] = [dict(ms=each[2 * k + i], steps=state["steps"][s][i],
+                            ns_per_step=1e6 * each[2 * k + i]
+                            / state["steps"][s][i]) for i in (0, 1)]
+        print(f"  dispatch_scan {s:10s}: " + "; ".join(
+            f"pass {i + 1} {v['ms']:.2f} ms over {v['steps']} steps "
+            f"({v['ns_per_step']:.1f} ns a step)"
+            for i, v in enumerate(per_pass[s])))
+    prof8, each8 = profiled_cluster(dev, jobs, p, REPS_BIG,
+                                    state["reps8_warm_wall_s"])
+    kernel_ms8 = sum(each8)
     bytes_ms = 1e3 * (12 * n_steps + 8 * (n_rows - n_steps)) \
         / HBM_BYTES_PER_S
     rel, hold, count = state["big"]
@@ -2152,7 +2237,8 @@ def cluster_times(dev, p: SimParams, state: dict) -> dict:
                                                    device=dev))
     plain_ms = 1e3 * (time.perf_counter() - t0) / 3
     times = dict(
-        kernel_ms_per_run=kernel_ms, launches_recorded=seen,
+        kernel_ms_per_run=kernel_ms,
+        profiler_launches_recorded=prof["dispatch_scan_launches"],
         per_pass=per_pass,
         kernel_ms_per_launch=kernel_ms / want,
         ns_per_step=1e6 * kernel_ms / n_steps,
@@ -2161,18 +2247,19 @@ def cluster_times(dev, p: SimParams, state: dict) -> dict:
         call_ms_clone_pass2=call_ms, clone_pass2_steps=steps,
         ns_per_step_by_K=per_k, clock=clock,
         sorted_ns_per_step_by_warps=variants,
-        reps8=dict(kernel_ms_per_run=kernel_ms8, launches_recorded=seen8,
-                   each_ms=prof8["dispatch_scan_each_ms"],
+        reps8=dict(kernel_ms_per_run=kernel_ms8, each_ms=each8,
+                   profiler_launches_recorded=prof8[
+                       "dispatch_scan_launches"],
                    over_reps1=kernel_ms8 / kernel_ms, profile=prof8),
         small_case=dict(rows=int(small[0].shape[0]),
                         steps=int(small[2]), slots=CLUSTER_SLOTS,
                         kernel_ms=small_ms, plain_ms=plain_ms),
         profile=prof)
     print(f"dispatch_scan: {kernel_ms:.2f} ms of device time per "
-          f"run_cluster in {want} launches (recorded {seen}) over {n_steps} "
+          f"run_cluster in {want} launches (CUDA events) over {n_steps} "
           f"steps ({times['ns_per_step']:.1f} ns a step); at reps "
-          f"{REPS_BIG} {kernel_ms8:.2f} ms in {want} launches (recorded "
-          f"{seen8}), {kernel_ms8 / kernel_ms:.3f} x reps 1; sorts "
+          f"{REPS_BIG} {kernel_ms8:.2f} ms in {want} launches, "
+          f"{kernel_ms8 / kernel_ms:.3f} x reps 1; sorts "
           f"{prof['sort_ms']:.2f} ms; bound {bytes_ms:.5f} ms (bytes); "
           f"wrapper call on clone's pass 2 ({steps} steps) {call_ms:.2f} ms;"
           f" small case ({small[0].shape[0]} rows, K {CLUSTER_SLOTS}) kernel "
@@ -2888,7 +2975,11 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/grid_solve.cu",
         "replaces": "src/repro/kernels/grid_solve.py:142",
         "launches": launches,
-        "max_abs_err": max(check["max_abs_err"], scen_kernel["max_abs_err"]),
+        # the check shapes, the scenarios' inputs and the fleet's first
+        # solves (100,000 jobs and an 8,192-job chunk)
+        "max_abs_err": max(check["max_abs_err"], scen_kernel["max_abs_err"],
+                           *(v["max_abs_err"] for v in fleet["flat"][
+                               "grid_solve_vs_plain"].values())),
         # one run_all's work: the 6 optimized strategies at J=2700, r_max=9;
         # ms is device time per launch (profiler), call_ms the wrapper call
         # (CUDA events over back-to-back calls)
@@ -3005,7 +3096,8 @@ def main() -> None:
         # one run_cluster over the 10 strategies at reps 1: 2 passes each;
         # ms is its device time (profiler), summed over the run's launches
         launches=cluster["main"]["launches"][1],
-        # over every case and both strategies' prefixes (bit-equal: 0)
+        # over every case and both strategies' prefixes (bit-equal: 0);
+        # the fleet's held segments are bit-equal too (phase 10c)
         max_abs_err=cluster["max_abs_err"],
         ms=ct["kernel_ms_per_run"], ms_per_launch=ct["kernel_ms_per_launch"],
         ns_per_step=ct["ns_per_step"], steps=ct["steps_per_run"],

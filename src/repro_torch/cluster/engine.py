@@ -151,23 +151,18 @@ def _stack(rows, fill):
 
 def _replay(segments, race: bool, slots: Optional[int], discipline: str,
             passes: int):
-    """[(Realized, release, start)] for a list of (table, jobs) segments:
-    replications of one window, or of several windows (each with its own
-    JobSet, T and width). Every segment is an independent replay on a pool
-    of its own, idle at t = 0. Each dispatch pass is one `masked_dispatch`
-    over a group of at most MAX_SEGMENTS segments (taken in order), so
-    one launch on the card: (P, T) primaries, then (P, U) units, the
-    shorter segments padded with inactive units (keyed +inf, never
-    dispatched). `release` is what the final pass dispatched against, so
-    wait = start - release is true queueing."""
-    out = []
-    for g0 in range(0, len(segments), MAX_SEGMENTS):
-        out += _replay_group(segments[g0:g0 + MAX_SEGMENTS], race, slots,
-                             discipline, passes)
-    return out
-
-
-def _replay_group(segments, race, slots, discipline, passes):
+    """[(Realized, release, start)] for a list of at most MAX_SEGMENTS
+    (table, jobs) segments: replications of one window, or of several
+    windows (each with its own JobSet, T and width). Every segment is an
+    independent replay on a pool of its own, idle at t = 0. Each dispatch
+    pass is one `masked_dispatch` over all of them, so one launch on the
+    card: (P, T) primaries, then (P, U) units, the shorter segments padded
+    with inactive units (keyed +inf, never dispatched). `release` is what
+    the final pass dispatched against, so wait = start - release is true
+    queueing. Callers cut longer lists into groups, in order."""
+    if len(segments) > MAX_SEGMENTS:
+        raise ValueError(f"_replay: {len(segments)} segments, at most "
+                         f"MAX_SEGMENTS = {MAX_SEGMENTS} a launch")
     tables = [t for t, _ in segments]
     Ts = [jobs.total_tasks for _, jobs in segments]
     holds = [predicted_holds(t, race, T) for t, T in zip(tables, Ts)]
@@ -271,27 +266,31 @@ def _cluster_core(source, jobs: JobSet, strategy: str, p: SimParams, theta,
     admitted_frac = (torch.ones((), device=dev) if admitted is None else
                      admitted.to(torch.float32).sum() / J)
     r_task, choice_task = r_j[jobs.job_id], choice_j[jobs.job_id]
-    tables = []
-    for rep in range(reps):
-        draw = lambda name, shape, rep=rep: source.uniform(
-            strategy, rep, name, shape, dev)
+
+    def table_of(rep):
+        draw = lambda name, shape: source.uniform(strategy, rep, name, shape,
+                                                  dev)
         table = spec.build_table(draw, jobs, r_task, choice_task, p,
                                  max_r=max_r, oracle=oracle)
         if admitted is not None:
             table = table._replace(
                 active=table.active & admitted[table.job_id])
-        tables.append(_narrow_table(table, T, width))
+        return _narrow_table(table, T, width)
+
     results, queues, metrics = [], [], []
-    for table, replayed in zip(
-            tables, _replay([(t, jobs) for t in tables], spec.race, slots,
-                            discipline, passes)):
-        res, q, m = segment_outcome(jobs, table, replayed, slots,
-                                    collect_metrics)
-        results.append(res)
-        queues.append(QueueMetrics(*q, admitted_frac=admitted_frac,
-                                   slots=None))
-        if collect_metrics:
-            metrics.append(m)
+    for g0 in range(0, reps, MAX_SEGMENTS):
+        tables = [table_of(rep)
+                  for rep in range(g0, min(reps, g0 + MAX_SEGMENTS))]
+        for table, replayed in zip(
+                tables, _replay([(t, jobs) for t in tables], spec.race,
+                                slots, discipline, passes)):
+            res, q, m = segment_outcome(jobs, table, replayed, slots,
+                                        collect_metrics)
+            results.append(res)
+            queues.append(QueueMetrics(*q, admitted_frac=admitted_frac,
+                                       slots=None))
+            if collect_metrics:
+                metrics.append(m)
     if reps == 1:
         res, queue = results[0], queues[0]
     else:

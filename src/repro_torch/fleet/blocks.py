@@ -38,10 +38,12 @@ from ..sim.trace import JobSet
 #: benign Pareto parameters for padding rows: finite draws, never read.
 _FILL = {"t_min": 1.0, "beta": 2.0, "D": 1.0}
 
-#: a block's task rows in `block_view` start at a multiple of this: on the
-#: card a segmented sum may choose its load width by a segment's
-#: alignment, and with it the order of its additions, so every job keeps
-#: one alignment whatever chunk its block lies in
+#: a block's task rows in `block_view` take a multiple of this: the CPU's
+#: elementwise kernels run a vector loop over 32 floats at a time (2 x 16
+#: lanes with AVX-512) and a scalar loop over the rest, whose pow differs
+#: from the vector loop's in the last bits, so a task's draws would depend
+#: on whether its chunk's view ends near it; with every block a multiple
+#: of 32 tasks, no task of any view falls in that rest
 ALIGN = 32
 
 _JOB_LEAVES = ("n_tasks", "t_min", "beta", "D", "arrival", "C", "job_class",

@@ -20,8 +20,9 @@ each job row's segment max of completion and masked segment sum of
 machine time; every per-job reduction stays inside its block.
 
 The view's blocks start at multiples of `blocks.ALIGN` tasks (the gap
-goes to the dummy job, whose rows draw a constant), so every job's
-segment has the same alignment whatever chunk it lies in.
+goes to the dummy job, whose rows draw a constant), so on the CPU no
+task falls in an elementwise kernel's scalar remainder, whatever chunk it
+lies in.
 
 Every cross-job and cross-replication reduction runs on the host in numpy
 (`_chunk_result`), and the trace's scalars are reduced once over the
