@@ -8,7 +8,8 @@ Phases; each raises on failure, so any failure exits non-zero:
 1. print the card (nvidia-smi name and power limit) and build every kernel
    of the main path from `src/repro_torch/kernels/csrc/` (grid_solve.cu,
    pocd_mc.cu, flash_attention.cu, flash_attention_sm90.cu,
-   dispatch_scan.cu), one nvcc process per source, timed, with ptxas's
+   dispatch_scan.cu, philox_rows.cu), one nvcc process per source, timed,
+   with ptxas's
    registers and spills (dispatch_scan's for each of its three designs,
    which must show 0 bytes of stack and 0 spills), the sorted design's
    SASS instructions for one dispatch step (cuobjdump), and the
@@ -24,6 +25,11 @@ Phases; each raises on failure, so any failure exits non-zero:
    that do not depend on r once per job, one powf per (r, node)). The
    (2700, 9) times make the kernels line's sum over one run_all; the
    (65536, 64) times, a fleet-sized chunk, stand beside them;
+2b. the draw kernel (csrc/philox_rows.cu) against its plain version run
+   on the CPU, bit for bit: 20,000 rows with cells past 2^32 and
+   negative, rows up to 2^24, 1, 3, 9 and 10 columns, the three draw
+   names, the fleet's and the serving tag; and its raw generator on the
+   three Philox4x32-10 known-answer vectors;
 3. the main path: `run_all` over the paper's trace, generate(2700, seed=0)
    (912,199 tasks), all registered strategies, max_r=8, at reps=1 and
    reps=8, twice each; the grid-solve launch count is set to 0 before
@@ -133,9 +139,11 @@ Phases; each raises on failure, so any failure exits non-zero:
    (`devices=1`), first and warm: every strategy's job_met, job_cost,
    job_completion and r* bit-equal between the two and between runs;
    grid-solve launches one a strategy and chunk; the chunked peak device
-   memory below the whole task axis's (T, 9) f32 draw; walls, cells drawn
-   and their host ms, Tb against the mean block, and a profiled chunked
-   sresume run (idle share). The paper trace at reps 8 through the fleet
+   memory below the whole task axis's (T, 9) f32 draw; walls, the draws
+   (one `uniform_rows` a replication, chunk and draw name, each one
+   philox_rows launch, counted) and their host ms, Tb against the mean
+   block, and a profiled chunked sresume run (idle share), each beside
+   PR 20's (PR20_FLEET). The paper trace at reps 8 through the fleet
    against run_all: every PoCD within 6 standard errors (from the runs'
    per-job met frequencies), r* equal at run_all's R_min. The capacity
    replay in windows (`run_cluster(chunk_jobs=675)`, 4 windows x 8
@@ -151,6 +159,27 @@ Phases; each raises on failure, so any failure exits non-zero:
    events, `LaunchTimes`), ns a step; how many rows of two windows'
    draws coincide.
    Its JSON is also written to chiprun_out/fleet.json;
+10d. hedged online serving (`repro_torch.serve`): request-storm
+   synthesized on the card at its registry size (20,000 requests), and
+   `run_serve(Philox(0), reqs, window=256)` over all ten strategies,
+   known-tail and online (refit_every 500, probe_every 10), each first
+   and warm with every count set to 0 just before and read just after:
+   grid-solve launches one a strategy (known tail), and in the online
+   regime the epoch solves plus five a governor refit; one philox_rows
+   launch a draw; every column finite and of shape (20,000,), sresume's
+   and adaptive's PoCD above hadoop_ns's; window 1024 and the warm run
+   bit-equal to the first; known tail: every strategy's slice
+   [5000, 7000) served alone bit-equal to the full run's rows, and the
+   first 2048 requests' known-tail grid solve equal to its plain version
+   (check_grid) and their windows, served on the card and on the CPU with
+   the card's r*, within f32 rtol 1e-5 (met equal but deadline ties).
+   Per strategy PoCD, mean cost, utility, p50/p95/p99, mean r*, probes
+   and refits; per regime the walls, requests/s, windows, draws a window
+   and their host ms, and a profiled warm sresume serve_trace (idle
+   share). Then the draw kernel timed at the serving window (256, 9), a
+   fleet chunk and the monolithic fleet's task axis: kernel, call and
+   plain ms, the bytes bound, torch.rand of the shape as a yardstick.
+   Its JSON is also written to chiprun_out/serving.json;
 11. the quickstart path (examples/quickstart.py step for step, through the
    port, on the card): JobSpec.make, the closed forms at r = 0..3,
    solve_grid and solve_algorithm1 (equal r*), gamma, the Theorem 7
@@ -221,9 +250,9 @@ Phases; each raises on failure, so any failure exits non-zero:
    the warm generate; then one prefill and the 32 decode steps profiled
    apart.
 
-The last lines are the fleet JSON (phase 10c), the cluster JSON (phase
-10b), the scenarios JSON (phases 6-10), the kernels JSON, the card line
-and the result JSON.
+The last lines are the serving JSON (phase 10d), the fleet JSON (phase
+10c), the cluster JSON (phase 10b), the scenarios JSON (phases 6-10),
+the kernels JSON, the card line and the result JSON.
 The script needs one CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
@@ -270,11 +299,16 @@ from repro_torch.fleet import run_fleet_strategy  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import dispatch_scan as ds  # noqa: E402
 from repro_torch.kernels import grid_solve as gs  # noqa: E402
+from repro_torch.kernels import philox as ph  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.inputs import make_batch  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
 from repro_torch.serve import Engine  # noqa: E402
-from repro_torch.sim.draws import WorkloadPhilox  # noqa: E402
+from repro_torch.serve import (make_requests, run_serve,  # noqa: E402
+                               serve_trace)
+from repro_torch.serve import loop as serve_loop  # noqa: E402
+from repro_torch.sim.draws import (DRAW_NAMES, FLEET_TAG,  # noqa: E402
+                                   SERVE_TAG, WorkloadPhilox)
 from repro_torch.sim.metrics import aggregate, class_summary  # noqa: E402
 from repro_torch.sim.runner import jobspecs_of  # noqa: E402
 from repro_torch.sim.trace import jobset_to, uniform_jobset  # noqa: E402
@@ -382,7 +416,7 @@ FA_PATH = (SERVE["batch"], 8, 4, SERVE["prompt"], 256, "bfloat16", True,
            50.0)
 CHECK_SERVE = dict(layers=2, batch=2, prompt=200, tokens=4, tol=1e-4)
 SOURCES = ("grid_solve", "pocd_mc", "flash_attention",
-           "flash_attention_sm90", "dispatch_scan")
+           "flash_attention_sm90", "dispatch_scan", "philox_rows")
 CHECK_SHAPES = ((37, 9), (64, 33), (2700, 9), (65536, 64))
 FLEET_SHAPE = (65536, 64)   # a fleet-sized chunk (ROADMAP A.5)
 THETA = 1e-4
@@ -427,6 +461,33 @@ FLEET_CHUNK = 8192
 FLEET_BLOCK = 64
 FLEET_SIGMAS = 6.0
 FLEET_WINDOW = 675
+# the draw kernel (csrc/philox_rows.cu): the check's rows (cells past
+# 2^32 and below 0, rows up to 2^24) and column counts, and the
+# known-answer vectors of Philox4x32-10 (Salmon et al., SC'11):
+# (counter, key, output words)
+PHILOX_CHECK_ROWS = 20_000
+PHILOX_COLS = (1, 3, 9, 10)
+PHILOX_KAT = (
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)))
+# hedged online serving (phase 10d): request-storm at its registry size
+# (20,000 requests), all ten strategies, windows of 256; the online regime
+# at examples/serve_requests.py's defaults; window 1024 and the slice
+# [5000, 7000) served alone against the main run's bits; the first 2048
+# requests served on the card and on the CPU with the card's r*
+SERVING = dict(scenario="request-storm", window=256, wide=1024,
+               refit_every=500, probe_every=10, slice=(5000, 7000),
+               check=2048)
+# PR 20's final run of the fleet (PERF.md), printed beside this run's:
+# warm walls, the host's cell draws (25,008 cells a run, one
+# torch.Generator each) and the chunked sresume run's idle share
+PR20_FLEET = {"monolithic": {"wall_s": 2.337, "draw_host_s": "1.66-1.68"},
+              "chunked": {"wall_s": 2.650, "draw_host_s": "1.66-1.68"},
+              "cells": 25008, "idle_share": 0.845}
 # (PoCD, utilization, mean wait s) of every strategy at 500 slots, reps 1,
 # as PR 18's final run printed them with the first dispatch kernel: a
 # redesign that keeps the semantics prints the same digits
@@ -557,12 +618,13 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def kernel_ms(fn, iters: int, name, tries: int = 3) -> float:
+def kernel_ms(fn, iters: int, name, tries: int = 6) -> float:
     """Mean device time per launch of the kernels whose name holds `name`
     (a string, or a tuple of alternatives), from torch.profiler over
     `iters` calls of fn(). The profiler now and then drops kernel records
-    (one session of 20 launches has shown 2), so a session that does not
-    see all `iters` is run again, up to `tries` sessions; after that the
+    (one session of 20 launches has shown 2; three sessions in a row have
+    shown 6, 0 and 6), so a session that does not see all `iters` is run
+    again, up to `tries` sessions; after that the
     session that saw the most launches is taken if it saw at least half,
     and the mean is over the launches it recorded."""
     from torch.autograd import DeviceType
@@ -807,7 +869,7 @@ def phase_profile(fn, label: str, wall_s: float) -> dict:
         raise AssertionError("profiler recorded no device time")
     ours = {k: sum(e.device_time_total for e in rows if k in e.key) / 1e3
             for k in ("grid_solve", "pocd_mc", "flash_attention",
-                      "dispatch_scan")}
+                      "dispatch_scan", "philox_rows")}
     sort_ms = sum(e.device_time_total for e in rows
                   if "sort" in e.key.lower()) / 1e3
     idle = 1.0 - (busy_us / 1e3) / (wall_s * 1e3)
@@ -817,7 +879,8 @@ def phase_profile(fn, label: str, wall_s: float) -> dict:
           f"{ours['grid_solve']:.3f} ms, pocd_mc kernels "
           f"{ours['pocd_mc']:.3f} ms, flash_attention kernels "
           f"{ours['flash_attention']:.3f} ms, dispatch_scan kernel "
-          f"{ours['dispatch_scan']:.3f} ms, sorts {sort_ms:.3f} ms")
+          f"{ours['dispatch_scan']:.3f} ms, philox_rows kernel "
+          f"{ours['philox_rows']:.3f} ms, sorts {sort_ms:.3f} ms")
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms "
               f"{100 * e.device_time_total / busy_us:5.1f}% x{e.count:<5d} "
@@ -827,6 +890,7 @@ def phase_profile(fn, label: str, wall_s: float) -> dict:
                 pocd_mc_ms=ours["pocd_mc"],
                 flash_attention_ms=ours["flash_attention"],
                 dispatch_scan_ms=ours["dispatch_scan"],
+                philox_rows_ms=ours["philox_rows"],
                 dispatch_scan_launches=sum(e.count for e in rows
                                            if "dispatch_scan" in e.key),
                 sort_ms=sort_ms)
@@ -1681,27 +1745,30 @@ def phase_cluster(dev, p: SimParams, budget_B: float):
 
 
 class TimedCells:
-    """A uniform source that passes Philox's cells through, counting them
-    and the host seconds spent making them (the draws' host cost; the
-    card runs on)."""
+    """A uniform source that passes Philox's counter-keyed draws through,
+    counting the calls, the rows drawn and the host seconds spent in them
+    (key derivation and the launch; the card runs on)."""
 
     def __init__(self, inner):
-        self.inner, self.cells, self.host_s = inner, 0, 0.0
+        self.inner, self.calls, self.rows, self.host_s = inner, 0, 0, 0.0
 
-    def uniform_cell(self, strategy, rep, block, name, shape, device):
+    def uniform_rows(self, strategy, rep, name, cells, rows, rest, device,
+                     tag=FLEET_TAG):
         t0 = time.perf_counter()
-        u = self.inner.uniform_cell(strategy, rep, block, name, shape,
-                                    device)
+        u = self.inner.uniform_rows(strategy, rep, name, cells, rows, rest,
+                                    device, tag=tag)
         self.host_s += time.perf_counter() - t0
-        self.cells += 1
+        self.calls += 1
+        self.rows += int(u.shape[0])
         return u
 
 
 def fleet_run(dev, jobs, p, **kw):
     """One fleet run_all on the card: (outs, r_min, wall s, grid-solve
     launches, peak bytes allocated above what was allocated before, the
-    TimedCells source, the first grid solve's (spec, JobSpec, r_max));
-    the counts are set to 0 just before and read just after."""
+    TimedCells source, the first grid solve's (spec, JobSpec, r_max),
+    philox_rows launches, one a draw); the counts are set to 0 just
+    before and read just after."""
     src, first = TimedCells(Philox(0)), []
     inner = gs.grid_solve_cuda
 
@@ -1710,7 +1777,7 @@ def fleet_run(dev, jobs, p, **kw):
             first.append((spec, job, r_max))
         return inner(spec, job, r_max)
 
-    gs.launches = 0
+    gs.launches = ph.launches = 0
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1721,8 +1788,12 @@ def fleet_run(dev, jobs, p, **kw):
             **kw))
     finally:
         gs.grid_solve_cuda = inner
+    if ph.launches != src.calls:
+        raise AssertionError(f"fleet: {src.calls} draws but {ph.launches} "
+                             f"philox_rows launches")
     return (outs, r_min, wall, gs.launches,
-            torch.cuda.max_memory_allocated() - base, src, first[0])
+            torch.cuda.max_memory_allocated() - base, src, first[0],
+            ph.launches)
 
 
 def fleet_same_bits(a: dict, b: dict, what: str) -> None:
@@ -1874,15 +1945,21 @@ def phase_fleet(dev, p: SimParams) -> dict:
                       ("chunked", dict(chunk_jobs=FLEET_CHUNK))):
         first = fleet_run(dev, tr, p, **kw)
         warm = fleet_run(dev, tr, p, **kw)
-        draws[label] = dict(cells=warm[5].cells, host_s=warm[5].host_s)
+        draws[label] = dict(calls=warm[5].calls, rows=warm[5].rows,
+                            host_s=warm[5].host_s, launches=warm[7])
         fleet_same_bits(first[0], warm[0], f"fleet {label} twice")
         runs[label] = (first, warm)
         print(f"  {label}: wall first {first[2]:.3f} s, warm {warm[2]:.3f}"
-              f" s; peak {first[4] / 2**30:.3f} / {warm[4] / 2**30:.3f} GiB"
+              f" s (PR 20: {PR20_FLEET[label]['wall_s']} s); peak "
+              f"{first[4] / 2**30:.3f} / {warm[4] / 2**30:.3f} GiB"
               f" above the phase's base; grid-solve launches {first[3]}; "
-              f"{draws[label]['cells']} cells drawn (warm), "
-              f"{1e3 * draws[label]['host_s']:.1f} ms of host time in them;"
-              f" r_min {first[1]:.6f}; the same bits twice")
+              f"{draws[label]['calls']} uniform_rows draws (warm), "
+              f"{draws[label]['launches']} philox_rows launches, "
+              f"{draws[label]['rows']} rows, "
+              f"{1e3 * draws[label]['host_s']:.1f} ms of host time in them "
+              f"(PR 20: {PR20_FLEET['cells']} cells, "
+              f"{PR20_FLEET[label]['draw_host_s']} s); r_min "
+              f"{first[1]:.6f}; the same bits twice")
     mono, chunked = runs["monolithic"][0], runs["chunked"][0]
     fleet_same_bits(chunked[0], mono[0], "fleet chunked vs monolithic")
     n_chunks = -(-FLEET_JOBS // FLEET_CHUNK)
@@ -1919,10 +1996,13 @@ def phase_fleet(dev, p: SimParams) -> dict:
         Philox(0), tr, "sresume", p, theta=THETA, r_min=chunked[1],
         block_jobs=FLEET_BLOCK, chunk_jobs=FLEET_CHUNK, device=dev)
     prof = phase_profile(one, "fleet sresume chunked", synced(one)[1])
+    print(f"  chunked sresume idle share {prof['idle_share']:.3f} (PR 20: "
+          f"{PR20_FLEET['idle_share']})")
     t_flat = time.perf_counter() - t_flat
     print(f"  flat fleet part: {t_flat:.1f} s")
     out["flat"] = dict(
         phase_s=t_flat, jobs=FLEET_JOBS, tasks=T, Tb=Tb,
+        chunk_tasks=int(tr.n_tasks[:FLEET_CHUNK].astype(np.int64).sum()),
         mean_block_tasks=float(counts.mean()), chunk_jobs=FLEET_CHUNK,
         n_chunks=n_chunks,
         draw_bytes=draw_bytes,
@@ -2060,6 +2140,296 @@ def phase_fleet(dev, p: SimParams) -> dict:
                                utilization=float(o.queue.utilization),
                                mean_wait=float(o.queue.mean_wait))
                       for n_, o in first[0].items()})
+    return out
+
+
+def phase_philox_check(dev) -> dict:
+    """The draw kernel against its plain version run on the CPU, bit for
+    bit: cells >= 2^32 and negative, rows up to 2^24, every column count
+    of PHILOX_COLS, all three draw names, both tags; and the raw
+    generator's known-answer vectors."""
+    rng = np.random.default_rng(0)
+    n = PHILOX_CHECK_ROWS
+    cells = torch.from_numpy(np.concatenate([
+        rng.integers(2**32, 2**44, n // 2),
+        rng.integers(-2**31, 2**32, n - n // 2)]))
+    rows = torch.from_numpy(rng.integers(0, 2**24 + 1, n))
+    rows[:2] = torch.tensor([0, 2**24])
+    src, cases = Philox(0), 0
+    for cols in PHILOX_COLS:
+        for tag in (FLEET_TAG, SERVE_TAG):
+            for name in DRAW_NAMES:
+                want = src.uniform_rows("adaptive", 1, name, cells, rows,
+                                        (cols,), "cpu", tag=tag)
+                got = src.uniform_rows("adaptive", 1, name, cells.to(dev),
+                                       rows.to(dev), (cols,), dev,
+                                       tag=tag).cpu()
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    raise AssertionError(f"philox_rows: {bad} values differ "
+                                         f"from the plain version (cols "
+                                         f"{cols}, tag {tag:#x}, {name})")
+                cases += 1
+    ctr = np.asarray([c for c, _, _ in PHILOX_KAT], np.uint32)
+    key = np.asarray([k for _, k, _ in PHILOX_KAT], np.uint32)
+    words = ph.philox_raw_cuda(ctr, key)
+    got = [tuple(int(x) for x in w) for w in words]
+    if got != [w for _, _, w in PHILOX_KAT]:
+        raise AssertionError(f"philox: known-answer vectors {got}")
+    print(f"philox_rows: bit-equal to the plain version on the CPU in "
+          f"{cases} cases ({n} rows each: cells past 2^32 and negative, "
+          f"rows up to 2^24; cols {PHILOX_COLS}; three draw names, two "
+          f"tags); the raw generator gives the three Philox4x32-10 "
+          f"known answers")
+    return dict(cases=cases, rows=n, cols=list(PHILOX_COLS),
+                max_abs_err=0.0, known_answers=len(PHILOX_KAT))
+
+
+def event_ms(fn, iters: int) -> float:
+    """Median device time of one fn() between CUDA events recorded just
+    before and after it, over `iters` back-to-back calls: the kernel's
+    time where it is long beside the host's enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def philox_times(dev, shapes: dict) -> dict:
+    """Kernel ms (the profiler at the serving window; CUDA events around
+    each launch, `event_ms`, at the fleet's shapes, where the profiler
+    drops records of a few long launches), wrapper call ms and plain ms
+    (CUDA events),
+    the bytes bound (16 bytes of coordinates a row read, 4 a value
+    written) and torch.rand of the same shape (a yardstick, not the same
+    function) at each {label: (rows, cols)}; the plain version only where
+    its int64 temporaries fit, held equal to the kernel there."""
+    key = Philox(0).rows_key("sresume", 0, "k2", FLEET_TAG)
+    out = {}
+    for label, (T, cols) in shapes.items():
+        idx = torch.arange(T, device=dev)
+        cells, rows = idx // 512, idx % 512
+        fn = lambda: ph.philox_rows_cuda(cells, rows, cols, key)
+        small = T < 100_000
+        iters = 200 if small else 20
+        k = kernel_ms(fn, iters, "philox_rows") if small else event_ms(
+            fn, iters)
+        call = cuda_ms(fn, iters)
+        rand = cuda_ms(lambda: torch.rand((T, cols), device=dev), iters)
+        plain = None
+        if T <= 4_000_000:
+            plain_fn = lambda: ph.philox_rows_plain(cells, rows, cols, key)
+            if not torch.equal(plain_fn(), fn()):
+                raise AssertionError(f"philox_rows at {label}: kernel and "
+                                     f"plain version differ")
+            plain = cuda_ms(plain_fn, 3)
+        nbytes = 4 * T * cols + 16 * T
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        out[label] = dict(rows=T, cols=cols, ms=k, call_ms=call,
+                          plain_ms=plain, bound_ms=bound, bytes=nbytes,
+                          rand_ms=rand, bound_share=bound / k)
+        print(f"  philox_rows at {label} ({T} x {cols}): kernel {k:.5f} ms, "
+              f"call {call:.5f} ms, plain "
+              + ("not measured" if plain is None else f"{plain:.4f} ms")
+              + f"; bound {bound:.5f} ms (bytes, {nbytes} B; "
+              f"{100 * bound / k:.1f}% of it); torch.rand of the shape "
+              f"{rand:.5f} ms (yardstick)")
+    return out
+
+
+def serve_run(dev, reqs, p, **kw) -> dict:
+    """One run_serve on the card with every count set to 0 just before
+    and read just after: outputs, wall, grid-solve and philox_rows
+    launches, windows served, draws and their host seconds."""
+    src, inner, windows = TimedCells(Philox(0)), serve_loop.serve_window, [0]
+    window = kw.pop("window", SERVING["window"])
+
+    def counted(*a, **k):
+        windows[0] += 1
+        return inner(*a, **k)
+
+    gs.launches = ph.launches = 0
+    serve_loop.serve_window = counted
+    try:
+        (outs, r_min), wall = synced(lambda: run_serve(
+            src, reqs, p, window=window, device=dev, **kw))
+    finally:
+        serve_loop.serve_window = inner
+    if ph.launches != src.calls:
+        raise AssertionError(f"serve: {src.calls} draws but {ph.launches} "
+                             f"philox_rows launches")
+    return dict(outs=outs, r_min=r_min, wall=wall, grid=gs.launches,
+                philox=ph.launches, windows=windows[0], draws=src.calls,
+                draw_host_s=src.host_s, rows=src.rows)
+
+
+def serve_same_bits(a: dict, b: dict, what: str, lo=None, hi=None) -> None:
+    for name, o in a.items():
+        for f in ("job_met", "job_completion", "job_cost"):
+            x = getattr(o.result, f)
+            y = getattr(b[name].result, f)
+            y = y if lo is None else y[lo:hi]
+            if x.shape != y.shape or not torch.equal(x, y):
+                raise AssertionError(f"{what} {name}: {f} differs")
+
+
+def serve_vs_cpu(dev, reqs, p, r_min: float) -> dict:
+    """The first SERVING["check"] requests, every strategy: the known-tail
+    solve's grid-solve launch against its plain version (check_grid), and
+    the windows served on the card against the same windows on the CPU
+    (plain versions) with the card's r* and choice: completion and
+    machine time within f32 rtol 1e-5 (pow's last bits), met equal but
+    deadline ties (counted)."""
+    sub = reqs.slice(0, SERVING["check"])
+    d, h = sub.to(dev), sub.to("cpu")
+    n = sub.n_requests
+    D = h.D.numpy()
+    ties, worst = {}, 0.0
+    for name in names():
+        rm = 0.0 if name == "hadoop_ns" else r_min
+        if get(name).optimized:
+            specs = serve_loop._epoch_jobspecs(d.t_min, d.beta, d, p, 1e-3,
+                                               rm, n)
+            check_grid(get(name), specs, 9, f"serve {name} J={n}")
+            r, ch = serve_loop._solve_epoch(name, d.t_min, d.beta, d, p,
+                                            1e-3, rm, 8, n)
+        else:
+            r = ch = torch.zeros(n, dtype=torch.int32, device=dev)
+        kw = dict(strategy=name, p=p, max_r=8, oracle=True,
+                  window=SERVING["window"])
+        card = serve_loop._serve_chunk(Philox(0), name, d, r, ch, **kw)
+        host = serve_loop._serve_chunk(Philox(0), name, h, r.cpu(),
+                                       ch.cpu(), **kw)
+        for a, b, what in zip(card, host, ("completion", "machine")):
+            a = a.cpu().numpy()
+            b = b.numpy()
+            rel = np.abs(a - b) / np.abs(b)
+            if not (rel <= 1e-5).all():
+                raise AssertionError(f"serve {name}: {what} on the card "
+                                     f"off the CPU's by {rel.max():.3g}")
+            worst = max(worst, float(rel.max()))
+        cm, hm = card[0].cpu().numpy() <= D, host[0].numpy() <= D
+        tie = np.abs(host[0].numpy() - D) <= 1e-5 * D
+        if ((cm != hm) & ~tie).any():
+            raise AssertionError(f"serve {name}: met differs off a "
+                                 f"deadline tie")
+        ties[name] = int((cm != hm).sum())
+    print(f"  serve on the card vs the CPU ({n} requests, every strategy, "
+          f"the card's r*): completion and machine within rtol "
+          f"{worst:.3g} (<= 1e-5); met flips at deadline ties {ties}; the "
+          f"grid solve equal to its plain version on each known-tail solve")
+    return dict(requests=n, max_rel_err=worst, deadline_ties=ties)
+
+
+def phase_serving(dev, p: SimParams) -> dict:
+    """Hedged online serving on the card (phase 10d)."""
+    t_phase = time.perf_counter()
+    reqs, synth_s = synced(lambda: make_requests(SERVING["scenario"],
+                                                 device=dev))
+    n = reqs.n_requests
+    if n != get_scenario(SERVING["scenario"]).n_jobs:
+        raise AssertionError(f"serve: {n} requests, not the registry's")
+    print(f"serving: {SERVING['scenario']} at {n} requests (synthesized in "
+          f"{synth_s:.2f} s), {len(names())} strategies, window "
+          f"{SERVING['window']}")
+    out = {"requests": n}
+    regimes = (("known_tail", {}),
+               ("online", dict(refit_every=SERVING["refit_every"],
+                               probe_every=SERVING["probe_every"])))
+    for regime, kw in regimes:
+        first = serve_run(dev, reqs, p, **kw)
+        warm = serve_run(dev, reqs, p, **kw)
+        serve_same_bits(first["outs"], warm["outs"], f"serve {regime} twice")
+        wide = serve_run(dev, reqs, p, window=SERVING["wide"], **kw)
+        serve_same_bits(wide["outs"], first["outs"],
+                        f"serve {regime} window {SERVING['wide']}")
+        outs = first["outs"]
+        for name, o in outs.items():
+            res = o.result
+            if (res.job_completion.shape != (n,)
+                    or not bool(torch.isfinite(res.job_completion).all())
+                    or not bool(torch.isfinite(res.job_cost).all())
+                    or not 0.0 <= float(res.pocd) <= 1.0):
+                raise AssertionError(f"serve {regime} {name}: columns not "
+                                     f"finite or of shape ({n},)")
+        base = float(outs["hadoop_ns"].result.pocd)
+        for name in ("sresume", "adaptive"):
+            if not float(outs[name].result.pocd) > base:
+                raise AssertionError(f"serve {regime}: {name} PoCD not above "
+                                     f"hadoop_ns's {base}")
+        optimized = names("optimized")
+        if regime == "known_tail":
+            want = len(optimized)
+        else:
+            want = (len(names("chronos")) * sum(o.n_refits
+                                                for o in outs.values())
+                    + sum(sum(e != "hadoop_ns" for e in o.epoch_strategies)
+                          for s_, o in outs.items() if s_ in optimized))
+        if first["grid"] != want or warm["grid"] != want:
+            raise AssertionError(f"serve {regime}: grid-solve launches "
+                                 f"{first['grid']}, {warm['grid']}; expected "
+                                 f"{want}")
+        if first["philox"] == 0:
+            raise AssertionError(f"serve {regime}: no philox_rows launch")
+        if regime == "known_tail":
+            lo, hi = SERVING["slice"]
+            part = {name: serve_trace(
+                Philox(0), reqs.slice(lo, hi), p, strategy=name,
+                r_min=0.0 if name == "hadoop_ns" else first["r_min"],
+                window=SERVING["window"], device=dev) for name in outs}
+            serve_same_bits(part, outs, f"serve slice [{lo}, {hi})", lo, hi)
+            check = serve_vs_cpu(dev, reqs, p, first["r_min"])
+        one = lambda: serve_trace(
+            Philox(0), reqs, p, strategy="sresume", r_min=first["r_min"],
+            window=SERVING["window"], device=dev, **kw)
+        prof = phase_profile(one, f"serve_trace sresume {regime}",
+                             synced(one)[1])
+        rate = len(outs) * n / warm["wall"]
+        print(f"  {regime}: r_min {first['r_min']:.6f}; wall first "
+              f"{first['wall']:.3f} s, warm {warm['wall']:.3f} s = "
+              f"{rate:.0f} requests/s over {len(outs)} strategies; "
+              f"{warm['windows']} windows, {warm['philox']} philox_rows "
+              f"launches ({warm['philox'] / warm['windows']:.2f} a window), "
+              f"{1e3 * warm['draw_host_s'] / warm['windows']:.4f} ms of "
+              f"draw host time a window; grid-solve launches "
+              f"{warm['grid']}; window {SERVING['wide']} and two warm runs "
+              f"bit-equal"
+              + (f"; the slice [{SERVING['slice'][0]}, "
+                 f"{SERVING['slice'][1]}) served alone bit-equal to the "
+                 f"full run's rows" if regime == "known_tail" else ""))
+        for name, o in outs.items():
+            lat = o.latency
+            print(f"    {name:10s} pocd {float(o.result.pocd):.6f} mean_cost "
+                  f"{float(o.result.mean_cost):.5f} utility "
+                  f"{o.utility:.6f} p50 {lat['p50']:.4f} p95 "
+                  f"{lat['p95']:.4f} p99 {lat['p99']:.4f} mean_r "
+                  f"{o.mean_r:.4f} probes {o.n_probes} refits {o.n_refits}")
+        out[regime] = dict(
+            r_min=first["r_min"], wall_s=dict(first=first["wall"],
+                                              warm=warm["wall"],
+                                              wide=wide["wall"]),
+            requests_per_s=rate, windows=warm["windows"],
+            philox_launches=warm["philox"], draws=warm["draws"],
+            draw_rows=warm["rows"], draw_host_ms=1e3 * warm["draw_host_s"],
+            grid_solve_launches=warm["grid"], profile_sresume=prof,
+            per_strategy={name: dict(
+                pocd=float(o.result.pocd),
+                mean_cost=float(o.result.mean_cost), utility=o.utility,
+                latency=o.latency, mean_r=o.mean_r, probes=o.n_probes,
+                refits=o.n_refits) for name, o in outs.items()},
+            first_launches=dict(grid_solve=first["grid"],
+                                philox_rows=first["philox"]))
+    out["vs_cpu"] = check
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  serving phase: {out['phase_s']:.1f} s")
     return out
 
 
@@ -2901,6 +3271,7 @@ def main() -> None:
     p = SimParams()
 
     check = phase_check(dev, p)
+    philox_check = phase_philox_check(dev)
 
     jobs = generate(2700, seed=0, device=dev)
     print(f"trace: {jobs.n_jobs} jobs, {jobs.total_tasks} tasks")
@@ -2935,6 +3306,11 @@ def main() -> None:
     spans = phase_spans(dev, p)
     cluster, cluster_state = phase_cluster(dev, p, budget["budget"])
     fleet = phase_fleet(dev, p)
+    serving = phase_serving(dev, p)
+    philox_t = philox_times(dev, {
+        "serve_window": (SERVING["window"], 9),
+        "fleet_chunk": (fleet["flat"]["chunk_tasks"], 9),
+        "fleet_monolithic": (fleet["flat"]["tasks"], 9)})
     path = phase_quickstart(dev)
     warm = quietly(phase_quickstart, dev)
     print("quickstart path, warm second run: " + ", ".join(
@@ -3017,6 +3393,12 @@ def main() -> None:
                 "monolithic"],
             flat_chunked=fleet["flat"]["grid_solve_launches"]["chunked"],
             capacity_windows=fleet["capacity"]["launches"][0]),
+        # hedged serving (phase 10d), each run counted: run_serve over
+        # request-storm's 20,000 requests, known tail (one solve a
+        # strategy) and online (epoch solves and the governor's re-solves)
+        "launches_serving": {
+            regime: serving[regime]["grid_solve_launches"]
+            for regime in ("known_tail", "online")},
     }]
 
     def mc_entry(name, line, launches, parts, err, **extra):
@@ -3148,6 +3530,30 @@ def main() -> None:
             ns_per_step=fleet["capacity"]["ns_per_step"],
             launches_one_a_window=fleet["capacity"][
                 "launches_per_window"][1])))
+    pt = philox_t["serve_window"]
+    kernels.append(dict(
+        name="philox_rows", route="cuda",
+        source="src/repro_torch/kernels/csrc/philox_rows.cu",
+        replaces="src/repro/serve/scheduler.py:162 (jax.random.fold_in per "
+                 "request, lowered by XLA; no Pallas kernel)",
+        # the main path: one known-tail run_serve over request-storm; ms,
+        # call, plain and bound per launch at its window shape (256, 9)
+        launches=serving["known_tail"]["first_launches"]["philox_rows"],
+        max_abs_err=philox_check["max_abs_err"],
+        ms=pt["ms"], call_ms=pt["call_ms"], plain_ms=pt["plain_ms"],
+        bound_ms=pt["bound_ms"], bound_by="bytes", library_ms=None,
+        library="none: torch.rand draws from a generator's offset, not at "
+                "given coordinates (rand_ms is a yardstick of the same "
+                "shape)",
+        rand_ms=pt["rand_ms"], per_shape=philox_t,
+        launches_online=serving["online"]["philox_launches"],
+        launches_fleet={k: v["launches"]
+                        for k, v in fleet["flat"]["draws"].items()},
+        check=philox_check))
+    serving_line = json.dumps({"serving": serving})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "serving.json").write_text(serving_line)
+    print(serving_line)
     fleet_line = json.dumps({"fleet": fleet})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "fleet.json").write_text(fleet_line)

@@ -29,7 +29,11 @@ Ported so far:
    keyed by (replication, global block), so chunked equals monolithic bit
    for bit, and `run_cluster(..., chunk_jobs=)` replays windows, every
    (window, replication) a segment of one dispatch launch. One card: a
-   larger mesh raises.
+   larger mesh raises. Its draws are counter-keyed Philox
+   (`sim.draws.Philox.uniform_rows`, `kernels/csrc/philox_rows.cu`);
+7. hedged online serving (`serve`: `run_serve`, `serve_trace`,
+   `HedgedScheduler`), known-tail or with the online tail governor
+   (`obs.tail`), every request's draws keyed by its rid.
 """
 from .cluster import run_cluster, run_cluster_strategy
 from .device import resolve_device

@@ -11,12 +11,13 @@ of `repro.fleet`.
   capacity replay window by window, every (window, replication) a segment
   of the batched dispatch launch.
 
-Every (replication, block) cell draws through
-`source.uniform_cell(strategy, rep, global_block, ...)`, and every
-cross-job reduction runs on the host in one fixed order, so a chunked run
-gives the bits of a monolithic one. `run_all(devices=, mesh=,
-chunk_jobs=)` and `run_cluster(devices=, mesh=, chunk_jobs=)` route here;
-without them the flat paths are untouched.
+Every task row draws through `source.uniform_rows` at its global
+(block, task row) coordinates, one call per (replication, chunk, draw
+name), and every cross-job reduction runs on the host in one fixed
+order, so a chunked run gives the bits of a monolithic one.
+`run_all(devices=, mesh=, chunk_jobs=)` and `run_cluster(devices=,
+mesh=, chunk_jobs=)` route here; without them the flat paths are
+untouched.
 """
 from .blocks import FleetBlocks, block_jobset, gather_index, make_blocks
 from .cluster import run_cluster_fleet, run_cluster_fleet_strategy

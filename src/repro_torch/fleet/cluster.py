@@ -11,8 +11,9 @@ contention is ignored (exact when windows last much longer than the
 queue takes to drain). Admission and the r* governor run per window.
 
 Replication i of every window draws through
-`source.uniform_cell(strategy, i, None, ...)`, as the reference keys it
-by fold_in(strategy_key, i) alone: windows share their replications'
+`sim.draws.uniform_cell(source, strategy, i, None, ...)` (the cell
+`NO_BLOCK` of `source.uniform_rows`, rows 0..T-1), as the reference keys
+it by fold_in(strategy_key, i) alone: windows share their replications'
 streams (ROADMAP C notes the correlation).
 
 Every (window, replication) pair is an independent replay, so the pairs
@@ -39,6 +40,7 @@ from ..coupled.solver import solve_jobs_coupled, warn_infeasible
 from ..device import resolve_device, to_host
 from ..obs import trace as obs_trace
 from ..obs.metrics import reduce_reps_host
+from ..sim.draws import uniform_cell
 from ..sim.metrics import StreamCombiner, net_utility
 from ..sim.runner import jobspecs_of
 from ..strategies import get, names, solve_jobs
@@ -180,8 +182,8 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
     def table_of(ci, rep):
         w = windows[ci]
         cjobs = w["jobs"]
-        draw = lambda name, shape: source.uniform_cell(
-            strategy, rep, None, name, shape, dev)
+        draw = lambda name, shape: uniform_cell(
+            source, strategy, rep, None, name, shape, dev)
         table = spec.build_table(draw, cjobs, w["r_task"], w["c_task"], p,
                                  max_r=max_r, oracle=oracle)
         if w["admitted"] is not None:

@@ -2,22 +2,25 @@
 `repro.fleet.runner`.
 
 The trace is streamed in job-contiguous chunks (`chunk_jobs=`), each cut
-into job blocks (`blocks.py`), and every (replication, block) cell draws
-from its own stream, keyed by the GLOBAL block index:
+into job blocks (`blocks.py`), and every task row draws at its GLOBAL
+coordinates, (block index, task index in the block), under its
+(strategy, replication, draw name) key:
 
-    source.uniform_cell(strategy, rep, block, name, (Tb, ...))
+    source.uniform_rows(strategy, rep, name, cells, rows, rest, device,
+                        tag=FLEET_TAG)
 
-with Tb one width for the whole trace (the largest block's task count).
-A cell's draws therefore depend on nothing but its coordinates, and a
-chunked run gives the bits of a monolithic one. The reference vmaps one
-simulation per block over (Tb,)-row blocks; here each (replication,
-chunk) runs the strategy's sim ONCE on a flat JobSet of all the chunk's
-blocks holding their real tasks only (`blocks.block_view`): task i of a
-block takes row i of its cell's draws (every sim draws task-major), which
-is what it takes in the padded block, and the padding the reference
-computes and discards is neither drawn into the view nor simulated. Then
-each job row's segment max of completion and masked segment sum of
-machine time; every per-job reduction stays inside its block.
+one call per (replication, chunk, draw name), one kernel launch on the
+card (`kernels/csrc/philox_rows.cu`). A row's draws depend on nothing
+but its coordinates, and a chunked run gives the bits of a monolithic
+one. The reference vmaps one simulation per block over (Tb,)-row blocks;
+here each (replication, chunk) runs the strategy's sim ONCE on a flat
+JobSet of all the chunk's blocks holding their real tasks only
+(`blocks.block_view`): task i of a block takes the block's row i (every
+sim draws task-major), as it does in the reference's padded block, and
+the padding the reference computes and discards is neither drawn into
+the view nor simulated. Then each job row's segment max of completion
+and masked segment sum of machine time; every per-job reduction stays
+inside its block.
 
 The view's blocks start at multiples of `blocks.ALIGN` tasks (the gap
 goes to the dummy job, whose rows draw a constant), so on the CPU no
@@ -45,6 +48,7 @@ import torch
 from ..coupled.solver import solve_jobs_coupled, warn_infeasible
 from ..device import resolve_device, to_host
 from ..obs import trace as obs_trace
+from ..sim.draws import FLEET_TAG
 from ..sim.metrics import SimResult, StreamCombiner, net_utility, segment_sum
 from ..sim.runner import RunOutput, jobspecs_of
 from ..sim.trace import build_jobset
@@ -108,17 +112,24 @@ def _warn_saturated(strategy: str, n_sat: int, max_r: int):
 
 
 def _exec_blocks(source, strategy: str, rep_ids, bv, r_task, choice_task,
-                 p, max_r: int, oracle: bool, Tb: int):
+                 p, max_r: int, oracle: bool):
     """(reps_pad, G_pad, Jb) per-job completion and machine time of every
-    (replication, block) cell of a `blocks.BlockView`, on its device."""
+    (replication, block) cell of a `blocks.BlockView`, on its device.
+
+    Each draw is ONE `uniform_rows` over the view: a task row's cell is
+    its block's global index and its row the task's index in the block;
+    the alignment rows (the dummy job's) are set to `_ALIGN_FILL`."""
     spec = get(strategy)
     view = bv.jobs
     dev = view.t_min.device
     G = len(bv.block_ids)
     Jb = view.n_jobs // G
     T = view.total_tasks
-    cells = [(g, int(s0), int(c)) for g, s0, c in
-             zip(bv.block_ids, bv.starts, bv.counts) if c]
+    g_row = view.job_id // Jb
+    cells = g_row + bv.block_ids[0]
+    rows = torch.arange(T, device=dev) - torch.from_numpy(
+        np.asarray(bv.starts, np.int64)).to(dev)[g_row]
+    pad = ~bv.task_valid[:, None]
     jcs, jms = [], []
     for rep in rep_ids:
         def draw(name, shape, rep=rep):
@@ -126,11 +137,10 @@ def _exec_blocks(source, strategy: str, rep_ids, bv, r_task, choice_task,
                 raise ValueError(f"fleet draw {name!r}: {tuple(shape)} is "
                                  f"not task-major over {T} tasks")
             rest = tuple(shape[1:])
-            u = torch.full((T,) + rest, _ALIGN_FILL, device=dev)
-            for g, s0, c in cells:
-                u[s0:s0 + c] = source.uniform_cell(strategy, rep, g, name,
-                                                   (Tb,) + rest, dev)[:c]
-            return u
+            u = source.uniform_rows(strategy, rep, name, cells, rows, rest,
+                                    dev, tag=FLEET_TAG)
+            return u.reshape(T, -1).masked_fill_(pad, _ALIGN_FILL).reshape(
+                (T,) + rest)
 
         completion, machine = spec.draw(draw, view, r_task, choice_task, p,
                                         max_r=max_r, oracle=oracle)
@@ -178,7 +188,7 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
                        fused: bool = True, budget=None,
                        device=None) -> RunOutput:
     """Fleet mirror of `sim.runner.run_strategy`, on `device` (default the
-    card); `source` hands out the uniforms (`sim.draws`, `uniform_cell`).
+    card); `source` hands out the uniforms (`sim.draws`, `uniform_rows`).
 
     jobs: a JobSet or a WorkloadTrace (chunked column-wise).
     mesh: None or the 1 x 1 mesh of `fleet_mesh`.
@@ -279,7 +289,7 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
                 c_task = rows(choice_j, 0, np.int32)
         jc, jm = obs_trace.fenced(
             f"fleet.exec[{strategy}]", _exec_blocks, source, strategy,
-            rep_ids, bv, r_task, c_task, p, max_r, oracle, Tb)
+            rep_ids, bv, r_task, c_task, p, max_r, oracle)
         with obs_trace.span("fleet.reduce", chunk=ci, n_jobs=Jc):
             acc.add(_chunk_result(jc, jm, ccols.D, ccols.C, reps, Jc, B),
                     n_jobs=Jc)

@@ -97,6 +97,33 @@ def class_summary(jobs: JobSet, result: SimResult) -> dict:
     return out
 
 
+def request_result(reqs, completion, machine) -> SimResult:
+    """SimResult from per-request serving columns (`repro_torch.serve`).
+
+    A request is a 1-task job, so its completion is the job's completion
+    and its machine time, priced by C, the job's cost: the schema of
+    `aggregate`, so StreamCombiner takes serving epochs as it takes
+    chunks. The columns stay on `completion`'s device; `reqs.D` and
+    `reqs.C` may be numpy or tensors."""
+    dev = completion.device
+    col = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    met = completion <= col(reqs.D)
+    cost = machine * col(reqs.C)
+    return SimResult(pocd=_mean(met.to(torch.float32)), job_met=met,
+                     job_completion=completion, job_cost=cost,
+                     mean_cost=_mean(cost))
+
+
+def latency_summary(result: SimResult) -> dict:
+    """Latency percentiles of a result's completion column, on the host
+    in float64 numpy: {"p50", "p95", "p99", "mean"}."""
+    lat = to_host(result.job_completion).astype(np.float64)
+    return {"p50": float(np.percentile(lat, 50)),
+            "p95": float(np.percentile(lat, 95)),
+            "p99": float(np.percentile(lat, 99)),
+            "mean": float(lat.mean())}
+
+
 def net_utility(pocd, mean_cost, r_min, theta):
     """The paper's evaluation utility on empirical quantities (Fig 2c/3c);
     `r_min` and `theta` enter as f32, as in the reference."""

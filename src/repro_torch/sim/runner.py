@@ -154,7 +154,7 @@ def run_all(source, jobs, p: SimParams, theta=1e-4, strategies=None,
 
     `devices=`, `mesh=` or `chunk_jobs=` route to the fleet layer
     (`repro_torch.fleet.run_all_fleet`): draws keyed by (replication,
-    global block of `block_jobs` jobs) through `source.uniform_cell`, the
+    global block of `block_jobs` jobs) through `source.uniform_rows`, the
     trace streamed in chunks, a scenario name kept column-wise. The port
     runs on one card: `devices` above 1 or a mesh above 1 x 1 raises.
     Without them this path is unchanged.

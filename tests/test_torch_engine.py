@@ -184,6 +184,9 @@ def test_serving_imports_neither_jax_nor_the_reference():
         "import sys\n"
         "import repro_torch.serve, repro_torch.models\n"
         "import repro_torch.models.inputs, repro_torch.convert\n"
+        "import repro_torch.serve.loop, repro_torch.serve.scheduler\n"
+        "import repro_torch.serve.requests, repro_torch.obs.tail\n"
+        "import repro_torch.runtime.telemetry\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")

@@ -46,7 +46,7 @@ from repro_torch.fleet import blocks, fleet_mesh, pad_count
 from repro_torch.fleet import run_all_fleet, run_cluster_fleet_strategy
 from repro_torch.fleet import runner as fleet_runner
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.sim.draws import DRAW_NAMES
+from repro_torch.sim.draws import DRAW_NAMES, FLEET_TAG, NO_BLOCK
 from repro_torch.sim.metrics import SimResult, StreamCombiner, segment_sum
 from test_torch_sim import JaxReplay, deadline_ties
 
@@ -61,7 +61,18 @@ class JaxFleetReplay(JaxReplay):
     """Replays the reference fleet's draws: a cell's key is
     fold_in(fold_in(strategy_key, rep), block) (fleet/runner.py), or
     fold_in(strategy_key, rep) for the capacity fleet (fleet/cluster.py),
-    then each sim's own split for "k1"/"k2"."""
+    then each sim's own split for "k1"/"k2".
+
+    The reference draws a block's cell at (Tb, ...), and a jax.random
+    draw's values depend on its shape, so `uniform_rows` needs the run's
+    Tb: it draws each block's (Tb, ...) cell and gathers the asked rows
+    from it (rows past Tb are the view's alignment rows, which the runner
+    overwrites: they read row Tb - 1). The capacity fleet's cell
+    (NO_BLOCK) is drawn at (rows.max() + 1, ...), the window's tasks."""
+
+    def __init__(self, key, reps: int = 1, Tb=None):
+        super().__init__(key, reps)
+        self.Tb = Tb
 
     def cell_key(self, strategy, rep, block, name):
         k = jax.random.fold_in(
@@ -72,10 +83,32 @@ class JaxFleetReplay(JaxReplay):
             k = jax.random.split(k)[DRAW_NAMES.index(name) - 1]
         return k
 
-    def uniform_cell(self, strategy, rep, block, name, shape, device):
-        u = jax.random.uniform(self.cell_key(strategy, rep, block, name),
-                               tuple(shape), minval=1e-7, maxval=1.0)
-        return torch.from_numpy(np.array(u)).to(device)
+    def uniform_rows(self, strategy, rep, name, cells, rows, rest, device,
+                     tag=FLEET_TAG):
+        assert tag == FLEET_TAG
+        host = lambda x: (x.cpu().numpy() if isinstance(x, torch.Tensor)
+                          else np.int64(x))
+        cells, rows = np.broadcast_arrays(host(cells), host(rows))
+        out = np.empty((cells.shape[0],) + tuple(rest), np.float32)
+        for c in np.unique(cells):
+            at = cells == c
+            if c == NO_BLOCK:
+                n = int(rows[at].max()) + 1
+                block = None
+            else:
+                n = self.Tb
+                block = int(c)
+            u = np.array(jax.random.uniform(
+                self.cell_key(strategy, rep, block, name), (n,) + tuple(rest),
+                minval=1e-7, maxval=1.0))
+            out[at] = u[np.minimum(rows[at], n - 1)]
+        return torch.from_numpy(out).to(device)
+
+
+def tb_of(jobs, block_jobs):
+    """The fleet's one block width: the largest block's task count."""
+    return int(blocks.block_task_counts(
+        fleet_runner.job_columns(jobs).n_tasks, block_jobs).max())
 
 
 def port_jobs(ref):
@@ -106,8 +139,8 @@ def flat_runs(paper40):
     ref_jobs, jobs = paper40
     want, ref_r_min = ref_run_all_fleet(KEY, ref_jobs, REF_P, reps=2,
                                         block_jobs=8)
-    got, r_min = run_all_fleet(JaxFleetReplay(KEY), jobs, P, reps=2,
-                               block_jobs=8, device="cpu")
+    got, r_min = run_all_fleet(JaxFleetReplay(KEY, Tb=tb_of(jobs, 8)), jobs,
+                               P, reps=2, block_jobs=8, device="cpu")
     return want, ref_r_min, got, r_min
 
 
@@ -460,7 +493,9 @@ def test_run_all_routes_to_the_fleet(small_jobs, mono):
 def test_flat_fleet_budget_is_one_global_solve(small_jobs):
     """budget= solves once over every job, so chunked equals monolithic
     and r* equals a monolithic run_all_fleet's."""
-    B = 3e5     # between the least spend (268,419) and the unbudgeted
+    # between the least spend with finite U (312,285 at this run's R_min,
+    # 0.0657) and the unbudgeted spend (342,922)
+    B = 3.25e5
     kw = dict(reps=1, block_jobs=4, strategies=("hadoop_ns", "clone"),
               budget=B, device="cpu")
     a, _ = run_all_fleet(Philox(0), small_jobs, P, **kw)
@@ -603,7 +638,10 @@ def test_scenario_name_streams_column_wise():
 
 def test_fleet_draws_are_keyed_by_cell():
     """Philox cells are pure functions of (seed, strategy, rep, block,
-    name, shape), and no fleet stream is a flat one."""
+    name), and no fleet stream is a flat one. The batched method draws a
+    block's rows as its cell does, whichever rows, and in whatever order
+    and company, it is asked for: a chunked run draws every task row
+    what the monolithic run draws there."""
     src = Philox(3)
     a = src.uniform_cell("clone", 1, 5, "key", (64, 9), "cpu")
     assert torch.equal(a, Philox(3).uniform_cell("clone", 1, 5, "key",
@@ -615,6 +653,43 @@ def test_fleet_draws_are_keyed_by_cell():
     assert not torch.equal(a[:, 0], src.uniform("clone", 1, "key", (64,),
                                                 "cpu"))
     assert float(a.min()) >= 1e-7 and float(a.max()) < 1.0
+    b = src.uniform_cell("clone", 1, 6, "key", (40, 9), "cpu")
+    cells = torch.tensor([6, 5, 5, 6, 5, 6])
+    rows = torch.tensor([39, 0, 63, 2, 17, 0])
+    mixed = src.uniform_rows("clone", 1, "key", cells, rows, (9,), "cpu")
+    want = torch.stack([(a if c == 5 else b)[r] for c, r in
+                        zip(cells.tolist(), rows.tolist())])
+    assert torch.equal(mixed, want)
+    assert torch.equal(a[:, :4], src.uniform_cell("clone", 1, 5, "key",
+                                                  (64, 4), "cpu"))
+
+    class Recording:
+        """Philox, recording each drawn row by (name, cell, row)."""
+
+        def __init__(self):
+            self.rows = {}
+
+        def uniform_rows(self, strategy, rep, name, cells, rows, rest,
+                         device, tag=FLEET_TAG):
+            u = src.uniform_rows(strategy, rep, name, cells, rows, rest,
+                                 device, tag=tag)
+            for c, r, x in zip(cells.tolist(), rows.tolist(),
+                               u.reshape(len(u), -1)):
+                self.rows[(rep, name, c, r)] = x
+            return u
+
+    jobs = generate(30, seed=4, device="cpu")
+    mono, chunked = Recording(), Recording()
+    kw = dict(reps=2, block_jobs=4, device="cpu")
+    fleet_runner.run_fleet_strategy(mono, jobs, "sresume", P, **kw)
+    fleet_runner.run_fleet_strategy(chunked, jobs, "sresume", P,
+                                    chunk_jobs=8, **kw)
+    # the real task rows: row < the block's task count (4 jobs a block)
+    real = {k for k in mono.rows if k[3] < int(jobs.n_tasks[
+        4 * k[2]:4 * k[2] + 4].sum())}
+    assert real and real <= set(chunked.rows)
+    for k in real:
+        assert torch.equal(mono.rows[k], chunked.rows[k]), k
 
 
 # ---------------------------------------------------------------------------

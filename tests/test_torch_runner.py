@@ -144,8 +144,9 @@ def test_registry_order_equals_reference():
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """The package (with its workloads, coupled, obs, cluster and fleet
-    packages) and chip_smoke.py import torch and numpy only."""
+    """The package (with its workloads, coupled, obs, cluster, fleet,
+    serve and runtime packages) and chip_smoke.py import torch and numpy
+    only."""
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.convert\n"
@@ -156,6 +157,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.fleet, repro_torch.fleet.blocks\n"
         "import repro_torch.fleet.mesh, repro_torch.fleet.runner\n"
         "import repro_torch.fleet.cluster\n"
+        "import repro_torch.kernels.philox, repro_torch.sim.draws\n"
+        "import repro_torch.serve, repro_torch.serve.loop\n"
+        "import repro_torch.obs.tail, repro_torch.runtime\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
