@@ -90,7 +90,7 @@ Phases; each raises on failure, so any failure exits non-zero:
    (csrc/dispatch_scan.cu) against its plain version, whole outputs
    (starts and final pool) bit-equal, on tests/test_torch_cluster.py's
    inputs (ties in release and in free times, 20% inactive), FIFO and
-   EDF, at K = 1, 5, 37, 300, 500, 512 (the sorted pool in registers),
+   EDF, at K = 1, 5, 37, 300, 400, 500, 512 (the sorted pool in registers),
    513, 20,000 (lane-private groups in shared memory) and 100,000 (in
    device memory); the batched kernel, one launch for P = 1, 3 and 8
    segments (unequal counts, 0 and n among them) at K = 500 and 513,
@@ -180,6 +180,42 @@ Phases; each raises on failure, so any failure exits non-zero:
    fleet chunk and the monolithic fleet's task axis: kernel, call and
    plain ms, the bytes bound, torch.rand of the shape as a yardstick.
    Its JSON is also written to chiprun_out/serving.json;
+10e. fault injection, chunk checkpoints and resume (`repro_torch.chaos`)
+   on phase 10c's configuration, each run with every count set to 0 just
+   before and read just after: (a) run_all(chunk_jobs=8192) over the
+   100,000 paper-hadoop jobs under a plan of two injected failures of
+   chunk 1, a corruption of chunk 4's payload and a loss of 2 devices at
+   chunk 2, and under EMPTY_PLAN: phase 10c's chunked bits for all ten
+   strategies; grid-solve launches 10c's, draw launches 10c's plus chunk
+   4's once more a strategy (printed beside the prediction); every
+   strategy's audit log (2 retries, 'ignored: single-device run', corrupt
+   and its retry); the integrity checks counted (EMPTY_PLAN: none finds
+   NaN) and timed, and warm walls with and without EMPTY_PLAN in turns;
+   (b) the same run with a crash after chunk 6 and checkpoint= in a child
+   process that imports repro_torch only: it must end in
+   SimulatedCrash(6) with step 7 committed; resumed here, through one
+   more crash a strategy, to 10c's bits, with the child's and the
+   parent's grid-solve and draw launches summing to one run's; saves and
+   resumes timed, bytes on disk, warm walls with the checkpointer; (c)
+   pod-loss-flash-crowd at 100,000 jobs through run_fleet_strategy for
+   every optimized strategy under its own plan and
+   ElasticGovernor(base_devices=8): the cost scales, each chunk's r*
+   against the plain grids' argmax at the scaled C (near-ties within
+   phase 2's U tolerance counted), the jobs the price moved; run_all by
+   the scenario's name (600 jobs, chunks of 64) gives every strategy the
+   scenario's plan; (d) the capacity fleet (500 slots, 4 windows x 8
+   replications): EMPTY_PLAN equal to 10c's windowed run, queue metrics
+   included, one dispatch launch a pass for each window; slot_change -100
+   at window 2 checked launch by launch (each launch's pool read from the
+   kernel's free tensor: 500, 500, 400, 400; start >= release, at most
+   the pool in service) with sresume's first 400-slot launch held bit
+   for bit against the plain version on the CPU, and with a crash after
+   window 1 resumed to the faulted run's bits and per-window pools.
+   Dispatch launches and kernel ms beside 10c's. Its JSON is also written to chiprun_out/chaos.json;
+10f. the facade: simulate(Philox(0), jobs, p, cfg=RunConfig(...),
+   device=cuda) against an earlier phase's own run, bit for bit, on each
+   route: flat (phase 3's reps 8), flat fleet (10c's chunked), capacity
+   (10b's 500 slots), serve (10d's known tail) and chaos (10e's plan);
 11. the quickstart path (examples/quickstart.py step for step, through the
    port, on the card): JobSpec.make, the closed forms at r = 0..3,
    solve_grid and solve_algorithm1 (equal r*), gamma, the Theorem 7
@@ -250,7 +286,8 @@ Phases; each raises on failure, so any failure exits non-zero:
    the warm generate; then one prefill and the 32 decode steps profiled
    apart.
 
-The last lines are the serving JSON (phase 10d), the fleet JSON (phase
+The last lines are the chaos JSON (phases 10e and 10f), the serving
+JSON (phase 10d), the fleet JSON (phase
 10c), the cluster JSON (phase 10b), the scenarios JSON (phases 6-10),
 the kernels JSON, the card line and the result JSON.
 The script needs one CUDA card and exits non-zero without one.
@@ -263,8 +300,10 @@ import importlib.util
 import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -277,6 +316,12 @@ import torch  # noqa: E402
 
 from repro_torch import Philox, SimParams, generate, names, run_all  # noqa: E402
 from repro_torch import run_strategy  # noqa: E402
+from repro_torch import RunConfig, ckpt, simulate  # noqa: E402
+from repro_torch.chaos import (EMPTY_PLAN, ChaosContext,  # noqa: E402
+                               ElasticGovernor, FaultEvent, FaultPlan,
+                               SimulatedCrash, from_faults)
+from repro_torch.chaos import inject as chaos_inject  # noqa: E402
+from repro_torch.chaos import recovery as chaos_recovery  # noqa: E402
 from repro_torch.core import (JobSpec, cost_of, gamma, pocd_of,  # noqa: E402
                               solve_algorithm1, solve_grid, theory, utility)
 from repro_torch import obs  # noqa: E402
@@ -431,11 +476,12 @@ SLACK_EXEMPT = ("clone_prop",)
 # the capacity replay: the paper trace on a pool of 500 slots (a loaded
 # pool, not a drowned one: phase 10b prints the offered primary load over
 # 3600 s windows), a sweep of pool sizes, the kernel's
-# test cases (K 20,000 keeps the pool in shared memory, 100,000 puts it in
+# test cases (K 400 is the fleet's pool after phase 10e's slot change;
+# 20,000 keeps the pool in shared memory, 100,000 puts it in
 # device memory) and the rows of the full-size prefix check
 CLUSTER_SLOTS = 500
 CLUSTER_SWEEP = (250, 500, 1000, 2000, None)
-DISPATCH_KS = (1, 5, 37, 300, 500, 512, 513, 20_000, 100_000)
+DISPATCH_KS = (1, 5, 37, 300, 400, 500, 512, 513, 20_000, 100_000)
 PREFIX_ROWS = 100_000
 # the batched launch: segments a launch and pools (both designs); the
 # replications of the reps-8 runs and of the stacked clone check
@@ -474,6 +520,22 @@ PHILOX_KAT = (
     ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
      (0xA4093822, 0x299F31D0),
      (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)))
+# chaos at the fleet's scale (phase 10e), on phase 10c's configuration:
+# faults that change nothing (two injected failures of chunk 1, a
+# corruption of chunk 4's payload, a loss of 2 devices at chunk 2), a
+# crash after chunk 6 in a child process, the elastic-recovery scenario
+# re-priced against 8 devices, and the windowed capacity fleet with the
+# pool 100 slots smaller from window 2 and a crash after window 1
+CHAOS_FAULTS = (("chunk_fail", 1, 2), ("corrupt", 4, 1),
+                ("device_loss", 2, 2))
+CHAOS_CRASH = 6
+CHAOS_SCENARIO = "pod-loss-flash-crowd"
+CHAOS_BASE_DEVICES = 8
+# the scenario by name at its registry size (600 jobs): chunks of 64 jobs
+# put its events (chunks 2, 3 and 5) inside the run
+CHAOS_SCENARIO_CHUNK = 64
+CHAOS_WINDOW_FAULTS = (("slot_change", 2, -100),)
+CHAOS_WINDOW_CRASH = 1
 # hedged online serving (phase 10d): request-storm at its registry size
 # (20,000 requests), all ten strategies, windows of 256; the online regime
 # at examples/serve_requests.py's defaults; window 1024 and the slice
@@ -1738,7 +1800,7 @@ def phase_cluster(dev, p: SimParams, budget_B: float):
     # 7. the times come last in the script (cluster_times): a profiler
     # session this large can cost the next session its first records
     n_steps = sum(sum(v) for v in steps.values())
-    return out, dict(jobs=jobs, warm_wall_s=runs[1][2], big=big,
+    return out, dict(jobs=jobs, outs=outs, warm_wall_s=runs[1][2], big=big,
                      reps8_warm_wall_s=out["reps8"]["wall_s"][1],
                      n_steps=n_steps, steps=steps,
                      n_rows=sum(sum(v) for v in rows.values()))
@@ -1810,40 +1872,58 @@ def fleet_same_bits(a: dict, b: dict, what: str) -> None:
 
 class ReplayCheck:
     """Wraps `cluster.engine._replay` while a capacity fleet run calls
-    it: every segment's starts at or after its releases, at most `slots`
-    units in service at once, utilization in [0, 1]; records each
-    launch group's segments and its steps (the largest segment's active
-    units, pass 1 and pass 2). In launch group `hold_group` it keeps, for
-    the segment of the window with the fewest tasks (padded with
-    inactive units to the longest) and the one with the most, each
-    pass's dispatch-ordered inputs, pools before and after, and the
-    starts as the path's own launch gave them (`held`)."""
+    it: every launch's pool (the width of the `free` tensor the kernel
+    got) equal to the group's `slots` and at most the caller's `slots`,
+    every segment's starts at or after its releases, at most the
+    launch's pool in service at once, utilization in [0, 1]; records
+    each launch group's segments, its pool and its steps (the largest
+    segment's active units, pass 1 and pass 2). In launch group
+    `hold_group` it keeps, for the segment of the window with the fewest
+    tasks (padded with inactive units to the longest) and the one with
+    the most (the first and the last where all have as many, as the
+    replications of one window do), each pass's dispatch-ordered inputs,
+    pools before and after, and the starts as the path's own launch gave
+    them (`held`)."""
 
     def __init__(self, slots: int, hold_group=None):
         self.slots, self.inner = slots, cluster_engine._replay
-        self.groups, self.steps, self.max_busy = [], [0, 0], 0
+        self.groups, self.pools, self.steps = [], [], [0, 0]
+        self.max_busy = 0
         self.hold_group, self.held, self.held_rows = hold_group, [], None
 
     def __call__(self, segments, race, slots, discipline, passes):
         launch = ds.dispatch_scan_batched_cuda
-        if len(self.groups) == self.hold_group:
+        held = len(self.groups) == self.hold_group
+        if held:
             tasks = [j.total_tasks for _, j in segments]
             rows = [int(np.argmin(tasks)), int(np.argmax(tasks))]
+            if rows[0] == rows[1]:
+                rows = [0, len(segments) - 1]
             self.held_rows = [(r, tasks[r]) for r in rows]
+        widths = []
 
-            def keep(release, hold, count, free):
-                free0 = free.clone()
-                start = launch(release, hold, count, free)
-                self.held.append(tuple(x[rows] for x in (
-                    release, hold, count, free0, start, free)))
-                return start
+        def keep(release, hold, count, free):
+            widths.append(int(free.shape[1]))
+            if not held:
+                return launch(release, hold, count, free)
+            free0 = free.clone()
+            start = launch(release, hold, count, free)
+            self.held.append(tuple(x[rows] for x in (
+                release, hold, count, free0, start, free)))
+            return start
 
-            ds.dispatch_scan_batched_cuda = keep
+        ds.dispatch_scan_batched_cuda = keep
         try:
             out = self.inner(segments, race, slots, discipline, passes)
         finally:
             ds.dispatch_scan_batched_cuda = launch
+        if len(widths) != passes or set(widths) != {slots} or \
+                slots > self.slots:
+            raise AssertionError(f"fleet replay: {passes} passes on {slots} "
+                                 f"slots launched with pools {widths} "
+                                 f"(caller's {self.slots})")
         self.groups.append(len(segments))
+        self.pools.append(widths[0])
         prim = [int(primary_slice(t.active & t.is_primary,
                                   j.total_tasks).sum())
                 for t, j in segments]
@@ -1857,9 +1937,10 @@ class ReplayCheck:
             busy = max_in_service(st, predicted_holds(t, race,
                                                       j.total_tasks), act)
             util = float(realized.busy_time / (slots * realized.span))
-            if busy > self.slots or not 0.0 <= util <= 1.0 + 1e-6:
+            if busy > widths[0] or not 0.0 <= util <= 1.0 + 1e-6:
                 raise AssertionError(f"fleet replay: {busy} units in "
-                                     f"service, utilization {util}")
+                                     f"service on {widths[0]} slots, "
+                                     f"utilization {util}")
             self.max_busy = max(self.max_busy, busy)
         return out
 
@@ -1868,14 +1949,19 @@ def held_vs_plain(held) -> dict:
     """Each held launch's rows (ReplayCheck.held, one entry a pass)
     against the batched plain version on the CPU over the same inputs:
     starts over every row and final pools bit-equal. Returns the rows,
-    steps and the plain version's seconds."""
-    t0, shape, steps = time.perf_counter(), [], []
+    the pool the launch got, steps, the largest |start - plain start|
+    (0 where both are equal, inactive rows' +inf included) and the plain
+    version's seconds."""
+    t0, shape, steps, err = time.perf_counter(), [], [], 0.0
     for k, (rel, hold, count, free0, start, free) in enumerate(held):
         pool = free0.cpu()
         want = ds.dispatch_scan_batched_plain(rel.cpu(), hold.cpu(),
                                               count.cpu(), pool)
-        if not torch.equal(start.cpu(), want):
-            bad = int((start.cpu() != want).sum())
+        got = start.cpu()
+        diff = torch.where(got == want, 0.0, (got - want).abs())
+        err = max(err, float(diff.max()))
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
             raise AssertionError(f"fleet dispatch pass {k + 1}: {bad} "
                                  f"starts differ from the plain version")
         if not torch.equal(free.cpu(), pool):
@@ -1883,8 +1969,8 @@ def held_vs_plain(held) -> dict:
                                  f"pools differ from the plain version")
         shape.append(int(rel.shape[1]))
         steps.append(count.tolist())
-    return dict(rows=shape, steps=steps,
-                plain_s=time.perf_counter() - t0)
+    return dict(rows=shape, pool=int(held[0][3].shape[1]), steps=steps,
+                max_abs_err=err, plain_s=time.perf_counter() - t0)
 
 
 def fleet_cluster_run(dev, jobs, p, cap: int = cluster_engine.MAX_SEGMENTS,
@@ -1924,8 +2010,9 @@ def pocd_se(met: torch.Tensor, reps: int) -> float:
     return float(torch.sqrt((m * (1 - m)).sum() / (reps - 1))) / m.numel()
 
 
-def phase_fleet(dev, p: SimParams) -> dict:
-    """The fleet layer on the card (phase 10c)."""
+def phase_fleet(dev, p: SimParams):
+    """The fleet layer on the card (phase 10c): (its JSON, the runs that
+    phases 10e and 10f are held against)."""
     out = {}
     # 1. the flat fleet streamed over 100,000 paper-hadoop jobs
     t_flat = time.perf_counter()
@@ -2012,6 +2099,11 @@ def phase_fleet(dev, p: SimParams) -> dict:
         draws=draws, profile_sresume_chunked=prof,
         grid_solve_vs_plain=grid_err,
         pocd={n: float(o.result.pocd) for n, o in chunked[0].items()})
+    # what phases 10e and 10f hold their runs against
+    state = dict(trace=tr, chunked=(chunked[0], chunked[1]),
+                 n_chunks=n_chunks,
+                 chunked_launches=(chunked[3], chunked[7]),
+                 chunked_warm_s=runs["chunked"][1][2])
     del runs, mono, chunked
 
     # 2. the flat fleet against run_all on the paper trace at reps 8
@@ -2140,7 +2232,11 @@ def phase_fleet(dev, p: SimParams) -> dict:
                                utilization=float(o.queue.utilization),
                                mean_wait=float(o.queue.mean_wait))
                       for n_, o in first[0].items()})
-    return out
+    state.update(jobs=jobs, windowed=(first[0], first[1]),
+                 windowed_launches=first[3], windowed_kernel_ms=kernel_ms,
+                 windowed_kernel_ms_per_window=kernel_ms_w,
+                 windowed_warm_s=warm[2])
+    return out, state
 
 
 def phase_philox_check(dev) -> dict:
@@ -2329,8 +2425,9 @@ def serve_vs_cpu(dev, reqs, p, r_min: float) -> dict:
     return dict(requests=n, max_rel_err=worst, deadline_ties=ties)
 
 
-def phase_serving(dev, p: SimParams) -> dict:
-    """Hedged online serving on the card (phase 10d)."""
+def phase_serving(dev, p: SimParams):
+    """Hedged online serving on the card (phase 10d): (its JSON, the
+    known-tail run that phase 10f is held against)."""
     t_phase = time.perf_counter()
     reqs, synth_s = synced(lambda: make_requests(SERVING["scenario"],
                                                  device=dev))
@@ -2380,6 +2477,7 @@ def phase_serving(dev, p: SimParams) -> dict:
         if first["philox"] == 0:
             raise AssertionError(f"serve {regime}: no philox_rows launch")
         if regime == "known_tail":
+            state = dict(reqs=reqs, known_tail=outs)
             lo, hi = SERVING["slice"]
             part = {name: serve_trace(
                 Philox(0), reqs.slice(lo, hi), p, strategy=name,
@@ -2430,6 +2528,498 @@ def phase_serving(dev, p: SimParams) -> dict:
     out["vs_cpu"] = check
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  serving phase: {out['phase_s']:.1f} s")
+    return out, state
+
+
+class Recorded:
+    """Inside the block, every ChaosContext a run builds (one a strategy,
+    in run_all_fleet and run_cluster_fleet) is kept in `contexts`, and
+    built with backoff 0: the retries' sleeps are a policy, not the
+    path's cost."""
+
+    def __enter__(self):
+        self.inner, self.contexts = chaos_inject.ChaosContext, []
+        outer = self
+
+        class Kept(self.inner):
+            def __init__(self, plan, **kw):
+                kw.setdefault("backoff_base", 0.0)
+                super().__init__(plan, **kw)
+                outer.contexts.append(self)
+
+        chaos_inject.ChaosContext = Kept
+        return self
+
+    def __exit__(self, *exc):
+        chaos_inject.ChaosContext = self.inner
+
+
+class Counted:
+    """Inside the block, calls of `module.name` are counted and timed on
+    the host (`calls`, `seconds`), and `found` counts true results."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        self.inner = getattr(self.module, self.name)
+        self.calls, self.found, self.seconds = 0, 0, 0.0
+
+        def counted(*a, **k):
+            t0 = time.perf_counter()
+            out = self.inner(*a, **k)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.found += out is True
+            return out
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def chaos_run(dev, jobs, p, runner=run_all, **kw):
+    """One run on the card under `Recorded` and the integrity check's
+    `Counted`, with the grid-solve, draw and dispatch counts set to 0
+    just before and read just after: (outs, r_min, wall s, (grid_solve,
+    philox_rows, dispatch_scan) launches, contexts, checks, dispatch
+    kernel ms by CUDA events)."""
+    gs.launches = ph.launches = ds.launches = 0
+    with Recorded() as rec, Counted(chaos_inject, "_has_nan") as chk, \
+            LaunchTimes() as lt:
+        (outs, r_min), wall = synced(lambda: runner(
+            Philox(0), jobs, p, theta=THETA, device=dev, **kw))
+    return (outs, r_min, wall, (gs.launches, ph.launches, ds.launches),
+            rec.contexts, chk, sum(lt.ms()))
+
+
+def check_records(contexts, want: list, what: str) -> None:
+    """Every strategy's audit log, as (chunk, kind, detail) with the
+    detail cut at its first space, equals `want`."""
+    for ctx in contexts:
+        got = [(c, k, d.split(" ")[0]) for c, k, d in ctx.records]
+        if got != want:
+            raise AssertionError(f"{what}: records {ctx.records}, expected "
+                                 f"{want}")
+
+
+def resume_until_done(call, limit: int):
+    """call() again while it ends in SimulatedCrash, as an operator's
+    restart loop: (its result, the chunks of the crashes, host s)."""
+    crashes, t0 = [], time.perf_counter()
+    while True:
+        try:
+            out = call()
+            break
+        except SimulatedCrash as err:
+            crashes.append(err.chunk)
+        if len(crashes) > limit:
+            raise AssertionError(f"{len(crashes)} crashes: no progress")
+    torch.cuda.synchronize()
+    return out, crashes, time.perf_counter() - t0
+
+
+CHAOS_CHILD = r"""
+import json, sys, time
+import torch
+from repro_torch import Philox, SimParams, run_all
+from repro_torch.chaos import FaultEvent, FaultPlan, SimulatedCrash
+from repro_torch.kernels import grid_solve as gs, philox as ph
+from repro_torch.workloads import make_trace
+a = json.loads(sys.argv[1])
+tr = make_trace("paper-hadoop", n_jobs=a["jobs"], device="cuda")
+plan = FaultPlan(events=(FaultEvent("crash", a["crash"]),))
+gs.launches = ph.launches = 0
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+try:
+    run_all(Philox(0), tr, SimParams(), theta=a["theta"],
+            block_jobs=a["block"], chunk_jobs=a["chunk"], chaos=plan,
+            checkpoint=a["dir"], device="cuda")
+    outcome = ["finished", None]
+except SimulatedCrash as err:
+    outcome = ["crash", err.chunk]
+torch.cuda.synchronize()
+print(json.dumps(dict(
+    outcome=outcome, wall_s=time.perf_counter() - t0, grid=gs.launches,
+    philox=ph.launches,
+    foreign=sorted({"jax", "repro"} & set(sys.modules)))))
+"""
+
+
+def chaos_child(directory: str) -> dict:
+    """The crash run (phase 10e b) in a fresh Python process that imports
+    repro_torch only: its JSON line, plus the process's wall."""
+    args = json.dumps(dict(jobs=FLEET_JOBS, crash=CHAOS_CRASH, theta=THETA,
+                           block=FLEET_BLOCK, chunk=FLEET_CHUNK,
+                           dir=directory))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", CHAOS_CHILD, args], capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if res.returncode != 0:
+        raise AssertionError(f"chaos child exited {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def dir_bytes(directory) -> int:
+    return sum(f.stat().st_size for f in Path(directory).rglob("*")
+               if f.is_file())
+
+
+def phase_chaos(dev, p: SimParams, st: dict) -> dict:
+    """Fault injection, checkpoints and resume on the card (phase 10e);
+    the JSON keeps (a)'s outputs under "faulted" for phase 10f."""
+    t_phase = time.perf_counter()
+    tr, (want, r_want) = st["trace"], st["chunked"]
+    n_chunks = st["n_chunks"]
+    g_want, d_want = st["chunked_launches"]
+    kw = dict(block_jobs=FLEET_BLOCK, chunk_jobs=FLEET_CHUNK)
+    out = {}
+
+    # (a) faults that change nothing
+    plan = FaultPlan(events=tuple(FaultEvent(*e) for e in CHAOS_FAULTS))
+    per_chunk = d_want // n_chunks
+    predicted = (g_want, d_want + per_chunk)
+    faulted = chaos_run(dev, tr, p, chaos=plan, **kw)
+    fleet_same_bits(faulted[0], want, "chaos (a) vs phase 10c chunked")
+    if faulted[1] != r_want:
+        raise AssertionError(f"chaos (a): r_min {faulted[1]} != {r_want}")
+    if faulted[3][:2] != predicted:
+        raise AssertionError(f"chaos (a): (grid_solve, philox_rows) "
+                             f"launches {faulted[3][:2]}, predicted "
+                             f"{predicted}")
+    check_records(faulted[4], [
+        (1, "retry", "attempt=1"), (1, "retry", "attempt=2"),
+        (2, "device_loss", "ignored:"), (4, "corrupt", "attempt=0"),
+        (4, "retry", "attempt=1")], "chaos (a)")
+    n_s = len(faulted[4])
+    chk = faulted[5]
+    if (chk.calls, chk.found) != ((n_chunks + 1) * n_s, n_s):
+        raise AssertionError(f"chaos (a): {chk.calls} integrity checks, "
+                             f"{chk.found} with NaN")
+    empty = chaos_run(dev, tr, p, chaos=EMPTY_PLAN, **kw)
+    fleet_same_bits(empty[0], want, "chaos EMPTY_PLAN vs phase 10c chunked")
+    echk = empty[5]
+    if (echk.calls, echk.found) != (n_chunks * n_s, 0) or any(
+            c.records for c in empty[4]) or empty[3][:2] != (g_want,
+                                                             d_want):
+        raise AssertionError(f"chaos EMPTY_PLAN: {echk.calls} checks, "
+                             f"{echk.found} NaN, launches {empty[3]}")
+    walls = {"plain": [], "empty_plan": []}
+    for label in ("plain", "empty_plan", "empty_plan", "plain"):
+        extra = dict(chaos=EMPTY_PLAN) if label == "empty_plan" else {}
+        walls[label].append(chaos_run(dev, tr, p, **extra, **kw)[2])
+    print(f"chaos (a): run_all(chunk_jobs={FLEET_CHUNK}) over {FLEET_JOBS} "
+          f"paper-hadoop jobs, {n_s} strategies, plan {plan.fingerprint()}:"
+          f" phase 10c's chunked bits for every strategy, r_min equal; "
+          f"(grid_solve, philox_rows) launches {faulted[3][:2]}, predicted "
+          f"{predicted} (10c's {g_want}, {d_want} plus chunk 4's "
+          f"{per_chunk} draws again); each strategy's records: 2 retries "
+          f"at chunk 1, 'ignored: single-device run' at 2, corrupt and 1 "
+          f"retry at 4; {chk.calls} integrity checks, {chk.found} found "
+          f"the poison. EMPTY_PLAN: the same bits, {echk.calls} checks, "
+          f"none found NaN, {1e3 * echk.seconds / echk.calls:.3f} ms a "
+          f"check on the host; warm walls plain {walls['plain']} s, "
+          f"EMPTY_PLAN {walls['empty_plan']} s; faulted run "
+          f"{faulted[2]:.3f} s (backoff 0)")
+    out["faults"] = dict(
+        plan=plan.fingerprint(), launches=list(faulted[3][:2]),
+        predicted=list(predicted), chunked_launches=[g_want, d_want],
+        records=[list(r) for r in faulted[4][0].records],
+        checks=chk.calls, poison_found=chk.found,
+        empty_plan_checks=echk.calls,
+        check_ms=1e3 * echk.seconds / echk.calls,
+        walls_s=dict(walls, faulted=faulted[2], empty_first=empty[2]))
+
+    # (b) a crash in a child process, resumed here
+    put = Counted(chaos_recovery.ChunkCheckpointer, "save")
+    crash_plan = FaultPlan(events=(FaultEvent("crash", CHAOS_CRASH),))
+    with tempfile.TemporaryDirectory() as d:
+        child = chaos_child(d)
+        step = ckpt.latest_step(Path(d) / "hadoop_ns")
+        if child["outcome"] != ["crash", CHAOS_CRASH] or \
+                step != CHAOS_CRASH + 1 or child["foreign"]:
+            raise AssertionError(f"chaos child: {child}, committed step "
+                                 f"{step}")
+        gs.launches = ph.launches = 0
+        with Counted(fleet_runner, "resume_point") as rp, Counted(
+                chaos_recovery.ChunkCheckpointer, "load") as ld, put:
+            (res, r_res), crashes, resume_s = resume_until_done(
+                lambda: run_all(Philox(0), tr, p, theta=THETA,
+                                chaos=crash_plan, checkpoint=d, resume=True,
+                                device=dev, **kw), len(names()))
+        parent = (gs.launches, ph.launches)
+        written = dir_bytes(d)
+    fleet_same_bits(res, want, "chaos resumed vs phase 10c chunked")
+    total = (child["grid"] + parent[0], child["philox"] + parent[1])
+    if r_res != r_want or total != (g_want, d_want) or \
+            crashes != [CHAOS_CRASH] * (len(names()) - 1):
+        raise AssertionError(f"chaos resume: r_min {r_res}, launches child "
+                             f"{child['grid'], child['philox']} + parent "
+                             f"{parent} = {total}, crashes {crashes}")
+    ck_walls = []
+    for _ in range(2):
+        with tempfile.TemporaryDirectory() as d, \
+                Counted(chaos_recovery.ChunkCheckpointer, "save") as sv:
+            r = chaos_run(dev, tr, p, checkpoint=d, **kw)
+            ck_walls.append(r[2])
+            ck_bytes = dir_bytes(d)
+        fleet_same_bits(r[0], want, "checkpointed vs phase 10c chunked")
+    print(f"chaos (b): a child process (repro_torch only, "
+          f"{child['process_s']:.1f} s) ended in SimulatedCrash("
+          f"{CHAOS_CRASH}) after {child['wall_s']:.3f} s of run, step "
+          f"{step} committed; resumed here through {len(crashes)} more "
+          f"crashes (one a strategy) in {resume_s:.3f} s: phase 10c's "
+          f"bits, launches child {child['grid'], child['philox']} + parent "
+          f"{parent} = {total}, one run's; {put.calls} saves in the parent "
+          f"at {1e3 * put.seconds / put.calls:.3f} ms a chunk on the "
+          f"caller's thread, {ld.calls} resumes from a step at "
+          f"{1e3 * rp.seconds / ld.calls:.3f} ms each (load, unpack, "
+          f"fingerprint; {rp.calls} resume points); {written} bytes left on "
+          f"disk; a checkpointed run keeps {ck_bytes} bytes, "
+          f"{1e3 * sv.seconds / sv.calls:.3f} ms a save; warm walls with "
+          f"the checkpointer {ck_walls} s, without {walls['plain']} s")
+    out["crash_resume"] = dict(
+        child=child, committed_step=step, parent_launches=list(parent),
+        crashes=crashes, resume_s=resume_s, saves=put.calls,
+        save_ms=1e3 * put.seconds / put.calls, resume_points=rp.calls,
+        resumes_from_a_step=ld.calls,
+        resume_ms=1e3 * rp.seconds / ld.calls, bytes_left=written,
+        checkpointed_run_bytes=ck_bytes,
+        checkpointed_save_ms=1e3 * sv.seconds / sv.calls,
+        checkpointed_walls_s=ck_walls)
+
+    # (c) re-pricing: the elastic-recovery scenario against 8 devices
+    ptr = make_trace(CHAOS_SCENARIO, n_jobs=FLEET_JOBS, device=dev)
+    splan = from_faults(get_scenario(CHAOS_SCENARIO).faults)
+    cols = fleet_runner.job_columns(ptr)
+    gov = ElasticGovernor(base_devices=CHAOS_BASE_DEVICES)
+    scales = gov.schedule(splan, n_chunks, CHAOS_BASE_DEVICES)
+    reprice = {}
+    for name in names("optimized"):
+        ctx = ChaosContext(splan, governor=ElasticGovernor(
+            base_devices=CHAOS_BASE_DEVICES), backoff_base=0.0)
+        gs.launches = 0
+        o = run_fleet_strategy(Philox(0), ptr, name, p, theta=THETA,
+                               block_jobs=FLEET_BLOCK,
+                               chunk_jobs=FLEET_CHUNK, chaos=ctx,
+                               device=dev)
+        launches = gs.launches
+        check_records([ctx], [(2, "device_loss", "ignored:"),
+                              (3, "retry", "attempt=1"),
+                              (5, "device_loss", "ignored:")],
+                      f"chaos (c) {name}")
+        if not np.array_equal(ctx.cost_scales, scales) or \
+                launches != n_chunks:
+            raise AssertionError(f"chaos (c) {name}: scales "
+                                 f"{ctx.cost_scales}, {launches} launches")
+        ties = moved = 0
+        for ci in range(n_chunks):
+            lo, hi = ci * FLEET_CHUNK, min((ci + 1) * FLEET_CHUNK, FLEET_JOBS)
+            specs = jobspecs_of(cols.slice(lo, hi).to(dev), p, THETA, 0.0)
+            priced = fleet_runner.scale_cost(specs, float(scales[ci]))
+            plain = gs.grid_solve_plain(get(name), priced, 9)[0]
+            moved += int((gs.grid_solve_plain(get(name), specs, 9)[0]
+                          != plain).sum())
+            diff = torch.nonzero(o.r_opt[lo:hi] != plain)[:, 0]
+            if len(diff):
+                U = utility_cost_grids(get(name), priced, 9)[0][diff]
+                ua = torch.gather(U, 1, o.r_opt[lo:hi][diff, None].long())
+                ub = torch.gather(U, 1, plain[diff, None].long())
+                rtol, atol = TOL["u"]
+                if not bool(torch.isclose(ua, ub, rtol=rtol,
+                                          atol=atol).all()):
+                    raise AssertionError(f"chaos (c) {name} chunk {ci}: r* "
+                                         f"differs from the plain grids' "
+                                         f"away from a near-tie")
+                ties += len(diff)
+        reprice[name] = dict(near_ties=ties, moved_by_price=moved,
+                             sum_r=int(o.r_opt.sum()))
+    with Recorded() as rec:
+        outs_s, _ = run_all(Philox(0), CHAOS_SCENARIO, p, theta=THETA,
+                            chunk_jobs=CHAOS_SCENARIO_CHUNK, device=dev)
+    if len(rec.contexts) != len(outs_s) or any(
+            c.plan != splan for c in rec.contexts):
+        raise AssertionError("chaos (c): run_all by name did not take the "
+                             "scenario's plan")
+    check_records(rec.contexts, [(2, "device_loss", "ignored:"),
+                                 (3, "retry", "attempt=1"),
+                                 (5, "device_loss", "ignored:")],
+                  f"chaos (c) run_all({CHAOS_SCENARIO!r})")
+    print(f"chaos (c): {CHAOS_SCENARIO} at {FLEET_JOBS} jobs, plan "
+          f"{splan.fingerprint()}, ElasticGovernor(base_devices="
+          f"{CHAOS_BASE_DEVICES}): cost scales {scales.tolist()}; r* of "
+          f"every chunk equals the plain grids' argmax at the scaled C "
+          f"(near-ties within the U tolerance, jobs whose r* the price "
+          f"moved): " + ", ".join(f"{k} {v['near_ties']}/{v['moved_by_price']}"
+                                  for k, v in reprice.items())
+          + f"; run_all(Philox(0), {CHAOS_SCENARIO!r}, chunk_jobs="
+          f"{CHAOS_SCENARIO_CHUNK}) gave all {len(rec.contexts)} strategies"
+          f" the scenario's plan, records {rec.contexts[0].records}")
+    out["reprice"] = dict(scenario=CHAOS_SCENARIO, plan=splan.fingerprint(),
+                          scales=scales.tolist(), per_strategy=reprice,
+                          by_name_records=[list(r) for r in
+                                           rec.contexts[0].records])
+
+    # (d) the capacity fleet: EMPTY_PLAN, a slot change, a crash
+    jobs, (wwant, wr) = st["jobs"], st["windowed"]
+    ckw = dict(slots=CLUSTER_SLOTS, reps=REPS_BIG, chunk_jobs=FLEET_WINDOW,
+               runner=run_cluster)
+    windows = -(-jobs.n_jobs // FLEET_WINDOW)
+    wempty = chaos_run(dev, jobs, p, chaos=EMPTY_PLAN, **ckw)
+    cluster_same_bits(wempty[0], wwant, "chaos windowed EMPTY_PLAN vs 10c")
+    g_w, d_w = st["windowed_launches"]
+    if wempty[1] != wr or wempty[3][0] != g_w or \
+            wempty[3][2] != d_w * windows:
+        raise AssertionError(f"chaos windowed EMPTY_PLAN: launches "
+                             f"{wempty[3]}, r_min {wempty[1]}")
+    wplan = FaultPlan(events=tuple(FaultEvent(*e)
+                                   for e in CHAOS_WINDOW_FAULTS))
+    wcrash = FaultPlan(events=wplan.events + (
+        FaultEvent("crash", CHAOS_WINDOW_CRASH),))
+    # the faulted run checked launch by launch: every launch's pool read
+    # from the `free` tensor it got, starts >= releases, at most the pool
+    # in service; sresume's first window on the smaller pool held against
+    # the plain version
+    run_order = ["hadoop_ns"] + [n for n in names() if n != "hadoop_ns"]
+    small = CHAOS_WINDOW_FAULTS[0][1]
+    wchk = ReplayCheck(CLUSTER_SLOTS,
+                       run_order.index("sresume") * windows + small)
+    cluster_engine._replay = wchk
+    try:
+        wfault = chaos_run(dev, jobs, p, chaos=wplan, **ckw)
+    finally:
+        cluster_engine._replay = wchk.inner
+    pools = [wfault[4][0].slots_at(ci, CLUSTER_SLOTS)
+             for ci in range(windows)]
+    if (wchk.pools != pools * len(names())
+            or set(wchk.groups) != {REPS_BIG} or len(wchk.held) != 2):
+        raise AssertionError(f"chaos windowed slot_change: pools the "
+                             f"launches got {wchk.pools}, schedule {pools}, "
+                             f"segments a launch {set(wchk.groups)}, "
+                             f"{len(wchk.held)} launches held")
+    wheld = held_vs_plain(wchk.held)
+    if wheld["pool"] != pools[small]:
+        raise AssertionError(f"chaos windowed: held launch on "
+                             f"{wheld['pool']} slots, not {pools[small]}")
+    wwarm = chaos_run(dev, jobs, p, chaos=wplan, **ckw)
+    cluster_same_bits(wwarm[0], wfault[0], "chaos windowed slot_change "
+                      "twice")
+    print(f"chaos (d): slot_change -100 at window {small}: the dispatch "
+          f"launches got pools {wchk.pools[:windows]} (each strategy's "
+          f"windows, read from the kernel's free tensor; the plan's "
+          f"schedule {pools}); start >= release and at most "
+          f"{wchk.max_busy} units in service in any window; sresume's "
+          f"window {small} ({REPS_BIG} segments, rows "
+          f"{[r for r, _ in wchk.held_rows]}, {wheld['rows']} units a "
+          f"pass, steps {wheld['steps']}) on {wheld['pool']} slots: starts "
+          f"and final pools equal the plain version's on the CPU "
+          f"(max |err| {wheld['max_abs_err']}, {wheld['plain_s']:.1f} s)")
+    gs.launches = ds.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        (wres, wr_res), wcrashes, wresume_s = resume_until_done(
+            lambda: run_cluster(
+                Philox(0), jobs, p, theta=THETA, slots=CLUSTER_SLOTS,
+                reps=REPS_BIG, chunk_jobs=FLEET_WINDOW, chaos=wcrash,
+                checkpoint=d, resume=True, device=dev), len(names()))
+        slots_kept = {n_: chaos_recovery.unpack_state(ckpt.load_leaves(
+            Path(d) / n_, windows))[1]["acc_queue_slots"].tolist()
+            for n_ in names()}
+    wlaunch = (gs.launches, ds.launches)
+    cluster_same_bits(wres, wfault[0], "chaos windowed resumed vs faulted")
+    bad = {n_: v for n_, v in slots_kept.items() if v != pools}
+    if (wr_res != wfault[1] or bad or wlaunch != wfault[3][::2]
+            or wcrashes != [CHAOS_WINDOW_CRASH] * len(names())):
+        raise AssertionError(f"chaos windowed resume: r_min {wr_res}, "
+                             f"pools {bad}, launches {wlaunch}, crashes "
+                             f"{wcrashes}")
+    moved = [n_ for n_, o in wfault[0].items() if not torch.equal(
+        o.queue.utilization, wwant[n_].queue.utilization)]
+    print(f"chaos (d): run_cluster(slots={CLUSTER_SLOTS}, reps={REPS_BIG}, "
+          f"chunk_jobs={FLEET_WINDOW}) under EMPTY_PLAN: phase 10c's bits, "
+          f"queue metrics included; (grid_solve, dispatch_scan) launches "
+          f"{wempty[3][0], wempty[3][2]} (10c: {g_w, d_w}, one launch a "
+          f"window under chaos), dispatch {wempty[6]:.1f} ms (10c: "
+          f"{st['windowed_kernel_ms']:.1f} ms batched, "
+          f"{st['windowed_kernel_ms_per_window']:.1f} ms one a window); "
+          f"walls EMPTY_PLAN {wempty[2]:.3f} s (10c warm "
+          f"{st['windowed_warm_s']:.3f} s), slot_change {wwarm[2]:.3f} s "
+          f"({wfault[2]:.3f} s checked); "
+          f"pools {pools}: utilization moved for {len(moved)} strategies; "
+          f"crash after window {CHAOS_WINDOW_CRASH} in each of "
+          f"{len(wcrashes)} strategies, resumed in {wresume_s:.3f} s to "
+          f"the uninterrupted faulted run's bits, queue metrics and the "
+          f"per-window slots {pools} included")
+    for name, o in wfault[0].items():
+        print(f"    {name:10s} {queue_line(o)}")
+    out["capacity"] = dict(
+        windows=windows, pools=pools,
+        launches_empty_plan=[wempty[3][0], wempty[3][2]],
+        launches_batched=list(st["windowed_launches"]),
+        dispatch_ms_empty_plan=wempty[6],
+        dispatch_ms_batched=st["windowed_kernel_ms"],
+        dispatch_ms_one_a_window=st["windowed_kernel_ms_per_window"],
+        walls_s=dict(empty_plan=wempty[2], slot_change=wwarm[2],
+                     slot_change_checked=wfault[2],
+                     batched_warm=st["windowed_warm_s"],
+                     crash_resume=wresume_s),
+        crashes=len(wcrashes), utilization_moved=moved,
+        launch_pools=wchk.pools[:windows], max_in_service=wchk.max_busy,
+        dispatch_vs_plain=dict(wheld, strategy="sresume", window=small,
+                               segments=[r for r, _ in wchk.held_rows]))
+    out["launches"] = dict(grid_solve=faulted[3][0], philox_rows=faulted[3][1],
+                           dispatch_scan=wfault[3][2])
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["faulted"] = faulted[0]
+    print(f"  chaos phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_facade(dev, p: SimParams, st: dict) -> dict:
+    """`simulate` against the direct calls on the card (phase 10f), every
+    route held against an earlier phase's own run, bit for bit."""
+    t0 = time.perf_counter()
+    fleet = st["fleet"]
+    routes = (
+        ("flat", st["flat"][0], RunConfig(reps=REPS_BIG), st["flat"][1],
+         fleet_same_bits),
+        ("flat_fleet", fleet["trace"],
+         RunConfig(chunk_jobs=FLEET_CHUNK, block_jobs=FLEET_BLOCK),
+         fleet["chunked"][0], fleet_same_bits),
+        ("capacity", st["capacity"]["jobs"],
+         RunConfig(slots=CLUSTER_SLOTS), st["capacity"]["outs"],
+         cluster_same_bits),
+        ("serve", st["serving"]["reqs"],
+         RunConfig(serve=True, theta=1e-3, window=SERVING["window"]),
+         st["serving"]["known_tail"], serve_same_bits),
+        ("chaos", fleet["trace"],
+         RunConfig(chunk_jobs=FLEET_CHUNK, block_jobs=FLEET_BLOCK,
+                   chaos=FaultPlan(events=tuple(
+                       FaultEvent(*e) for e in CHAOS_FAULTS))),
+         st["chaos"], fleet_same_bits))
+    out = {}
+    for route, jobs, cfg, want, same in routes:
+        if cfg.resolve_path() != ("serve" if route == "serve" else
+                                  "capacity" if route == "capacity"
+                                  else "flat"):
+            raise AssertionError(f"facade {route}: routed to "
+                                 f"{cfg.resolve_path()}")
+        (got, _), wall = synced(lambda: simulate(Philox(0), jobs, p, cfg=cfg,
+                                                 device=dev))
+        same(got, want, f"facade {route}")
+        out[route] = dict(path=cfg.resolve_path(), wall_s=wall)
+    print(f"facade (phase 10f): simulate(Philox(0), jobs, p, cfg=RunConfig("
+          f"...), device={dev}) equals the direct call bit for bit on every "
+          f"route: " + ", ".join(f"{k} ({v['path']}, {v['wall_s']:.3f} s)"
+                                for k, v in out.items()))
+    out["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3305,8 +3895,16 @@ def main() -> None:
     budget = phase_budget(dev, p)
     spans = phase_spans(dev, p)
     cluster, cluster_state = phase_cluster(dev, p, budget["budget"])
-    fleet = phase_fleet(dev, p)
-    serving = phase_serving(dev, p)
+    fleet, fleet_state = phase_fleet(dev, p)
+    serving, serving_state = phase_serving(dev, p)
+    chaos = phase_chaos(dev, p, fleet_state)
+    if not all(chaos["launches"].values()):
+        raise AssertionError(f"chaos path: a kernel was never launched: "
+                             f"{chaos['launches']}")
+    chaos["facade"] = phase_facade(dev, p, dict(
+        flat=(jobs, outs), fleet=fleet_state, capacity=cluster_state,
+        serving=serving_state, chaos=chaos.pop("faulted")))
+    del fleet_state, serving_state
     philox_t = philox_times(dev, {
         "serve_window": (SERVING["window"], 9),
         "fleet_chunk": (fleet["flat"]["chunk_tasks"], 9),
@@ -3399,6 +3997,9 @@ def main() -> None:
         "launches_serving": {
             regime: serving[regime]["grid_solve_launches"]
             for regime in ("known_tail", "online")},
+        # phase 10e (a): the chunked run_all under a plan of faults that
+        # change nothing, counted from 0 (the solve is outside the retry)
+        "launches_chaos": chaos["launches"]["grid_solve"],
     }]
 
     def mc_entry(name, line, launches, parts, err, **extra):
@@ -3478,9 +4079,12 @@ def main() -> None:
         # one run_cluster over the 10 strategies at reps 1: 2 passes each;
         # ms is its device time (profiler), summed over the run's launches
         launches=cluster["main"]["launches"][1],
-        # over every case and both strategies' prefixes (bit-equal: 0);
-        # the fleet's held segments are bit-equal too (phase 10c)
-        max_abs_err=cluster["max_abs_err"],
+        # over every case and both strategies' prefixes (bit-equal: 0),
+        # and the fleet's held segments (phase 10c, K 500; phase 10e d,
+        # K 400 after a slot change)
+        max_abs_err=max(cluster["max_abs_err"],
+                        fleet["capacity"]["dispatch_vs_plain"]["max_abs_err"],
+                        chaos["capacity"]["dispatch_vs_plain"]["max_abs_err"]),
         ms=ct["kernel_ms_per_run"], ms_per_launch=ct["kernel_ms_per_launch"],
         ns_per_step=ct["ns_per_step"], steps=ct["steps_per_run"],
         per_pass=ct["per_pass"],
@@ -3529,7 +4133,12 @@ def main() -> None:
                 "kernel_ms_per_window_launches"],
             ns_per_step=fleet["capacity"]["ns_per_step"],
             launches_one_a_window=fleet["capacity"][
-                "launches_per_window"][1])))
+                "launches_per_window"][1]),
+        # phase 10e (d): the windowed run_cluster with a slot change, one
+        # launch a pass for each window's replications
+        launches_chaos=chaos["launches"]["dispatch_scan"],
+        chaos=dict(launch_pools=chaos["capacity"]["launch_pools"],
+                   held=chaos["capacity"]["dispatch_vs_plain"])))
     pt = philox_t["serve_window"]
     kernels.append(dict(
         name="philox_rows", route="cuda",
@@ -3549,7 +4158,13 @@ def main() -> None:
         launches_online=serving["online"]["philox_launches"],
         launches_fleet={k: v["launches"]
                         for k, v in fleet["flat"]["draws"].items()},
+        # phase 10e (a): the faulted chunked run_all, chunk 4 drawn twice
+        launches_chaos=chaos["launches"]["philox_rows"],
         check=philox_check))
+    chaos_line = json.dumps({"chaos": chaos})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "chaos.json").write_text(chaos_line)
+    print(chaos_line)
     serving_line = json.dumps({"serving": serving})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "serving.json").write_text(serving_line)

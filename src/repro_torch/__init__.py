@@ -33,7 +33,14 @@ Ported so far:
    (`sim.draws.Philox.uniform_rows`, `kernels/csrc/philox_rows.cu`);
 7. hedged online serving (`serve`: `run_serve`, `serve_trace`,
    `HedgedScheduler`), known-tail or with the online tail governor
-   (`obs.tail`), every request's draws keyed by its rid.
+   (`obs.tail`), every request's draws keyed by its rid;
+8. fault injection, chunk checkpoints and resume (`chaos`, `ckpt`):
+   `run_all(..., chaos=, checkpoint=, resume=)` and `run_cluster(...)`
+   run the fleet's chunk loops under a seeded `FaultPlan`, and a resumed
+   run gives the uninterrupted run's bits;
+9. the facade, `RunConfig` and `simulate` (`api`), which route one config
+   to the flat, capacity or serving path. They resolve lazily, so
+   `import repro_torch` does not import the facade.
 """
 from .cluster import run_cluster, run_cluster_strategy
 from .device import resolve_device
@@ -42,7 +49,15 @@ from .sim import (JobSet, Philox, SimParams, SimResult, build_jobset,
 from .strategies import get, index_of, names, solve_jobs
 
 __all__ = [
-    "JobSet", "Philox", "SimParams", "SimResult", "build_jobset", "generate",
-    "get", "index_of", "names", "resolve_device", "run_all", "run_cluster",
-    "run_cluster_strategy", "run_strategy", "solve_jobs",
+    "JobSet", "Philox", "RunConfig", "SimParams", "SimResult",
+    "build_jobset", "generate", "get", "index_of", "names",
+    "resolve_device", "run_all", "run_cluster", "run_cluster_strategy",
+    "run_strategy", "simulate", "solve_jobs",
 ]
+
+
+def __getattr__(name):
+    if name in ("RunConfig", "simulate"):
+        from . import api
+        return getattr(api, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -357,7 +357,8 @@ def run_cluster(source, jobs, p: SimParams, slots: Optional[int] = None,
                 governor: Optional[GovernorConfig] = None,
                 admission: Optional[AdmissionConfig] = None,
                 reps: int = 1, collect_metrics: bool = False, budget=None,
-                *, device=None, devices=None, mesh=None, chunk_jobs=None):
+                *, device=None, devices=None, mesh=None, chunk_jobs=None,
+                chaos=None, checkpoint=None, resume: bool = False):
     """Finite-capacity mirror of `sim.runner.run_all` on `device`
     (default the card). Returns ({name: ClusterOutput}, r_min).
 
@@ -372,8 +373,12 @@ def run_cluster(source, jobs, p: SimParams, slots: Optional[int] = None,
     consecutive jobs, each on its own pool, admission and the governor
     per window, every (window, replication) a segment of one dispatch
     launch. `devices` above 1 or a mesh above 1 x 1 raises (one card).
+    `chaos=`, `checkpoint=` and `resume=` route there too: fault
+    injection with window-boundary checkpoint and resume
+    (`repro_torch.chaos`).
     """
-    if devices is not None or mesh is not None or chunk_jobs is not None:
+    if (devices is not None or mesh is not None or chunk_jobs is not None
+            or chaos is not None or checkpoint is not None or resume):
         from ..fleet import fleet_mesh, run_cluster_fleet
         if mesh is None and devices is not None:
             fleet_mesh(devices=devices, reps=reps, device=device)
@@ -383,7 +388,9 @@ def run_cluster(source, jobs, p: SimParams, slots: Optional[int] = None,
             max_r=max_r, oracle=oracle, discipline=discipline,
             passes=passes, governor=governor, admission=admission,
             reps=reps, mesh=mesh, chunk_jobs=chunk_jobs,
-            collect_metrics=collect_metrics, budget=budget, device=device)
+            collect_metrics=collect_metrics, chaos=chaos,
+            checkpoint=checkpoint, resume=resume, budget=budget,
+            device=device)
     dev = resolve_device(device)
     if isinstance(jobs, str):
         from ..workloads.registry import make_jobset

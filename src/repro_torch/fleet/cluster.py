@@ -23,6 +23,14 @@ launch, windows taken in order, shorter windows padded with inactive
 units. Per-replication means and the window combination run on the host
 in numpy in one fixed order (`_rep_mean`, `obs.metrics`), never as a
 reduction over the stacked segments.
+
+`chaos=` and `checkpoint=` act at window boundaries, as in the flat
+fleet (`runner.py`). A launch takes one pool size, so under a chaos
+context each window's replications are launched on their own (in groups
+of at most MAX_SEGMENTS): the retry, the integrity check and a
+`slot_change` then cover exactly one window, as in the reference. That
+costs the batching across windows; without `chaos=` the grouping is the
+chaos-free one, with a checkpoint or without.
 """
 from __future__ import annotations
 
@@ -41,11 +49,13 @@ from ..device import resolve_device, to_host
 from ..obs import trace as obs_trace
 from ..obs.metrics import reduce_reps_host
 from ..sim.draws import uniform_cell
-from ..sim.metrics import StreamCombiner, net_utility
+from ..sim.metrics import net_utility
 from ..sim.runner import jobspecs_of
 from ..strategies import get, names, solve_jobs
 from .mesh import check_mesh, pad_count
-from .runner import _warn_saturated, chunk_jobset, job_columns
+from .runner import (_warn_saturated, chunk_hooks, chunk_jobset,
+                     end_of_chunk, job_columns, resume_point, scale_cost,
+                     scenario_plan, strategy_hooks)
 
 
 def _rep_mean(tree, reps: int):
@@ -58,16 +68,19 @@ def _rep_mean(tree, reps: int):
     return tuple(np.mean(x.astype(np.float32), axis=0) for x in host)
 
 
-def _window_specs(cjobs, p, theta, r_min, slots, governor):
+def _window_specs(cjobs, p, theta, r_min, slots, governor,
+                  cost_scale: float = 1.0):
     """One window's solve inputs, as the flat `run_cluster_strategy`
-    forms them: the governor scales theta by the window's load."""
-    specs = jobspecs_of(cjobs, p, theta, r_min)
+    forms them: C re-priced by the elastic governor's `cost_scale` first,
+    then the governor scales theta by the window's load."""
+    specs = scale_cost(jobspecs_of(cjobs, p, theta, r_min), cost_scale)
     if governor is not None and slots is not None:
         specs = apply_governor(specs, cjobs, slots, governor)
     return specs
 
 
-def _solve_window(cjobs, strategy, p, theta, r_min, max_r, slots, governor):
+def _solve_window(cjobs, strategy, p, theta, r_min, max_r, slots, governor,
+                  cost_scale: float = 1.0):
     """(r_j, choice_j, th_p, th_c, sat) of one window on its device."""
     J = cjobs.n_jobs
     dev = cjobs.t_min.device
@@ -75,7 +88,8 @@ def _solve_window(cjobs, strategy, p, theta, r_min, max_r, slots, governor):
         zeros = torch.zeros(J, dtype=torch.int32, device=dev)
         return zeros, zeros, torch.zeros(J, device=dev), \
             torch.zeros(J, device=dev), zeros
-    specs = _window_specs(cjobs, p, theta, r_min, slots, governor)
+    specs = _window_specs(cjobs, p, theta, r_min, slots, governor,
+                          cost_scale)
     r_j, choice_j, _, th_p, th_c, sat = solve_jobs(strategy, specs,
                                                    max_r + 1, device=dev)
     return r_j, choice_j, th_p, th_c * specs.C, sat
@@ -91,8 +105,9 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
                                reps: int = 1, chunk_jobs=None,
                                pad_to: Optional[int] = None,
                                collect_metrics: bool = False,
-                               fused: bool = True, budget=None,
-                               device=None) -> ClusterOutput:
+                               chaos=None, checkpoint=None,
+                               resume: bool = False, fused: bool = True,
+                               budget=None, device=None) -> ClusterOutput:
     """Fleet mirror of `cluster.engine.run_cluster_strategy` on `device`
     (default the card): `chunk_jobs` consecutive jobs a window, each on
     its own pool. `pad_to` (int) pads the replication count to a multiple
@@ -104,6 +119,14 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
     Both give the same bits (`_narrow_table` drops inactive columns only).
     Baselines take the minimal width. `budget=` is one joint solve over
     every window's (governed) specs before any replay.
+
+    chaos / checkpoint / resume: as in `runner.run_fleet_strategy`, at
+    window granularity. A `slot_change` moves the pool of every window
+    from its own on (the replay, admission, the governor and
+    `QueueMetrics.slots` all take the window's pool), the elastic
+    governor re-prices each window's solve, and a resumed run gives the
+    uninterrupted run's bits, queue metrics and per-window slots
+    included.
     """
     if passes < 2:
         raise ValueError(f"passes must be >= 2 (pass 1 schedules primaries "
@@ -114,6 +137,8 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
     if pad_to is not None and mesh is not None:
         raise ValueError("pad_to is a test-only override; incompatible "
                          "with an explicit mesh")
+    if resume and checkpoint is None:
+        raise ValueError("resume=True requires a checkpoint config")
     check_mesh(mesh)
     dev = resolve_device(device)
     spec = get(strategy)
@@ -121,6 +146,11 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
         oracle = True
     if budget is not None and not spec.optimized:
         budget = None     # baselines run at r = 0: nothing to budget
+    if budget is not None and chaos is not None:
+        raise ValueError(
+            "budget= requires a chaos-free run: the shared multiplier is "
+            "solved once over the whole trace, and chaos re-pricing or "
+            "slot/mesh loss mid-run would invalidate that global solve")
     reps_pad = pad_count(reps, pad_to if pad_to is not None else 1)
 
     cols = job_columns(jobs)
@@ -130,6 +160,16 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
     bounds = [(ci * chunk, min((ci + 1) * chunk, J))
               for ci in range(n_chunks)]
     window_jobs = lambda ci: chunk_jobset(cols, *bounds[ci], device=dev)
+    ctx, saver, fp = chunk_hooks(
+        chaos, checkpoint, source, n_chunks, mesh, pool=slots,
+        path="cluster", strategy=strategy, n_jobs=J, chunk=chunk, reps=reps,
+        max_r=max_r, oracle=oracle, theta=float(theta), r_min=float(r_min),
+        slots=slots, discipline=discipline, passes=passes,
+        budget=None if budget is None else float(budget))
+    # the window's pool and cost scale (the caller's without chaos)
+    slots_of = lambda ci: (slots if ctx is None
+                           else ctx.slots_at(ci, slots))
+    scale_of = lambda ci: 1.0 if ctx is None else ctx.cost_scale(ci)
 
     use_fused = fused and spec.optimized and budget is None
     solves = info = None
@@ -151,7 +191,8 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
         with obs_trace.span("fleet.cluster.solve", strategy=strategy,
                             n_jobs=J, n_chunks=n_chunks):
             solves = [_solve_window(window_jobs(ci), strategy, p, theta,
-                                    r_min, max_r, slots, governor)
+                                    r_min, max_r, slots_of(ci), governor,
+                                    scale_of(ci))
                       for ci in range(n_chunks)]
     if not spec.optimized:
         width = None
@@ -165,19 +206,20 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
 
     def open_window(ci):
         cjobs = window_jobs(ci)
+        slots_w = slots_of(ci)
         admitted = None
-        if admission is not None and slots is not None:
+        if admission is not None and slots_w is not None:
             admitted = torch.from_numpy(
-                admit_jobs(cjobs, slots, admission)).to(dev)
+                admit_jobs(cjobs, slots_w, admission)).to(dev)
         if use_fused:
             solved = _solve_window(cjobs, strategy, p, theta, r_min, max_r,
-                                   slots, governor)
+                                   slots_w, governor, scale_of(ci))
         else:
             solved = solves[ci]
         r_j, choice_j = solved[0], solved[1]
-        return dict(jobs=cjobs, admitted=admitted, solved=solved,
-                    r_task=r_j[cjobs.job_id], c_task=choice_j[cjobs.job_id],
-                    out=[])
+        return dict(jobs=cjobs, slots=slots_w, admitted=admitted,
+                    solved=solved, r_task=r_j[cjobs.job_id],
+                    c_task=choice_j[cjobs.job_id], out=[])
 
     def table_of(ci, rep):
         w = windows[ci]
@@ -191,9 +233,9 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
                 active=table.active & w["admitted"][table.job_id])
         return _narrow_table(table, cjobs.total_tasks, width)
 
-    acc = StreamCombiner()
+    start, acc, (r_parts, thp_parts, thc_parts) = resume_point(
+        saver if resume else None, fp, ctx)
     n_sat = 0
-    r_parts, thp_parts, thc_parts = [], [], []
 
     def close_window(ci):
         w = windows.pop(ci)
@@ -212,37 +254,62 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
             queue = QueueMetrics(
                 mean_wait=f32(q[0]), max_wait=f32(q[1]),
                 utilization=f32(q[2]), preempted=f32(q[3]),
-                admitted_frac=f32(admitted_frac), slots=slots)
+                admitted_frac=f32(admitted_frac), slots=w["slots"])
             acc.add(type(out[0][0])(*res), n_jobs=cjobs.n_jobs, queue=queue,
                     capacity=window_metrics)
         r_j, _, th_p, th_c, sat_j = w["solved"]
         r_parts.append(to_host(r_j))
         thp_parts.append(to_host(th_p))
         thc_parts.append(to_host(th_c))
-        return int(to_host(sat_j).sum()) if spec.optimized else 0
+        n = int(to_host(sat_j).sum()) if spec.optimized else 0
+        end_of_chunk(ci, n_chunks, ctx, saver, fp, acc,
+                     (r_parts, thp_parts, thc_parts))
+        return n
 
-    # every (window, replication) in order, MAX_SEGMENTS a dispatch launch
-    segments = [(ci, rep) for ci in range(n_chunks)
-                for rep in range(reps_pad)]
-    cap = engine.MAX_SEGMENTS
-    for g0 in range(0, len(segments), cap):
-        group = segments[g0:g0 + cap]
+    def replay_group(group):
+        """The outcomes of (window, replication) segments that share one
+        pool size, in one dispatch launch a pass."""
         with obs_trace.span("fleet.cluster.build", strategy=strategy,
                             segments=len(group)):
             for ci, _ in group:
                 if ci not in windows:
                     windows[ci] = open_window(ci)
             tables = [table_of(ci, rep) for ci, rep in group]
+        slots_g = windows[group[0][0]]["slots"]
         replayed = obs_trace.fenced(
             f"fleet.cluster.replay[{strategy}]", engine._replay,
             [(t, windows[ci]["jobs"]) for t, (ci, _) in zip(tables, group)],
-            spec.race, slots, discipline, passes)
-        for (ci, _), table, rp in zip(group, tables, replayed):
-            w = windows[ci]
-            w["out"].append(engine.segment_outcome(
-                w["jobs"], table, rp, slots, collect_metrics))
-            if len(w["out"]) == reps_pad:
+            spec.race, slots_g, discipline, passes)
+        return [engine.segment_outcome(windows[ci]["jobs"], table, rp,
+                                       slots_g, collect_metrics)
+                for (ci, _), table, rp in zip(group, tables, replayed)]
+
+    cap = engine.MAX_SEGMENTS
+    try:
+        if ctx is None:
+            # every (window, replication) in order, MAX_SEGMENTS a launch
+            segments = [(ci, rep) for ci in range(start, n_chunks)
+                        for rep in range(reps_pad)]
+            for g0 in range(0, len(segments), cap):
+                group = segments[g0:g0 + cap]
+                for (ci, _), o in zip(group, replay_group(group)):
+                    w = windows[ci]
+                    w["out"].append(o)
+                    if len(w["out"]) == reps_pad:
+                        n_sat += close_window(ci)
+        else:
+            for ci in range(start, n_chunks):
+                # one card: a device loss shrinks nothing (recorded)
+                ctx.begin_chunk(ci, mesh, reps)
+                windows[ci] = open_window(ci)
+                segs = [(ci, rep) for rep in range(reps_pad)]
+                windows[ci]["out"] = ctx.execute(ci, lambda: [
+                    o for g0 in range(0, reps_pad, cap)
+                    for o in replay_group(segs[g0:g0 + cap])])
                 n_sat += close_window(ci)
+    finally:
+        if saver is not None:
+            saver.wait()
 
     if n_sat:
         _warn_saturated(strategy, n_sat, max_r)
@@ -265,16 +332,18 @@ def run_cluster_fleet(source, jobs, p, slots: Optional[int] = None,
                       governor: Optional[GovernorConfig] = None,
                       admission: Optional[AdmissionConfig] = None,
                       reps: int = 1, mesh=None, chunk_jobs=None,
-                      collect_metrics: bool = False, fused: bool = True,
-                      budget=None, *, device=None):
+                      collect_metrics: bool = False, chaos=None,
+                      checkpoint=None, resume: bool = False,
+                      fused: bool = True, budget=None, *, device=None):
     """Fleet mirror of `cluster.engine.run_cluster` (the same R_min
     protocol) on `device` (default the card). `jobs` is a JobSet, a
-    WorkloadTrace or a scenario name. Returns ({name: ClusterOutput},
-    r_min)."""
+    WorkloadTrace or a scenario name (a scenario's declared fault
+    schedule is the default `chaos` plan). chaos / checkpoint / resume as
+    in `runner.run_all_fleet`: one FaultPlan for every strategy, each
+    with a fresh ChaosContext and its own checkpoint subdirectory.
+    Returns ({name: ClusterOutput}, r_min)."""
     dev = resolve_device(device)
-    if isinstance(jobs, str):
-        from ..workloads.registry import make_trace
-        jobs = make_trace(jobs, device=dev)
+    jobs, chaos = scenario_plan(jobs, chaos, dev)
     if strategies is None:
         strategies = names()
     kw = dict(mesh=mesh, slots=slots, theta=theta, max_r=max_r,
@@ -282,15 +351,17 @@ def run_cluster_fleet(source, jobs, p, slots: Optional[int] = None,
               governor=governor, admission=admission, reps=reps,
               chunk_jobs=chunk_jobs, collect_metrics=collect_metrics,
               fused=fused, budget=budget, device=dev)
+    kw_of = strategy_hooks(chaos, checkpoint, resume, "run_cluster_fleet")
     outs = {}
     r_min = 0.0
     if "hadoop_ns" in strategies:
         outs["hadoop_ns"] = run_cluster_fleet_strategy(
-            source, jobs, "hadoop_ns", p, r_min=0.0, **kw)
+            source, jobs, "hadoop_ns", p, r_min=0.0, **kw,
+            **kw_of("hadoop_ns"))
         if r_min_from_ns:
             r_min = float(outs["hadoop_ns"].result.pocd) - 1e-3
     for name in strategies:
         if name != "hadoop_ns":
-            outs[name] = run_cluster_fleet_strategy(source, jobs, name, p,
-                                                    r_min=r_min, **kw)
+            outs[name] = run_cluster_fleet_strategy(
+                source, jobs, name, p, r_min=r_min, **kw, **kw_of(name))
     return outs, r_min

@@ -72,6 +72,19 @@ def check_mesh(mesh: Optional[FleetMesh]) -> None:
         _one_card(mesh_extents(mesh))
 
 
+def shrink_fleet_mesh(mesh: FleetMesh, failed,
+                      reps: int = 1) -> FleetMesh:
+    """The mesh over the devices that survive `failed` (indices into
+    `mesh.devices`) on the port's 1 x 1 mesh: `mesh` itself when its
+    device did not fail, RuntimeError when it did (nothing survives: an
+    outage, not an elastic event). Larger meshes wait for the fleet over
+    several cards (ROADMAP A item 11); `check_mesh` refuses them."""
+    check_mesh(mesh)
+    if any(int(d) in range(len(mesh.devices)) for d in failed):
+        raise RuntimeError("no devices survive the loss: cannot reshard")
+    return mesh
+
+
 def pad_count(n: int, extent: int) -> int:
     """Round n up to a multiple of the mesh extent (pad+mask fallback)."""
     if extent < 1:

@@ -34,8 +34,16 @@ the Algorithm-1 solve of each chunk is the grid-solve kernel
 (`kernels/csrc/grid_solve.cu`).
 
 The fleet's streams are statistically equivalent to the flat path's, not
-equal to them: `run_all` without `devices=`, `mesh=` or `chunk_jobs=`
-stays the flat path, bit for bit.
+equal to them: `run_all` without `devices=`, `mesh=`, `chunk_jobs=`,
+`chaos=`, `checkpoint=` or `resume=` stays the flat path, bit for bit.
+
+`chaos=` and `checkpoint=` hook the chunk loop at chunk boundaries
+(`repro_torch.chaos`): a chunk's draws and sims run under the context's
+retry loop, its solve before it (the solve is deterministic and keeps r*
+on the device), and the host state after each chunk may be checkpointed
+and resumed from. Because every draw is keyed by its global coordinates,
+a retried chunk draws what its first attempt drew, and a resumed run
+gives the uninterrupted run's bits.
 """
 from __future__ import annotations
 
@@ -181,10 +189,84 @@ def _pad0(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(1)])
 
 
+def chunk_hooks(chaos, checkpoint, source, n_chunks: int, mesh, pool=None,
+                **fingerprint):
+    """(ChaosContext or None, ChunkCheckpointer or None, the run's
+    fingerprint or None) of a chunk loop: the context bound to the run's
+    chunks, replications (`fingerprint["reps"]`) and slot pool `pool`;
+    the fingerprint of the run's configuration, its uniform source and
+    its plan. Nothing is imported or built when both are None."""
+    ctx = saver = fp = None
+    if chaos is not None:
+        from ..chaos.inject import as_context
+        ctx = as_context(chaos)
+        ctx.bind(n_chunks, mesh, fingerprint["reps"], slots=pool)
+    if checkpoint is not None:
+        from ..chaos import recovery
+        saver = recovery.ChunkCheckpointer(
+            recovery.as_checkpoint(checkpoint))
+        fp = recovery.run_fingerprint(
+            **fingerprint, key=recovery.source_id(source),
+            plan=ctx.plan.fingerprint() if ctx is not None else "")
+    return ctx, saver, fp
+
+
+def resume_point(saver, fp, ctx):
+    """(first chunk to run, StreamCombiner, (r, theory PoCD, theory cost)
+    parts) from `saver`'s latest committed step, its fingerprint checked
+    against `fp`, and `ctx` fast-forwarded past it; a fresh start when
+    `saver` is None or holds no committed step."""
+    fresh = (0, StreamCombiner(), ([], [], []))
+    if saver is None:
+        return fresh
+    step = saver.latest()
+    if step is None:
+        return fresh
+    from ..chaos import recovery
+    header, acc, solves = recovery.unpack_run_state(saver.load(step))
+    recovery.check_fingerprint(header["fingerprint"], fp)
+    start = int(header["next_chunk"])
+    if ctx is not None:
+        # the port's mesh has nothing to shrink (mesh_through is a no-op)
+        ctx.catch_up(start)
+    return start, acc, solves
+
+
+def end_of_chunk(ci: int, n_chunks: int, ctx, saver, fp, acc,
+                 solves) -> None:
+    """After chunk ci: checkpoint when it is due (every `every` chunks,
+    the last chunk, and before a crash, whose commit it waits for), then
+    let a crash event fire."""
+    if saver is not None:
+        from ..chaos import recovery
+        crash_here = ctx is not None and bool(ctx.plan.at(ci, "crash"))
+        if ((ci + 1) % saver.cfg.every == 0 or ci == n_chunks - 1
+                or crash_here):
+            saver.save(ci + 1, recovery.pack_run_state(
+                acc, solves, next_chunk=ci + 1, fingerprint=fp))
+            if crash_here:
+                # the resume contract needs the chunk it died after on
+                # disk: a simulated crash must not outrun its own commit
+                saver.wait()
+    if ctx is not None:
+        ctx.maybe_crash(ci)
+
+
+def scale_cost(specs, scale: float):
+    """JobSpecs with C re-priced by the elastic governor's `scale`,
+    multiplied as an f32 as the reference multiplies it (r* on a near-tie
+    depends on the product's last bit)."""
+    if scale == 1.0:
+        return specs
+    return specs._replace(C=specs.C * torch.tensor(
+        np.float32(scale), device=specs.C.device))
+
+
 def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
                        theta=1e-4, r_min=0.0, max_r: int = 8,
                        oracle: bool = True, reps: int = 1,
                        block_jobs: int = 64, chunk_jobs=None, pad_to=None,
+                       chaos=None, checkpoint=None, resume: bool = False,
                        fused: bool = True, budget=None,
                        device=None) -> RunOutput:
     """Fleet mirror of `sim.runner.run_strategy`, on `device` (default the
@@ -200,6 +282,17 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
         only without a mesh.
     block_jobs: jobs per block, the draws' granularity (changing it
         changes the draws).
+    chaos: a `chaos.FaultPlan` or `chaos.ChaosContext` consulted at chunk
+        boundaries: device loss is recorded (one card: nothing to shrink),
+        injected chunk failures and corruption retry, a crash raises
+        SimulatedCrash after the chunk's checkpoint commits, and an
+        `ElasticGovernor` re-prices each chunk's solve. None keeps the
+        chaos-free path.
+    checkpoint: a `chaos.CheckpointConfig` or a directory: save the
+        resumable chunk state after chunks; with `resume=True`, first
+        restore the latest committed step (its fingerprint must match this
+        call's configuration) and continue from it, bit for bit the
+        uninterrupted run. No committed step: start from chunk 0.
     fused: keep r*/choice on the device and gather them per task through
         the layout's task -> job column; False takes them through host
         numpy (the staged path). Both give the same bits; baselines and
@@ -207,6 +300,8 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
     budget: a priced machine-time cap for the whole trace: one joint solve
         (`coupled.solve_jobs_coupled`) over every job before the chunk
         loop, each chunk replaying its slice of that one selection.
+        Incompatible with `chaos=` (re-pricing mid-run would invalidate
+        that one solve).
     """
     dev = resolve_device(device)
     check_mesh(mesh)
@@ -216,8 +311,15 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
     if pad_to is not None and mesh is not None:
         raise ValueError("pad_to is a test-only override; incompatible "
                          "with an explicit mesh")
+    if resume and checkpoint is None:
+        raise ValueError("resume=True requires a checkpoint config")
     if budget is not None and not spec.optimized:
         budget = None     # baselines run at r = 0: nothing to budget
+    if budget is not None and chaos is not None:
+        raise ValueError(
+            "budget= requires a chaos-free run: the shared multiplier is "
+            "solved once over the whole trace, and chaos re-pricing or "
+            "mesh loss mid-run would invalidate that global solve")
     cols = job_columns(jobs)
     J = cols.n_jobs
     B = max(1, min(int(block_jobs), J))
@@ -233,6 +335,11 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
     r_ext, j_ext = pad_to if pad_to is not None else mesh_extents(mesh)
     rep_ids = range(pad_count(reps, r_ext))
     min_blocks = pad_count(blocks_per_chunk, j_ext)
+    ctx, saver, fp = chunk_hooks(
+        chaos, checkpoint, source, n_chunks, mesh, path="flat",
+        strategy=strategy, n_jobs=J, block_jobs=B, chunk=chunk, reps=reps,
+        max_r=max_r, oracle=oracle, theta=float(theta), r_min=float(r_min),
+        budget=None if budget is None else float(budget))
 
     coupled_sel = info = None
     if budget is not None:
@@ -247,57 +354,72 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
                                 (g_r, g_ch, g_p, g_c * gspecs.C, g_sat))
         warn_infeasible(strategy, info)
 
-    acc = StreamCombiner()
+    start, acc, (r_parts, thp_parts, thc_parts) = resume_point(
+        saver if resume else None, fp, ctx)
     n_sat = 0
-    r_parts, thp_parts, thc_parts = [], [], []
-    for ci in range(n_chunks):
-        lo, hi = ci * chunk, min((ci + 1) * chunk, J)
-        ccols = cols.slice(lo, hi)
-        Jc = ccols.n_jobs
-        use_fused = fused and spec.optimized and coupled_sel is None
-        with obs_trace.span("fleet.solve", strategy=strategy, chunk=ci,
-                            n_jobs=Jc):
-            if coupled_sel is not None:
-                r_j, choice_j, th_p, th_c, sat_j = (a[lo:hi]
-                                                    for a in coupled_sel)
-            elif not spec.optimized:
-                r_j = choice_j = sat_j = np.zeros(Jc, np.int32)
-                th_p = th_c = np.zeros(Jc, np.float32)
-            else:
-                specs = jobspecs_of(ccols.to(dev), p, theta, r_min)
-                r_j, choice_j, _, th_p, th_c, sat_j = solve_jobs(
-                    strategy, specs, max_r + 1, device=dev)
-                th_c = th_c * specs.C
-                if not use_fused:
-                    r_j, choice_j = to_host(r_j), to_host(choice_j)
-        with obs_trace.span("fleet.blocks", chunk=ci, block_jobs=B):
-            layout = block_layout(ccols, B, pad_blocks_to=j_ext,
-                                  tasks_pad=Tb, min_blocks=min_blocks)
-            bv = block_view(ccols, layout, block_offset=ci * blocks_per_chunk,
-                            device=dev)
-            view = bv.jobs
-            rows = lambda x, fill, dt: torch.from_numpy(
-                layout.stack_jobs(x, fill, dt)).to(dev).reshape(-1)[
-                    view.job_id]
-            if use_fused:
-                # the task -> chunk-job column (pure geometry); padding
-                # tasks point at Jc, the appended zero row
-                tj = rows(np.arange(Jc), Jc, np.int64)
-                r_task, c_task = _pad0(r_j)[tj], _pad0(choice_j)[tj]
-            else:
-                r_task = rows(r_j, 0, np.int32)
-                c_task = rows(choice_j, 0, np.int32)
-        jc, jm = obs_trace.fenced(
-            f"fleet.exec[{strategy}]", _exec_blocks, source, strategy,
-            rep_ids, bv, r_task, c_task, p, max_r, oracle)
-        with obs_trace.span("fleet.reduce", chunk=ci, n_jobs=Jc):
-            acc.add(_chunk_result(jc, jm, ccols.D, ccols.C, reps, Jc, B),
-                    n_jobs=Jc)
-        r_parts.append(to_host(r_j))
-        thp_parts.append(to_host(th_p))
-        thc_parts.append(to_host(th_c))
-        if spec.optimized:
-            n_sat += int(to_host(sat_j).sum())
+    try:
+        for ci in range(start, n_chunks):
+            if ctx is not None:
+                # the mesh is None or 1 x 1 (check_mesh): a device loss
+                # shrinks nothing, and the layout stays
+                ctx.begin_chunk(ci, mesh, reps)
+            lo, hi = ci * chunk, min((ci + 1) * chunk, J)
+            ccols = cols.slice(lo, hi)
+            Jc = ccols.n_jobs
+            use_fused = fused and spec.optimized and coupled_sel is None
+            with obs_trace.span("fleet.solve", strategy=strategy, chunk=ci,
+                                n_jobs=Jc):
+                if coupled_sel is not None:
+                    r_j, choice_j, th_p, th_c, sat_j = (
+                        a[lo:hi] for a in coupled_sel)
+                elif not spec.optimized:
+                    r_j = choice_j = sat_j = np.zeros(Jc, np.int32)
+                    th_p = th_c = np.zeros(Jc, np.float32)
+                else:
+                    specs = scale_cost(
+                        jobspecs_of(ccols.to(dev), p, theta, r_min),
+                        ctx.cost_scale(ci) if ctx is not None else 1.0)
+                    r_j, choice_j, _, th_p, th_c, sat_j = solve_jobs(
+                        strategy, specs, max_r + 1, device=dev)
+                    th_c = th_c * specs.C
+                    if not use_fused:
+                        r_j, choice_j = to_host(r_j), to_host(choice_j)
+            with obs_trace.span("fleet.blocks", chunk=ci, block_jobs=B):
+                layout = block_layout(ccols, B, pad_blocks_to=j_ext,
+                                      tasks_pad=Tb, min_blocks=min_blocks)
+                bv = block_view(ccols, layout,
+                                block_offset=ci * blocks_per_chunk,
+                                device=dev)
+                view = bv.jobs
+                rows = lambda x, fill, dt: torch.from_numpy(
+                    layout.stack_jobs(x, fill, dt)).to(dev).reshape(-1)[
+                        view.job_id]
+                if use_fused:
+                    # the task -> chunk-job column (pure geometry);
+                    # padding tasks point at Jc, the appended zero row
+                    tj = rows(np.arange(Jc), Jc, np.int64)
+                    r_task, c_task = _pad0(r_j)[tj], _pad0(choice_j)[tj]
+                else:
+                    r_task = rows(r_j, 0, np.int32)
+                    c_task = rows(choice_j, 0, np.int32)
+            exec_chunk = lambda: obs_trace.fenced(
+                f"fleet.exec[{strategy}]", _exec_blocks, source, strategy,
+                rep_ids, bv, r_task, c_task, p, max_r, oracle)
+            jc, jm = (exec_chunk() if ctx is None
+                      else ctx.execute(ci, exec_chunk))
+            with obs_trace.span("fleet.reduce", chunk=ci, n_jobs=Jc):
+                acc.add(_chunk_result(jc, jm, ccols.D, ccols.C, reps, Jc, B),
+                        n_jobs=Jc)
+            r_parts.append(to_host(r_j))
+            thp_parts.append(to_host(th_p))
+            thc_parts.append(to_host(th_c))
+            if spec.optimized:
+                n_sat += int(to_host(sat_j).sum())
+            end_of_chunk(ci, n_chunks, ctx, saver, fp, acc,
+                         (r_parts, thp_parts, thc_parts))
+    finally:
+        if saver is not None:
+            saver.wait()
 
     if n_sat:
         _warn_saturated(strategy, n_sat, max_r)
@@ -310,33 +432,73 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
         n_saturated=torch.tensor(n_sat, device=dev), coupled=info)
 
 
+def scenario_plan(jobs, chaos, dev):
+    """(trace, plan): a scenario name resolves to its trace, column-wise,
+    and its declared fault schedule becomes the plan when `chaos` is
+    None; anything else passes through."""
+    if isinstance(jobs, str):
+        from ..workloads.registry import get_scenario, make_trace
+        faults = get_scenario(jobs).faults
+        if chaos is None and faults:
+            from ..chaos.plan import from_faults
+            chaos = from_faults(faults)
+        jobs = make_trace(jobs, device=dev)
+    return jobs, chaos
+
+
+def strategy_hooks(chaos, checkpoint, resume: bool, caller: str):
+    """kw_of(strategy): the chaos keywords of one strategy's run in a
+    run over every strategy: a fresh ChaosContext over the shared
+    FaultPlan (injection budgets are stateful, and every strategy sees
+    the same failures), and the strategy's own checkpoint subdirectory."""
+    def kw_of(name: str) -> dict:
+        per = dict(resume=resume)
+        if chaos is not None:
+            from ..chaos.inject import ChaosContext
+            from ..chaos.plan import FaultPlan
+            if not isinstance(chaos, FaultPlan):
+                raise TypeError(f"{caller} takes a FaultPlan (each strategy "
+                                f"needs its own ChaosContext)")
+            per["chaos"] = ChaosContext(chaos)
+        if checkpoint is not None:
+            from ..chaos.recovery import as_checkpoint
+            per["checkpoint"] = as_checkpoint(checkpoint).sub(name)
+        return per
+    return kw_of
+
+
 def run_all_fleet(source, jobs, p, theta=1e-4, strategies=None,
                   r_min_from_ns: bool = True, max_r: int = 8,
                   reps: int = 1, mesh=None, block_jobs: int = 64,
-                  chunk_jobs=None, pad_to=None, fused: bool = True,
-                  budget=None, *, device=None):
+                  chunk_jobs=None, pad_to=None, chaos=None, checkpoint=None,
+                  resume: bool = False, fused: bool = True, budget=None, *,
+                  device=None):
     """Fleet mirror of `sim.runner.run_all` (the same R_min-from-Hadoop-NS
     protocol) on `device` (default the card). `jobs` is a JobSet, a
-    WorkloadTrace or a scenario name (its trace, kept column-wise).
+    WorkloadTrace or a scenario name (its trace, kept column-wise; a
+    scenario's declared fault schedule is the default `chaos` plan).
+    chaos: a `chaos.FaultPlan`, applied to every strategy's run through a
+        fresh ChaosContext each. checkpoint: a CheckpointConfig or a
+        directory; each strategy checkpoints in its own subdirectory.
     Returns ({name: RunOutput}, r_min)."""
     dev = resolve_device(device)
-    if isinstance(jobs, str):
-        from ..workloads.registry import make_trace
-        jobs = make_trace(jobs, device=dev)
+    jobs, chaos = scenario_plan(jobs, chaos, dev)
     if strategies is None:
         strategies = names()
     kw = dict(mesh=mesh, theta=theta, max_r=max_r, reps=reps,
               block_jobs=block_jobs, chunk_jobs=chunk_jobs, pad_to=pad_to,
               fused=fused, budget=budget, device=dev)
+    kw_of = strategy_hooks(chaos, checkpoint, resume, "run_all_fleet")
     outs = {}
     r_min = 0.0
     if "hadoop_ns" in strategies:
         outs["hadoop_ns"] = run_fleet_strategy(source, jobs, "hadoop_ns", p,
-                                               r_min=0.0, **kw)
+                                               r_min=0.0, **kw,
+                                               **kw_of("hadoop_ns"))
         if r_min_from_ns:
             r_min = float(outs["hadoop_ns"].result.pocd) - 1e-3
     for name in strategies:
         if name != "hadoop_ns":
             outs[name] = run_fleet_strategy(source, jobs, name, p,
-                                            r_min=r_min, **kw)
+                                            r_min=r_min, **kw, **kw_of(name))
     return outs, r_min

@@ -220,3 +220,72 @@ class StreamCombiner:
         out = combine_windows(self._capacity)
         return type(out)(*(torch.from_numpy(np.asarray(x)).to(dev)
                            for x in out))
+
+    # The combiner is the resume state of a chunked run (`chaos.recovery`):
+    # what is reduced lives in these host lists, what is not is
+    # recomputable from the source and the chunk index. state_dict is the
+    # reference's flat {name: numpy array} form; from_state restores the
+    # per-chunk list boundaries from the weights, so finalize concatenates
+    # the same parts in the same order and gives the same bits.
+
+    def state_dict(self) -> dict:
+        """{met, completion, cost, weights} and, where chunks carried
+        them, {queue_w, queue_vals, queue_slots} and cap_<field>: host
+        numpy, the reference's keys."""
+        if not self._met:
+            raise ValueError("state_dict of an empty StreamCombiner")
+        out = {
+            "met": np.concatenate(self._met),
+            "completion": np.concatenate(self._completion),
+            "cost": np.concatenate(self._cost),
+            "weights": np.asarray(self._weights, np.float64),
+        }
+        if self._queues:
+            out["queue_w"] = np.asarray([w for w, _ in self._queues],
+                                        np.float64)
+            out["queue_vals"] = np.asarray(
+                [[float(q.mean_wait), float(q.max_wait),
+                  float(q.utilization), float(q.preempted),
+                  float(q.admitted_frac)] for _, q in self._queues],
+                np.float32)
+            out["queue_slots"] = np.asarray(
+                [-1 if q.slots is None else int(q.slots)
+                 for _, q in self._queues], np.int64)
+        if self._capacity:
+            for f in self._capacity[0]._fields:
+                out[f"cap_{f}"] = np.stack(
+                    [to_host(getattr(m, f)) for m in self._capacity])
+        return out
+
+    @classmethod
+    def from_state(cls, state: dict) -> "StreamCombiner":
+        """The combiner that `state_dict` snapshotted (queue values come
+        back as numpy f32 scalars)."""
+        acc = cls()
+        w = np.asarray(state["weights"], np.float64)
+        splits = np.cumsum(w.astype(np.int64))[:-1]
+        acc._met = list(np.split(np.asarray(state["met"]), splits))
+        acc._completion = list(np.split(np.asarray(state["completion"]),
+                                        splits))
+        acc._cost = list(np.split(np.asarray(state["cost"]), splits))
+        acc._weights = [float(x) for x in w]
+        if "queue_vals" in state:
+            from ..cluster.engine import QueueMetrics
+            f32 = np.float32
+            acc._queues = [
+                (float(wi), QueueMetrics(
+                    mean_wait=f32(v[0]), max_wait=f32(v[1]),
+                    utilization=f32(v[2]), preempted=f32(v[3]),
+                    admitted_frac=f32(v[4]),
+                    slots=None if int(s) < 0 else int(s)))
+                for wi, v, s in zip(state["queue_w"], state["queue_vals"],
+                                    state["queue_slots"])]
+        cap_keys = [k for k in state if k.startswith("cap_")]
+        if cap_keys:
+            from ..obs.metrics import CapacityMetrics
+            n = int(np.asarray(state[cap_keys[0]]).shape[0])
+            acc._capacity = [
+                CapacityMetrics(**{f: np.asarray(state[f"cap_{f}"])[i]
+                                   for f in CapacityMetrics._fields})
+                for i in range(n)]
+        return acc

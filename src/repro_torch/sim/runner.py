@@ -143,7 +143,8 @@ def run_strategy(source, jobs: JobSet, strategy: str, p: SimParams,
 def run_all(source, jobs, p: SimParams, theta=1e-4, strategies=None,
             r_min_from_ns: bool = True, max_r: int = 8, reps: int = 1,
             budget=None, *, device=None, devices=None, mesh=None,
-            block_jobs: int = 64, chunk_jobs=None):
+            block_jobs: int = 64, chunk_jobs=None, chaos=None,
+            checkpoint=None, resume: bool = False):
     """Run every strategy (default: all registered, in registry order) on
     `device`; R_min for the utilities is Hadoop-NS's PoCD minus 1e-3, as
     in the paper. Returns ({name: RunOutput}, r_min).
@@ -158,8 +159,13 @@ def run_all(source, jobs, p: SimParams, theta=1e-4, strategies=None,
     trace streamed in chunks, a scenario name kept column-wise. The port
     runs on one card: `devices` above 1 or a mesh above 1 x 1 raises.
     Without them this path is unchanged.
+
+    `chaos=` (a `repro_torch.chaos.FaultPlan`), `checkpoint=` and
+    `resume=` also route to the fleet: fault injection with
+    chunk-boundary checkpoint and resume (`repro_torch.chaos`).
     """
-    if devices is not None or mesh is not None or chunk_jobs is not None:
+    if (devices is not None or mesh is not None or chunk_jobs is not None
+            or chaos is not None or checkpoint is not None or resume):
         from ..fleet import fleet_mesh, run_all_fleet
         if mesh is None and devices is not None:
             fleet_mesh(devices=devices, reps=reps, device=device)
@@ -167,8 +173,9 @@ def run_all(source, jobs, p: SimParams, theta=1e-4, strategies=None,
                              strategies=strategies,
                              r_min_from_ns=r_min_from_ns, max_r=max_r,
                              reps=reps, mesh=mesh, block_jobs=block_jobs,
-                             chunk_jobs=chunk_jobs, budget=budget,
-                             device=device)
+                             chunk_jobs=chunk_jobs, chaos=chaos,
+                             checkpoint=checkpoint, resume=resume,
+                             budget=budget, device=device)
     dev = resolve_device(device)
     if isinstance(jobs, str):
         from ..workloads.registry import make_jobset

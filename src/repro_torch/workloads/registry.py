@@ -36,8 +36,8 @@ class Scenario(NamedTuple):
     n_jobs: int = 600                 # default size; callers may override
     hours: float = 30.0               # sets the long-run job rate
     seed: int = 0
-    # declarative fault schedule, kept as plain event dicts (the port
-    # has no chaos layer yet). None = no faults.
+    # declarative fault schedule as plain event dicts, lowered by
+    # `chaos.from_faults` (no chaos import here). None = no faults.
     faults: Optional[Tuple[dict, ...]] = None
 
 

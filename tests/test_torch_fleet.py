@@ -41,6 +41,7 @@ from repro.cluster.engine import QueueMetrics as RefQueueMetrics
 
 import repro_torch
 from repro_torch import Philox, SimParams, convert, generate, run_all
+from repro_torch.ckpt import latest_step
 from repro_torch.cluster import QueueMetrics, engine, run_cluster
 from repro_torch.fleet import blocks, fleet_mesh, pad_count
 from repro_torch.fleet import run_all_fleet, run_cluster_fleet_strategy
@@ -466,10 +467,11 @@ def test_chunked_equals_monolithic_at_a_scenario_scale():
     assert_same_result(got, want)
 
 
-def test_run_all_routes_to_the_fleet(small_jobs, mono):
+def test_run_all_routes_to_the_fleet(small_jobs, mono, tmp_path):
     """run_all(devices=1) and run_all(chunk_jobs=) are run_all_fleet; a
-    run without them is the flat path; devices=2 and an unported chaos=
-    raise."""
+    run without them is the flat path; devices=2 and a chaos= that is no
+    FaultPlan raise; run_cluster(checkpoint=) routes to the windowed
+    fleet and equals the plain windowed run."""
     want, r_want = mono
     for kw in (dict(devices=1), dict(chunk_jobs=16),
                dict(mesh=fleet_mesh(device="cpu"))):
@@ -485,9 +487,15 @@ def test_run_all_routes_to_the_fleet(small_jobs, mono):
                     device="cpu")
     with pytest.raises(TypeError):
         run_all(Philox(0), small_jobs, P, chaos=object(), device="cpu")
-    with pytest.raises(TypeError):
-        run_cluster(Philox(0), small_jobs, P, slots=50,
-                    checkpoint="ckpt", device="cpu")
+    kw = dict(slots=50, chunk_jobs=10, strategies=("hadoop_ns", "sresume"),
+              device="cpu")
+    plain, r_plain = run_cluster(Philox(0), small_jobs, P, **kw)
+    saved, r_saved = run_cluster(Philox(0), small_jobs, P,
+                                 checkpoint=tmp_path, **kw)
+    assert r_saved == r_plain
+    for name in plain:
+        assert_same_result(saved[name], plain[name], name)
+        assert latest_step(tmp_path / name) == 3
 
 
 def test_flat_fleet_budget_is_one_global_solve(small_jobs):

@@ -145,8 +145,9 @@ def test_registry_order_equals_reference():
 
 def test_port_imports_neither_jax_nor_the_reference():
     """The package (with its workloads, coupled, obs, cluster, fleet,
-    serve and runtime packages) and chip_smoke.py import torch and numpy
-    only."""
+    serve, runtime, chaos and ckpt packages and the facade) and
+    chip_smoke.py import torch and numpy only: no jax, no reference, no
+    ml_dtypes."""
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.convert\n"
@@ -160,9 +161,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.philox, repro_torch.sim.draws\n"
         "import repro_torch.serve, repro_torch.serve.loop\n"
         "import repro_torch.obs.tail, repro_torch.runtime\n"
+        "import repro_torch.chaos, repro_torch.ckpt, repro_torch.api\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        " or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes']\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
