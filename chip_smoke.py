@@ -286,10 +286,42 @@ Phases; each raises on failure, so any failure exits non-zero:
    the warm generate; then one prefill and the 32 decode steps profiled
    apart.
 
-The last lines are the chaos JSON (phases 10e and 10f), the serving
-JSON (phase 10d), the fleet JSON (phase
-10c), the cluster JSON (phase 10b), the scenarios JSON (phases 6-10),
-the kernels JSON, the card line and the result JSON.
+16. the training path. (a) The differentiable flash-attention call
+   (`attention`: the kernel forward, `attention_backward` as its
+   gradient) against autograd through the plain version on the card, at
+   phase 14's shapes, one training microbatch's (B 1, H 8, K 4, S 2048,
+   D 256, bf16, softcap 50, the model's strided views) and the hot
+   softcap cases: the forward moves its route's count by one; dq, dk, dv
+   within 2e-5 of max |want| (f32) or phase 14's bf16 criteria, nonzero
+   wherever the plain version's are; the backward's ms at the path's
+   shape beside its bound and SDPA's forward and backward. (b) gemma2-2b
+   cut to 2 layers at full width, f32 compute, one train_step (AdamW) on
+   the card (SIMT route, 4 launches) and on the CPU from the same seeded
+   weights: loss within 1e-5 relative, gradients and updated parameters
+   within 1e-4 of each tensor's max (updated elements whose gradient is
+   within that of 0 may move either way: counted). (c) Trainer(gemma2-2b)
+   at full width, f32 parameters, bf16 compute, 4 steps of 4 microbatches
+   of 1 x 2048 on one repeated batch, the speculative pipeline on: every
+   count set to 0 just before the trainer (whose producer thread starts
+   deciding at once) and read after step 4: flash attention 52 x 4 a
+   step, all sm90; grid solve 5 (the Chronos strategies) per warm
+   governor decision, in both runs; losses
+   finite and lower at step 4 than at step 1, and the same bits in a
+   second run; first and warm step s, tokens/s, peak memory; one warm
+   step profiled (device busy, idle share, flash attention's and
+   `attention_backward`'s shares), the lm-head with cross-entropy and
+   the AdamW update timed alone; model FLOPs a step over the warm step
+   against the dense bf16 peak; the governor's decide ms in the
+   producer thread during the run and with the card idle. (d) a narrow
+   2-layer gemma2 (d 256, 4/2 heads of 64, vocab 4096):
+   run(fail_at=2) with checkpoints, restored into a fresh trainer, the
+   continued losses equal to an uninterrupted run's.
+
+The last lines are the training JSON (phase 16), the chaos JSON (phases
+10e and 10f), the serving JSON (phase 10d), the fleet JSON (phase 10c),
+the cluster JSON (phase 10b), the scenarios JSON (phases 6-10), the
+kernels JSON, the card line and the result JSON; each of the first five
+and the kernels JSON is also written under `chiprun_out/`.
 The script needs one CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
@@ -345,10 +377,17 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import dispatch_scan as ds  # noqa: E402
 from repro_torch.kernels import grid_solve as gs  # noqa: E402
 from repro_torch.kernels import philox as ph  # noqa: E402
+from repro_torch.data.pipeline import (PipelineConfig,  # noqa: E402
+                                       assemble, make_shard)
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.inputs import make_batch  # noqa: E402
 from repro_torch.models.transformer import padded_vocab  # noqa: E402
+from repro_torch.runtime.governor import WARM_DECISIONS  # noqa: E402
 from repro_torch.serve import Engine  # noqa: E402
+from repro_torch.train import (AdamW, Trainer, TrainerConfig,  # noqa: E402
+                               TrainState, make_train_step)
+from repro_torch.train.trainer import to_host  # noqa: E402
 from repro_torch.serve import (make_requests, run_serve,  # noqa: E402
                                serve_trace)
 from repro_torch.serve import loop as serve_loop  # noqa: E402
@@ -460,6 +499,24 @@ SERVE = dict(arch="gemma2-2b", batch=4, prompt=2048, tokens=32)
 FA_PATH = (SERVE["batch"], 8, 4, SERVE["prompt"], 256, "bfloat16", True,
            50.0)
 CHECK_SERVE = dict(layers=2, batch=2, prompt=200, tokens=4, tol=1e-4)
+# the training path (phase 16): gemma2-2b at full width, f32 parameters
+# and bf16 compute, 4 steps of 4 microbatches of 1 x 2048 tokens on one
+# repeated batch (data_cycle 1), the speculative input pipeline on
+TRAIN = dict(arch="gemma2-2b", n_steps=4, global_batch=4, seq_len=2048,
+             n_micro=4, n_data_shards=4, data_cycle=1)
+# one microbatch's attention call, as the model's strided views
+FA_TRAIN = (1, 8, 4, TRAIN["seq_len"], 256, "bfloat16", True, 50.0)
+# gradients of the f32 (SIMT) route: max |err| <= 2e-5 max |want|
+FA_GRAD_F32 = 2e-5
+# (b): gemma2-2b cut to 2 layers at full width, f32 compute, one
+# train_step on one 1 x 128 batch on the card and on the CPU
+CHECK_TRAIN = dict(layers=2, batch=1, seq=128, lr=3e-3, loss_rtol=1e-5,
+                   tol=1e-4)
+# (d): a narrow 2-layer gemma2 whose head dim the kernels take
+RESTART = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+               head_dim=64, d_ff=512, vocab_size=4096)
+RESTART_RUN = dict(n_steps=4, global_batch=4, seq_len=256, n_micro=2,
+                   ckpt_every=2, log_every=1000)
 SOURCES = ("grid_solve", "pocd_mc", "flash_attention",
            "flash_attention_sm90", "dispatch_scan", "philox_rows")
 CHECK_SHAPES = ((37, 9), (64, 33), (2700, 9), (65536, 64))
@@ -3823,6 +3880,515 @@ def phase_serve(dev) -> dict:
     return out
 
 
+def fa_grad_compare(what, got, want, dt) -> tuple:
+    """Raise unless the gradient `got` is finite, of want's type, nonzero
+    wherever `want` is, and within FA_GRAD_F32 of max |want| (f32) or,
+    for bf16, within FA_MEAN_REL / FA_MAX_REL of want's own size. Returns
+    (mean |err| / mean |want|, max |err| / max |want|)."""
+    if got.dtype != want.dtype or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"attention gradient {what}: {got.dtype}, not "
+                             f"all finite")
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    mean_rel = float(err.mean() / w.abs().mean())
+    max_rel = float(err.max() / w.abs().max())
+    lost = int(((g == 0) & (w != 0)).sum())
+    ok = (max_rel <= FA_GRAD_F32 if dt == "float32"
+          else mean_rel <= FA_MEAN_REL and max_rel <= FA_MAX_REL)
+    if not ok or lost:
+        raise AssertionError(
+            f"attention gradient {what}: mean |err| / mean |want| "
+            f"{mean_rel:.3g}, max |err| / max |want| {max_rel:.3g}, {lost} "
+            f"elements zero where autograd through the plain version's are "
+            f"not")
+    return mean_rel, max_rel
+
+
+def fa_backward_bound(B, H, K, S, D, causal):
+    """(bytes ms, operations ms) of the gradient: q, k, v and dO read, dq,
+    dk and dv written once, bf16; five products (the scores again, dV,
+    dP, dQ, dK) over the (query, key) pairs the mask allows, at the bf16
+    tensor-core rate."""
+    nbytes = 2 * D * S * (2 * B * H + 4 * B * K)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return (1e3 * nbytes / HBM_BYTES_PER_S,
+            1e3 * 10 * B * H * pairs * D / BF16_TENSOR_OPS_PER_S)
+
+
+def phase_train_attention(dev) -> dict:
+    """(a) The differentiable flash-attention call on the card: forward
+    (the kernel, one launch on its route) and gradients
+    (`attention_backward`) against autograd through `attention_plain` on
+    the same card, at phase 14's shapes, the training path's and the hot
+    softcap cases; then the backward's time at the path's shape."""
+    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    cases = ([(x, 1.0) for x in FA_SHAPES + (FA_TRAIN + (True,),)]
+             + [(x, FA_HOT_SCALE) for x in FA_HOT_SHAPES])
+    for i, (shape, q_scale) in enumerate(cases):
+        B, H, K, S, D, dt, causal, cap, views = shape
+        q, k, v = fa_inputs(B, H, K, S, D, dt, 200 + i, dev, views=views,
+                            q_scale=q_scale)
+        g = torch.Generator(device=dev)
+        g.manual_seed(400 + i)
+        dout = torch.randn((B, H, S, D), generator=g, device=dev).to(q.dtype)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        before = (fa.launches_sm90, fa.launches_simt)
+        out = fa.attention(*leaves, causal=causal, softcap=cap)
+        grads = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        moved = (fa.launches_sm90 - before[0], fa.launches_simt - before[1])
+        route = "sm90" if dt == "bfloat16" else "simt"
+        if moved != ((1, 0) if route == "sm90" else (0, 1)):
+            raise AssertionError(f"attention grad {shape}: route counts moved "
+                                 f"(sm90, simt) = {moved}, expected one "
+                                 f"{route} launch (the forward)")
+        plain = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        want_out = fa.attention_plain(*plain, causal=causal, softcap=cap)
+        want = torch.autograd.grad(want_out, plain, dout)
+        fa_compare(f"{shape} (forward under autograd)", out.detach(),
+                   want_out.detach(), dt)
+        for n, a, b in zip("qkv", grads, want):
+            rel = fa_grad_compare(f"d{n} {shape} q x{q_scale:g}", a, b, dt)
+            worst[dt] = [max(worst[dt][0], rel[0]), max(worst[dt][1], rel[1])]
+        del q, k, v, dout, leaves, out, grads, plain, want_out, want
+    print(f"train attention: {len(cases)} cases, dq, dk, dv equal autograd "
+          f"through the plain version (nonzero where it is); worst (mean "
+          f"|err| / mean |want|, max |err| / max |want|) f32 "
+          f"{worst['float32']}, bf16 {worst['bfloat16']}")
+
+    B, H, K, S, D, dt, causal, cap = FA_TRAIN
+    q, k, v = fa_inputs(B, H, K, S, D, dt, 9, dev, views=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    dout = torch.randn((B, H, S, D), generator=g, device=dev).to(q.dtype)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    backward = lambda: fa.attention_backward(q, k, v, dout, causal, cap)
+    both = lambda: torch.autograd.grad(
+        fa.attention(*leaves, causal=causal, softcap=cap), leaves, dout)
+    plain = lambda: torch.autograd.grad(
+        fa.attention_plain(*leaves, causal=causal, softcap=cap), leaves,
+        dout)
+    library = lambda: torch.autograd.grad(
+        torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=causal, enable_gqa=True), leaves, dout)
+    bytes_ms, ops_ms = fa_backward_bound(B, H, K, S, D, causal)
+    bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
+    out = dict(backward_ms=cuda_ms(backward, 10),
+               forward_backward_ms=cuda_ms(both, 10),
+               plain_forward_backward_ms=cuda_ms(plain, 5),
+               library_forward_backward_ms=cuda_ms(library, 10),
+               bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms,
+               ops_ms=ops_ms, cases=len(cases), worst_rel=worst,
+               library="torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True, enable_gqa=True) forward and "
+                       "backward, without the softcap",
+               shape=dict(zip(("B", "H", "K", "S", "D", "dtype", "causal",
+                               "softcap"), FA_TRAIN)))
+    out["bound_share"] = bound_ms / out["backward_ms"]
+    print(f"attention_backward at {FA_TRAIN}: {out['backward_ms']:.4f} ms "
+          f"(bound {bound_ms:.5f} ms, {bound_by}; {out['bound_share']:.3f} of "
+          f"it); kernel forward + backward {out['forward_backward_ms']:.4f} "
+          f"ms, autograd through the plain version "
+          f"{out['plain_forward_backward_ms']:.4f} ms, SDPA forward + "
+          f"backward without softcap (yardstick) "
+          f"{out['library_forward_backward_ms']:.4f} ms")
+    return out
+
+
+class GradRecorder:
+    """An optimizer that keeps a host copy of the gradients it is given,
+    then updates as the optimizer it wraps."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, lr_scale=1.0):
+        self.grads = to_host(grads)
+        return self.opt.update(grads, state, params, lr_scale=lr_scale)
+
+
+def phase_train_check(dev) -> dict:
+    """(b) gemma2-2b cut to CHECK_TRAIN["layers"] layers at full width, f32
+    compute: one train_step (AdamW, no schedule) on one batch from the
+    same seeded weights on the card (the SIMT flash-attention route) and
+    on the CPU (the plain version, which the CPU tests hold against the
+    JAX package). The loss within loss_rtol, each gradient within `tol`
+    of its tensor's max |CPU value|. AdamW's first step moves a weight by
+    lr g / (|g| + eps), about lr sign(g), so a gradient difference within
+    the tolerance moves a small gradient's weight by up to 2 lr: the card's
+    updated parameters are held within `tol` of each tensor's max against
+    the CPU's AdamW applied to the card's gradients, and the elements off
+    the CPU's own step by more than that are counted."""
+    c = CHECK_TRAIN
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=c["layers"], compute_dtype="float32")
+    t0 = time.perf_counter()
+    model = model_lib.build(cfg)
+    params = model.init(seed=1, device=dev)
+    host_params, start = to_host(params), to_host(params)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (c["batch"], c["seq"] + 1),
+                        dtype=np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def one_step(p, device):
+        opt = GradRecorder(AdamW(lr=c["lr"]))
+        step = make_train_step(model, opt, n_micro=1)
+        state = TrainState(p, opt.init(p),
+                           torch.zeros((), dtype=torch.int32, device=device))
+        state, m = step(state, {k: torch.from_numpy(v).to(device)
+                                for k, v in batch.items()},
+                        torch.ones((1,), device=device))
+        return float(m["loss"]), opt.grads, to_host(state.params)
+
+    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
+    card_loss, card_grads, card_params = one_step(params, dev)
+    counts = (fa.launches_simt, fa.launches_sm90)
+    if counts != (2 * cfg.n_layers, 0):
+        raise AssertionError(f"train check: flash-attention launches (simt, "
+                             f"sm90) {counts}, expected ({2 * cfg.n_layers}, "
+                             f"0): the forward and its recompute, f32 route")
+    del params
+    torch.cuda.empty_cache()
+    cpu_loss, cpu_grads, cpu_params = one_step(host_params, "cpu")
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    if not math.isfinite(card_loss) or loss_rel > c["loss_rtol"]:
+        raise AssertionError(f"train check: loss {card_loss} on the card, "
+                             f"{cpu_loss} on the CPU (rel {loss_rel:.3g})")
+    # the CPU's AdamW step on the card's gradients
+    opt = AdamW(lr=c["lr"])
+    opt.update(card_grads, opt.init(start), start)
+
+    def worst(got, want, what, fail=True):
+        rel, off = 0.0, 0
+        leaves = ckpt.checkpoint.tree_leaves_with_paths
+        for (path, a), (_, b) in zip(leaves(got), leaves(want), strict=True):
+            scale = max(float(b.abs().max()), 1e-30)
+            err = (a - b).abs()
+            rel = max(rel, float(err.max()) / scale)
+            off += int((err > c["tol"] * scale).sum())
+            if fail and float(err.max()) > c["tol"] * scale:
+                raise AssertionError(f"train check: {what} {path} "
+                                     f"{float(err.max()) / scale:.3g} of its "
+                                     f"max off (tol {c['tol']})")
+        return rel, off
+
+    grad_rel, _ = worst(card_grads, cpu_grads, "gradient")
+    param_rel, _ = worst(card_params, start, "updated parameter (against "
+                         "the CPU's AdamW on the card's gradients)")
+    step_rel, step_off = worst(card_params, cpu_params, "", fail=False)
+    secs = time.perf_counter() - t0
+    print(f"train check (gemma2-2b, {cfg.n_layers} layers, full width, f32, "
+          f"B {c['batch']} x {c['seq']}): {counts[0]} simt launches; loss "
+          f"{card_loss:.6f} card, {cpu_loss:.6f} CPU (rel {loss_rel:.3g}); "
+          f"gradients within {grad_rel:.3g} of each tensor's max; updated "
+          f"parameters within {param_rel:.3g} of the CPU's AdamW on the "
+          f"card's gradients; against the CPU's own step {step_off} elements "
+          f"beyond {c['tol']} of their tensor's max (worst {step_rel:.3g}); "
+          f"{secs:.1f} s")
+    return dict(loss_card=card_loss, loss_cpu=cpu_loss, loss_rel=loss_rel,
+                grad_rel=grad_rel, param_rel=param_rel,
+                params_off_cpu_step=step_off, param_rel_cpu_step=step_rel,
+                simt_launches=counts[0], seconds=secs)
+
+
+def model_flops_per_step(cfg, tokens: int, seqs: int, seq: int) -> float:
+    """6 x (matmul parameters) x tokens, plus 3 x the causal attention
+    products (forward and backward); the remat recompute not counted."""
+    per_layer = (cfg.d_model * cfg.head_dim * (2 * cfg.n_heads
+                                               + 2 * cfg.n_kv_heads)
+                 + 3 * cfg.d_model * cfg.d_ff)
+    matmul = cfg.n_layers * per_layer + cfg.d_model * padded_vocab(cfg)
+    attn = cfg.n_layers * seqs * 4 * cfg.n_heads * cfg.head_dim * (
+        seq * (seq + 1) // 2)
+    return 6 * matmul * tokens + 3 * attn
+
+
+def profile_train_step(fn, wall_s: float) -> dict:
+    """One torch.profiler pass over a warm train step: device busy, idle
+    share over the unprofiled wall, the flash-attention kernel's device
+    time and `attention_backward`'s (its kernels, inside a
+    record_function range), and the top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    inner = fa.attention_backward
+
+    def annotated(*a, **kw):
+        with record_function("attention_backward"):
+            return inner(*a, **kw)
+
+    fa.attention_backward = annotated
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        fa.attention_backward = inner
+    events = prof.key_averages()
+    # the range's own device row is its span on the device's timeline,
+    # not kernel time: kept out of the busy sum
+    rows = [e for e in events if e.device_type == DeviceType.CUDA
+            and e.key != "attention_backward"]
+    busy_us = sum(e.device_time_total for e in rows)
+    if busy_us <= 0:
+        raise AssertionError("profiler recorded no device time")
+    fa_us = sum(e.device_time_total for e in rows
+                if "flash_attention" in e.key)
+    # the kernels launched inside the range
+    bwd_us = sum(e.device_time_total for e in events
+                 if e.key == "attention_backward"
+                 and e.device_type == DeviceType.CPU)
+    top = [(e.key[:90], e.device_time_total / 1e3, e.count)
+           for e in sorted(rows, key=lambda e: -e.device_time_total)[:10]]
+    out = dict(device_busy_ms=busy_us / 1e3,
+               device_ops=sum(e.count for e in rows),
+               idle_share=1.0 - busy_us / 1e6 / wall_s,
+               flash_attention_ms=fa_us / 1e3,
+               attention_backward_ms=bwd_us / 1e3,
+               top=[dict(op=k, ms=ms, count=n) for k, ms, n in top])
+    print(f"profile train step: device busy {out['device_busy_ms']:.1f} ms in"
+          f" {out['device_ops']} device ops; unprofiled warm wall "
+          f"{wall_s * 1e3:.1f} ms; idle share {out['idle_share']:.3f}; flash "
+          f"attention {out['flash_attention_ms']:.1f} ms, attention_backward "
+          f"{out['attention_backward_ms']:.1f} ms")
+    for k, ms, n in top:
+        print(f"  {ms:9.3f} ms {100 * ms * 1e3 / busy_us:5.1f}% x{n:<6d} {k}")
+    return out
+
+
+def head_ce_ms(params, cfg, dev) -> float:
+    """The lm-head and cross-entropy of one microbatch (1 x seq_len),
+    forward and backward, alone (CUDA events)."""
+    V, S = cfg.vocab_size, TRAIN["seq_len"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    x = torch.randn((1, S, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    labels = torch.randint(0, V, (1, S), generator=g, device=dev)
+    w = params["lm_head"]
+
+    def fn():
+        logits = model_layers.logits_head(w, x, cfg.final_softcap)
+        loss = model_layers.cross_entropy(logits[:, :-1, :V], labels[:, 1:])
+        return torch.autograd.grad(loss, (x, w))
+
+    return cuda_ms(fn, 5)
+
+
+def train_batch(tcfg: TrainerConfig, cfg, dev) -> dict:
+    """Step 0's batch of the trainer's pipeline, as tensors on the card."""
+    pcfg = PipelineConfig(vocab_size=cfg.vocab_size, seq_len=tcfg.seq_len,
+                          global_batch=tcfg.global_batch,
+                          n_shards=tcfg.n_data_shards, cycle=tcfg.data_cycle)
+    b = assemble(pcfg, [make_shard(pcfg, 0, s)
+                        for s in range(tcfg.n_data_shards)])
+    return {k: torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels")}
+
+
+def trainer_run(cfg, tcfg, dev) -> tuple:
+    """A Trainer's run with the counts set to 0 just before the trainer is
+    built: its input pipeline's producer thread starts deciding (and so
+    launching the grid solve) as soon as it exists, up to
+    `prefetch_depth` steps ahead of the training steps, and a reset
+    after that could fall inside a decision. Returns (trainer, history,
+    counts, peak bytes, build s, the warm decisions' host ms)."""
+    gs.launches = 0
+    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
+    torch.cuda.reset_peak_memory_stats()
+    t, build_s = synced(lambda: Trainer(cfg, tcfg, seed=0, device=dev))
+    decide_ms, specs = [], []
+    gov, tel = t.governor, t.telemetry
+    inner = gov.decide
+
+    def timed():
+        before = tel.counters.get(WARM_DECISIONS, 0)
+        t0 = time.perf_counter()
+        sol = inner()
+        if tel.counters.get(WARM_DECISIONS, 0) != before:   # it solved
+            decide_ms.append(1e3 * (time.perf_counter() - t0))
+            specs.append(gov.last_spec)
+        return sol
+
+    gov.decide = timed
+    hist, _ = synced(t.run)
+    del gov.decide                                    # the class's again
+    counts = dict(flash_attention=fa.launches,
+                  flash_attention_sm90=fa.launches_sm90,
+                  flash_attention_simt=fa.launches_simt,
+                  grid_solve=gs.launches,
+                  warm_decisions=t.telemetry.counters.get(WARM_DECISIONS, 0))
+    return (t, hist, counts, torch.cuda.max_memory_allocated(), build_s,
+            decide_ms, specs)
+
+
+def check_governor(gov, specs) -> float:
+    """Each warm decision's JobSpec (J = 1, fitted from the run's shard
+    telemetry) through the kernel and the plain version, for every
+    strategy the governor sweeps, at its r_max. Returns the max |error|
+    of U, PoCD and cost."""
+    errs = [0.0]
+    for i, spec in enumerate(specs):
+        job = JobSpec(*(x.reshape(1) for x in spec))
+        for s in gov.cfg.strategies or names(kind="chronos"):
+            errs += check_grid(get(s), job, gov.cfg.max_r + 1,
+                               f"train governor decision {i}")
+    return max(errs)
+
+
+def phase_train(dev) -> dict:
+    """(c) the training path at full width: Trainer(gemma2-2b, TRAIN) for
+    4 steps, counted; a warm step timed and profiled; the lm-head with
+    cross-entropy and the AdamW update timed alone; a second run from
+    the same seed, loss for loss."""
+    cfg = get_config(TRAIN["arch"])
+    tcfg = TrainerConfig(n_steps=TRAIN["n_steps"],
+                         global_batch=TRAIN["global_batch"],
+                         seq_len=TRAIN["seq_len"], n_micro=TRAIN["n_micro"],
+                         n_data_shards=TRAIN["n_data_shards"],
+                         data_cycle=TRAIN["data_cycle"],
+                         speculative_input=True, log_every=1000)
+    n_chronos = len(names(kind="chronos"))
+    t, hist, counts, peak, build_s, decide_ms, specs = trainer_run(cfg, tcfg,
+                                                                   dev)
+    losses = [h["loss"] for h in hist]
+    want_fa = 2 * cfg.n_layers * tcfg.n_micro * tcfg.n_steps
+    if (counts["flash_attention"], counts["flash_attention_sm90"]) != (
+            want_fa, want_fa) or counts["flash_attention_simt"]:
+        raise AssertionError(f"train: flash-attention launches {counts}, "
+                             f"expected {want_fa} (forward and recompute of "
+                             f"{cfg.n_layers} layers x {tcfg.n_micro} "
+                             f"microbatches x {tcfg.n_steps} steps), all "
+                             f"sm90")
+    if counts["grid_solve"] != n_chronos * counts["warm_decisions"] or \
+            not counts["warm_decisions"]:
+        raise AssertionError(f"train: grid-solve launches {counts}, expected "
+                             f"{n_chronos} per warm governor decision")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} (finite, and lower at "
+                             f"the last step than at the first)")
+    times = [h["time"] for h in hist]
+    warm_s = sorted(times[1:])[len(times[1:]) // 2]
+    tokens = tcfg.global_batch * tcfg.seq_len
+    flops = model_flops_per_step(cfg, tokens, tcfg.global_batch,
+                                 tcfg.seq_len)
+
+    # a warm step alone, timed then profiled (the trainer's state moves on)
+    batch = train_batch(tcfg, cfg, dev)
+    mask = torch.ones((tcfg.n_micro,), device=dev)
+    step = make_train_step(t.model, t.optimizer, tcfg.n_micro)
+
+    def one_step():
+        t.state, m = step(t.state, batch, mask)
+        return m
+
+    walls = [synced(one_step)[1] for _ in range(2)]
+    prof = profile_train_step(one_step, min(walls))
+    head_ms = head_ce_ms(t.state.params, cfg, dev)
+    adamw_ms = cuda_ms(lambda: t.optimizer.update(
+        t.state.opt_state.m, t.state.opt_state, t.state.params, 1.0), 3)
+    idle_decide_ms = [1e3 * synced(t.governor.decide)[1] for _ in range(3)]
+    params = sum(x.numel() for x in ckpt.checkpoint.tree_leaves(
+        t.state.params))
+    del t, batch, step
+    torch.cuda.empty_cache()
+
+    t2, hist2, counts2, _, _, _, specs2 = trainer_run(cfg, tcfg, dev)
+    governor_err = check_governor(t2.governor, specs + specs2)
+    losses2 = [h["loss"] for h in hist2]
+    del t2
+    torch.cuda.empty_cache()
+    if losses2 != losses:
+        raise AssertionError(f"train: a second run from the same seed gave "
+                             f"losses {losses2} against {losses}")
+    if counts2["grid_solve"] != n_chronos * counts2["warm_decisions"] or \
+            counts2["flash_attention_sm90"] != want_fa:
+        raise AssertionError(f"train: second run's launches {counts2}")
+    busy = prof["device_busy_ms"]
+    out = dict(
+        arch=TRAIN["arch"], params=params, trainer=dataclasses.asdict(tcfg),
+        build_s=build_s, losses=losses, step_s=times,
+        first_step_s=times[0], warm_step_s=warm_s,
+        warm_step_alone_s=min(walls), tokens_per_s=tokens / warm_s,
+        peak_memory_bytes=peak, counts=counts, counts_second_run=counts2,
+        step_s_second_run=[h["time"] for h in hist2],
+        same_losses_twice=True, model_flops_per_step=flops,
+        mfu=flops / warm_s / BF16_TENSOR_OPS_PER_S, profile=prof,
+        shares=dict(
+            flash_attention=prof["flash_attention_ms"] / busy,
+            attention_backward=prof["attention_backward_ms"] / busy,
+            lm_head_cross_entropy_alone=tcfg.n_micro * head_ms / busy,
+            adamw_update_alone=adamw_ms / busy),
+        lm_head_cross_entropy_ms=head_ms, adamw_update_ms=adamw_ms,
+        decide_ms_during_run=decide_ms, decide_ms_idle=idle_decide_ms,
+        governor_decisions_checked=len(specs) + len(specs2),
+        governor_grid_max_abs_err=governor_err)
+    print(f"train {TRAIN['arch']} ({params:,} parameters, f32; bf16 compute; "
+          f"{tcfg.n_steps} steps of {tcfg.n_micro} x 1 x {tcfg.seq_len}): "
+          f"build {build_s:.2f} s; losses {losses}; step s {times} (first "
+          f"{times[0]:.3f}, warm {warm_s:.3f}, alone {min(walls):.3f}); "
+          f"{out['tokens_per_s']:.0f} tokens/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {counts}; model FLOPs a step "
+          f"{flops:.4g}, {out['mfu']:.3f} of the dense bf16 peak; shares "
+          f"of device busy {out['shares']}; lm-head + CE {head_ms:.2f} ms a "
+          f"microbatch, AdamW {adamw_ms:.2f} ms; governor decide ms during "
+          f"the run {[round(x, 2) for x in decide_ms]}, idle "
+          f"{[round(x, 2) for x in idle_decide_ms]}; the governor's "
+          f"{len(specs) + len(specs2)} warm decisions of both runs against "
+          f"the plain grid solve, max |err| {governor_err:.3g}; second run: "
+          f"the same "
+          f"losses, launches {counts2}, step s "
+          f"{out['step_s_second_run']}")
+    return out
+
+
+def phase_train_restart(dev) -> dict:
+    """(d) a narrow 2-layer gemma2 (RESTART; head dim 64, the tensor-core
+    route): run(fail_at=2) with checkpoints, restore into a fresh trainer
+    from another seed, continue; the continued losses must equal an
+    uninterrupted run's."""
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              name="gemma2-2b-narrow", **RESTART)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        def trainer(seed, ckpt_dir):
+            return Trainer(cfg, TrainerConfig(**RESTART_RUN,
+                                              ckpt_dir=ckpt_dir),
+                           seed=seed, device=dev)
+
+        want = [h["loss"] for h in trainer(3, None).run()]
+        try:
+            trainer(3, d).run(fail_at=2)
+        except RuntimeError as err:
+            if "injected failure" not in str(err):
+                raise
+        else:
+            raise AssertionError("train restart: run(fail_at=2) did not fail")
+        t2 = trainer(4, d)
+        resumed = t2.maybe_restore()
+        tail = t2.run()
+        got = [h["loss"] for h in tail]
+        ckpt_bytes = dir_bytes(d)
+    if resumed != 2 or [h["step"] for h in tail] != [2, 3] or \
+            got != want[2:]:
+        raise AssertionError(f"train restart: resumed at {resumed}, steps "
+                             f"{[h['step'] for h in tail]}, losses {got} "
+                             f"against the uninterrupted {want[2:]}")
+    secs = time.perf_counter() - t0
+    print(f"train restart ({cfg.name}: d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}): failed after step 2, restored at {resumed}, "
+          f"losses {got} equal the uninterrupted run's; checkpoints "
+          f"{ckpt_bytes:,} bytes kept; {secs:.1f} s")
+    return dict(resumed_at=resumed, losses=want, continued=got,
+                ckpt_bytes=ckpt_bytes, seconds=secs)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -3932,6 +4498,12 @@ def main() -> None:
     fa_t = fa_times(dev)
     serve_check = phase_serve_check(dev)
     serve = phase_serve(dev)
+    t16 = time.perf_counter()
+    train = dict(attention=phase_train_attention(dev),
+                 check=phase_train_check(dev), full_width=phase_train(dev),
+                 restart=phase_train_restart(dev))
+    train["seconds"] = time.perf_counter() - t16
+    print(f"phase 16: {train['seconds']:.1f} s")
 
     # last: a profiler session this large can cost the next session its
     # first kernel records, and kernel_ms counts every launch
@@ -3949,11 +4521,13 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/grid_solve.cu",
         "replaces": "src/repro/kernels/grid_solve.py:142",
         "launches": launches,
-        # the check shapes, the scenarios' inputs and the fleet's first
-        # solves (100,000 jobs and an 8,192-job chunk)
+        # the check shapes, the scenarios' inputs, the fleet's first
+        # solves (100,000 jobs and an 8,192-job chunk) and the training
+        # governor's warm decisions (J = 1)
         "max_abs_err": max(check["max_abs_err"], scen_kernel["max_abs_err"],
                            *(v["max_abs_err"] for v in fleet["flat"][
-                               "grid_solve_vs_plain"].values())),
+                               "grid_solve_vs_plain"].values()),
+                           train["full_width"]["governor_grid_max_abs_err"]),
         # one run_all's work: the 6 optimized strategies at J=2700, r_max=9;
         # ms is device time per launch (profiler), call_ms the wrapper call
         # (CUDA events over back-to-back calls)
@@ -4000,6 +4574,13 @@ def main() -> None:
         # phase 10e (a): the chunked run_all under a plan of faults that
         # change nothing, counted from 0 (the solve is outside the retry)
         "launches_chaos": chaos["launches"]["grid_solve"],
+        # phase 16 (c): the full-width Trainer's 4 steps, one launch per
+        # Chronos strategy per warm governor decision (the pipeline's
+        # producer thread runs ahead of the steps)
+        "launches_train": train["full_width"]["counts"]["grid_solve"],
+        "train_warm_decisions": train["full_width"]["counts"][
+            "warm_decisions"],
+        "max_abs_err_train": train["full_width"]["governor_grid_max_abs_err"],
     }]
 
     def mc_entry(name, line, launches, parts, err, **extra):
@@ -4068,7 +4649,21 @@ def main() -> None:
                      "is_causal=True, enable_gqa=True) without the softcap",
              shape=dict(zip(("B", "H", "K", "S", "D", "dtype", "causal",
                              "softcap"), FA_PATH)),
-             serve=serve, serve_check=serve_check),
+             serve=serve, serve_check=serve_check,
+             # phase 16 (c): the full-width Trainer's 4 steps, forward and
+             # remat recompute of every layer and microbatch, all sm90
+             launches_train=train["full_width"]["counts"]["flash_attention"],
+             route_counts_train={
+                 "sm90": train["full_width"]["counts"][
+                     "flash_attention_sm90"],
+                 "simt": train["full_width"]["counts"][
+                     "flash_attention_simt"]},
+             # phase 16 (a): the gradient (attention_backward, plain torch)
+             # at one training microbatch's shape
+             train_backward={k: train["attention"][k] for k in (
+                 "backward_ms", "forward_backward_ms",
+                 "plain_forward_backward_ms", "library_forward_backward_ms",
+                 "bound_ms", "bound_by", "shape")}),
     ]
     ct = cluster["times"]
     kernels.append(dict(
@@ -4161,6 +4756,10 @@ def main() -> None:
         # phase 10e (a): the faulted chunked run_all, chunk 4 drawn twice
         launches_chaos=chaos["launches"]["philox_rows"],
         check=philox_check))
+    train_line = json.dumps({"train": train})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "train.json").write_text(train_line)
+    print(train_line)
     chaos_line = json.dumps({"chaos": chaos})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chaos.json").write_text(chaos_line)
@@ -4180,7 +4779,9 @@ def main() -> None:
     print(json.dumps({"scenarios": {
         "workloads": workloads, "runs": scen_runs, "budget": budget,
         "spans": spans}}))
-    print(json.dumps({"kernels": kernels}))
+    kernels_line = json.dumps({"kernels": kernels})
+    (ROOT / "chiprun_out" / "kernels.json").write_text(kernels_line)
+    print(kernels_line)
     print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,7 +40,14 @@ Ported so far:
    run gives the uninterrupted run's bits;
 9. the facade, `RunConfig` and `simulate` (`api`), which route one config
    to the flat, capacity or serving path. They resolve lazily, so
-   `import repro_torch` does not import the facade.
+   `import repro_torch` does not import the facade;
+10. the governed training path (`train.Trainer`, `launch/train.py`):
+   AdamW over the dense transformer's `loss_fn` with remat, the input
+   pipeline (`data`) under the Chronos `runtime.StepGovernor` (the
+   grid-solve kernel) and `SpeculativeTaskRunner`, with flash attention
+   differentiable (the kernel forward, `attention_backward` in plain
+   torch); with it the rest of `core` (`pareto`, `estimator`,
+   `multiwave`).
 """
 from .cluster import run_cluster, run_cluster_strategy
 from .device import resolve_device

@@ -41,15 +41,23 @@ _BIT_DTYPES = {
 _NAME_OF = {t: name for name, (t, _, _) in _BIT_DTYPES.items()}
 
 
-def tree_leaves(tree) -> list:
-    """The leaves of `tree` in the reference's (jax.tree) order."""
+def tree_leaves_with_paths(tree, path=()) -> list:
+    """[(path, leaf)] in the reference's (jax.tree) order; a path is a
+    tuple of dict keys and sequence indices."""
     if tree is None:
         return []
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+        return [x for k in sorted(tree)
+                for x in tree_leaves_with_paths(tree[k], path + (k,))]
     if isinstance(tree, (list, tuple)):
-        return [x for t in tree for x in tree_leaves(t)]
-    return [tree]
+        return [x for i, t in enumerate(tree)
+                for x in tree_leaves_with_paths(t, path + (i,))]
+    return [(path, tree)]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of `tree` in the reference's (jax.tree) order."""
+    return [x for _, x in tree_leaves_with_paths(tree)]
 
 
 def _structure(tree) -> str:
@@ -81,6 +89,17 @@ def tree_rebuild(like, leaves):
         return type(like)(*items) if hasattr(like, "_fields") else \
             tuple(items)
     return next(leaves)
+
+
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of `tree` and the matching leaves (or None) of
+    `rest`, keeping `tree`'s structure; a None in `tree` is a leaf here."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def _host(leaf, allow_cuda: bool = True):

@@ -1,0 +1,19 @@
+"""deepseek-coder-33b — dense llama-arch [arXiv:2401.14196; hf]."""
+from .base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="deepseek-coder-33b",
+    family="dense",
+    n_layers=62,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=19200,
+    vocab_size=32256,
+    rope_theta=100_000.0,
+    activation="swiglu",
+    optimizer="adamw",
+    remat="full",
+    source="arXiv:2401.14196; hf:deepseek-ai/deepseek-coder-33b-base",
+))

@@ -2,8 +2,8 @@
 
 The simulator's state is the trace (a JobSet), the per-job Algorithm-1
 inputs (a JobSpec), the simulator parameters and, under capacity, a
-strategy's AttemptTable; the model's is its
-parameter tree. These functions take that state as plain numpy arrays
+strategy's AttemptTable; the model's is its parameter tree, and the
+trainer's adds the optimizer's state. These functions take that state as plain numpy arrays
 and numbers, e.g. `{f: np.asarray(getattr(ref_jobs, f)) for f in ...}`,
 so that both packages can be fed the same inputs without this package
 importing the reference.
@@ -85,7 +85,8 @@ def model_params(tree: Mapping, cfg, *, device=None) -> dict:
 
     The reference stacks each block leaf with a leading `steps` axis, one
     dict per spec of the block pattern; layer l of the port is step
-    l // len(specs) of spec l % len(specs)."""
+    l // len(specs) of spec l % len(specs). A 0-dim block leaf (an
+    optimizer's placeholder) goes to every layer as it is."""
     from .models.transformer import block_pattern, check_supported
     check_supported(cfg)
     dev = resolve_device(device)
@@ -95,9 +96,13 @@ def model_params(tree: Mapping, cfg, *, device=None) -> dict:
         raise ValueError(f"model_params: {len(stacked)} stacked block dicts, "
                          f"the pattern has {len(pat.specs)}")
 
+    def at(a, step):
+        a = np.asarray(a)
+        return a if a.ndim == 0 else a[step]
+
     def layer(sub, step):
         return {k: layer(v, step) if isinstance(v, Mapping)
-                else _param(np.asarray(v)[step], dev)
+                else _param(at(v, step), dev)
                 for k, v in sub.items()}
 
     n = len(pat.specs)
@@ -106,3 +111,37 @@ def model_params(tree: Mapping, cfg, *, device=None) -> dict:
                        for i in range(cfg.n_layers)],
             "final_norm": _param(tree["final_norm"], dev),
             "lm_head": _param(tree["lm_head"], dev)}
+
+
+def _step(a, dev) -> torch.Tensor:
+    return _tensor(a, np.int32, dev).reshape(())
+
+
+def adamw_state(fields: Mapping, cfg, *, device=None):
+    """The port's `AdamWState` from the reference's `AdamWState._asdict()`
+    (numpy leaves; m, v and master in the reference's parameter layout).
+    The port keeps no master copy of an f32 parameter (it is its own), so
+    master becomes None there: the reference's f32 master equals the
+    parameter."""
+    from .ckpt.checkpoint import tree_map
+    from .train.optimizer import AdamWState
+    dev = resolve_device(device)
+    master = model_params(fields["master"], cfg, device=dev)
+    if cfg.param_dtype == "float32":
+        master = tree_map(lambda _: None, master)
+    return AdamWState(step=_step(fields["step"], dev),
+                      m=model_params(fields["m"], cfg, device=dev),
+                      v=model_params(fields["v"], cfg, device=dev),
+                      master=master)
+
+
+def adafactor_state(fields: Mapping, cfg, *, device=None):
+    """The port's `AdafactorState` from the reference's
+    `AdafactorState._asdict()` (numpy leaves in the reference's parameter
+    layout; the 0-dim placeholders of factored or unfactored leaves go to
+    every layer)."""
+    from .train.optimizer import AdafactorState
+    dev = resolve_device(device)
+    return AdafactorState(step=_step(fields["step"], dev),
+                          **{f: model_params(fields[f], cfg, device=dev)
+                             for f in ("vr", "vc", "v")})

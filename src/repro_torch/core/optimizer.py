@@ -85,16 +85,18 @@ def solve_grid(strategy: str, job: JobSpec, r_max: int | None = None, *,
         return Solution(strategy, int(r), u, p, c)
 
 
-def solve(job: JobSpec, strategies=None, *, device=None) -> Solution:
+def solve(job: JobSpec, strategies=None, *, r_max: int | None = None,
+          device=None) -> Solution:
     """Best (strategy, r) for a job; `strategies=None` sweeps every
-    registered Chronos strategy (`names(kind="chronos")`)."""
+    registered Chronos strategy (`names(kind="chronos")`). `r_max` is
+    `solve_grid`'s."""
     if strategies is None:
         from ..strategies import names
         strategies = names(kind="chronos")
     with obs_trace.span("optimizer.solve", n_strategies=len(strategies)):
         best = None
         for s in strategies:
-            sol = solve_grid(s, job, device=device)
+            sol = solve_grid(s, job, r_max, device=device)
             if best is None or sol.utility > best.utility:
                 best = sol
         return best

@@ -1,7 +1,7 @@
-"""Flash attention forward: causal or full, GQA, tanh logit softcap.
+"""Flash attention: causal or full, GQA, tanh logit softcap.
 
 Replaces the Pallas TPU kernel `repro/kernels/flash_attention.py`
-(`flash_attention`, body `_kernel`). Three forms:
+(`flash_attention`, body `_kernel`), a forward. Forms:
 
 * `attention_plain`: plain PyTorch, the reference's oracle
   `ref.attention_ref` op for op (f32 scores and softmax), on any device;
@@ -13,8 +13,11 @@ Replaces the Pallas TPU kernel `repro/kernels/flash_attention.py`
   `csrc/flash_attention.cu` (`attention_simt`): f32 products on the SIMT
   units, which hold the f32 tolerance of 2e-5 that bf16 or TF32 products
   would not;
-* `attention`: the wrapper. CPU tensors take the plain version, CUDA
-  tensors the kernel; anything else raises.
+* `attention_forward`: the routed forward. CPU tensors take the plain
+  version, CUDA tensors the kernel; anything else raises;
+* `attention`: the wrapper, `attention_forward` under autograd with
+  `attention_backward` (plain torch on either device; the Pallas kernel
+  has none) as its gradient.
 
 q is (B, H, Sq, D), k and v (B, K, Sk, D) with H % K == 0; query head h
 reads kv head h // (H // K). The scale is D**-0.5, the softcap
@@ -212,13 +215,87 @@ def attention_cuda(q, k, v, causal=True, softcap=None):
     return _launch(route, q, k, v, causal, softcap)
 
 
-def attention(q, k, v, causal=True, softcap=None):
-    """Flash attention forward: q (B, H, Sq, D), k/v (B, K, Sk, D) ->
-    (B, H, Sq, D) in q's type. The plain version for CPU tensors, the
-    CUDA kernel for CUDA ones."""
+def attention_forward(q, k, v, causal=True, softcap=None):
+    """Flash attention forward with no autograd record: q (B, H, Sq, D),
+    k/v (B, K, Sk, D) -> (B, H, Sq, D) in q's type. The plain version for
+    CPU tensors, the CUDA kernel for CUDA ones."""
     kind = q.device.type
     if kind == "cpu":
         return attention_plain(q, k, v, causal=causal, softcap=softcap)
     if kind == "cuda":
         return attention_cuda(q, k, v, causal=causal, softcap=softcap)
     raise ValueError(f"attention: no kernel for device {q.device}")
+
+
+def attention_backward(q, k, v, dout, causal=True, softcap=None):
+    """(dq, dk, dv) of `attention` given the output's gradient `dout`,
+    each in its input's type.
+
+    The Pallas kernel has no backward (the reference differentiates its
+    einsum attention through XLA), so this is ordinary torch code, the
+    same on the CPU and the card, in f32: the scores are recomputed with
+    the softcap and the causal mask, then P = softmax(s), dP = dO V^T,
+    D = rowsum(P * dP), dS = P * (dP - D), times the softcap's derivative
+    1 - tanh^2(s / cap) of the scaled scores; dq = scale dS K, dk = scale
+    dS^T Q and dv = P^T dO, each summed over the query heads of a kv
+    group. Memory: a few (B, H, Sq, Sk) f32 tensors at once.
+
+    D is rowsum(dO * O) in exact arithmetic. Formed from a bf16 output it
+    is not accurate enough where the softmax is peaked and dP - D cancels
+    (scores past the softcap): dq then misses the bf16 criterion of a
+    mean error within 2^-8 of its mean size against autograd through
+    `attention_plain`. From the recomputed f32 P it is what autograd of
+    the softmax forms, so no output is saved."""
+    B, H, K, Sq, Sk, D = _check(q, k, v, causal)
+    f32 = torch.float32
+    scale = D ** -0.5
+    qg = q.reshape(B, K, H // K, Sq, D).to(f32)
+    kf, vf = k.to(f32), v.to(f32)
+    do = dout.reshape(B, K, H // K, Sq, D).to(f32)
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) * scale
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    if causal:
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    del s
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, do)
+    dp = torch.einsum("bkgsd,bktd->bkgst", do, vf)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    del p, dp
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)
+        del t
+    ds = ds * scale
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf).reshape(B, H, Sq, D)
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    """`attention_forward` with `attention_backward` as its gradient;
+    saves q, k and v (the backward recomputes the scores)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, softcap):
+        out = attention_forward(q, k, v, causal=causal, softcap=softcap)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.softcap = causal, softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, dout, ctx.causal,
+                                        ctx.softcap)
+        return dq, dk, dv, None, None
+
+
+def attention(q, k, v, causal=True, softcap=None):
+    """Flash attention, differentiable: q (B, H, Sq, D), k/v (B, K, Sk, D)
+    -> (B, H, Sq, D) in q's type. The forward is `attention_forward` (the
+    plain version for CPU tensors, the CUDA kernel for CUDA ones), the
+    gradient `attention_backward` on either device."""
+    return _Attention.apply(q, k, v, causal, softcap)

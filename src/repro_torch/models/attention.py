@@ -1,5 +1,5 @@
-"""GQA attention: prefill (full-sequence) and decode (KV cache) paths;
-counterpart of `repro.models.attention`.
+"""GQA attention: full-sequence (prefill and training) and decode (KV
+cache) paths; counterpart of `repro.models.attention`.
 
 Supports grouped-query attention (q heads grouped kv-major: head h reads
 kv head h // q_per_kv), causal / bidirectional / prefix-LM masks, sliding
@@ -84,12 +84,15 @@ def _project(x, w):
 
 
 def attention_full(p, x, positions, cfg, spec: MaskSpec):
-    """Prefill over a full sequence. Returns (out, (k, v)).
+    """Attention over a full sequence, for prefill and for training.
+    Returns (out, (k, v)).
 
     Where the kernel expresses the mask (`kernel_expresses`), attention
-    goes through `ops.attention` whatever `cfg.attn_impl` says. Otherwise
-    a CPU tensor takes the plain `_attend`, and a CUDA tensor raises: the
-    kernel has no window or prefix mask yet (ROADMAP.md)."""
+    goes through `ops.attention` whatever `cfg.attn_impl` says: the
+    kernel forward under autograd, with `attention_backward` as its
+    gradient. Otherwise a CPU tensor takes the plain `_attend`, which
+    autograd differentiates, and a CUDA tensor raises: the kernel has no
+    window or prefix mask yet (ROADMAP.md)."""
     S = x.shape[1]
     xq = _project(x, p["wq"])
     xk = _project(x, p["wk"])

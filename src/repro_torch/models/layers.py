@@ -1,6 +1,6 @@
-"""Shared neural layers, the serving half: norms, RoPE, MLPs, softcaps,
-embeddings. Counterpart of `repro.models.layers`, op for op and in the
-same types; `cross_entropy` comes with the training slice."""
+"""Shared neural layers: norms, RoPE, MLPs, softcaps, embeddings and the
+cross-entropy loss. Counterpart of `repro.models.layers`, op for op and
+in the same types."""
 from __future__ import annotations
 
 import torch
@@ -106,3 +106,14 @@ def logits_head(w, x, final_cap=None):
     configured)."""
     out = (x @ w.to(x.dtype)).to(torch.float32)
     return softcap(out, final_cap)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean CE over valid positions; logits float32 (B, S, V)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(nll.dtype)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

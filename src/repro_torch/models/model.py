@@ -5,10 +5,11 @@
   forward(params, batch)           -> (logits, aux)
   prefill(params, batch, max_seq)  -> (logits, cache)   [serving]
   decode_step(params, tokens, cache) -> (logits, cache)
+  loss_fn(params, batch)           -> (loss, metrics)    [training]
 
 Cache convention, as in the reference: a dict with "kv" (one {"k", "v"}
 dict per layer) and "lengths" (B,) int32 holding the current position.
-Training (`loss_fn`) and the other families wait for later slices.
+The other families wait for later slices.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ class Model:
     forward: Callable
     prefill: Callable
     decode_step: Callable
+    loss_fn: Callable
 
 
 def build(cfg) -> Model:
@@ -51,4 +53,7 @@ def build(cfg) -> Model:
                                              cache["lengths"], cfg)
         return logits, {"kv": kv, "lengths": lengths}
 
-    return Model(cfg, init, forward, prefill, decode_step)
+    def loss_fn(params, batch):
+        return TF.loss_fn(params, batch, cfg)
+
+    return Model(cfg, init, forward, prefill, decode_step, loss_fn)

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
 from . import layers as L
@@ -139,18 +140,55 @@ def _positions(B, S, device):
         B, S)
 
 
-def forward(params, batch, cfg):
-    """Full forward to float32 logits (B, S, Vp); returns (logits, aux)."""
+def forward(params, batch, cfg, remat=True):
+    """Full forward to float32 logits (B, S, Vp); returns (logits, aux).
+
+    With `remat` and `cfg.remat != "none"`, while autograd records, each
+    block runs under `torch.utils.checkpoint` (non-reentrant): its
+    activations are recomputed in the backward, so its attention runs
+    twice a step. The reference checkpoints each scan step (one pattern
+    unit); `"dots"`, which there keeps the matmul outputs, recomputes the
+    whole block here: the same values, more work."""
     x, prefix_len = _embed_inputs(params, batch, cfg)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat and cfg.remat != "none" and torch.is_grad_enabled()
     for p, spec in zip(params["blocks"], layer_specs(cfg, prefix_len),
                        strict=True):
-        x, _, a = apply_block(p, x, positions, cfg, spec)
+        if remat:
+            x, a = checkpoint(_block_train, p, x, positions, cfg, spec,
+                              use_reentrant=False)
+        else:
+            x, a = _block_train(p, x, positions, cfg, spec)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.logits_head(params["lm_head"], x, cfg.final_softcap), aux
+
+
+def _block_train(p, x, positions, cfg, spec):
+    """apply_block without its kv: (x, aux)."""
+    x, _, aux = apply_block(p, x, positions, cfg, spec)
+    return x, aux
+
+
+def loss_fn(params, batch, cfg, remat=True):
+    """Next-token CE (+ the aux loss, 0 in the dense family). Returns
+    (loss, metrics). As in the reference, position t's logits are held
+    against labels[t + 1] (the batch's labels are already the next
+    tokens), over the first vocab_size logits."""
+    logits, aux = forward(params, batch, cfg, remat)
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    V = cfg.vocab_size
+    if not cfg.causal:
+        ce = L.cross_entropy(logits[..., :V], torch.clamp(labels, min=0),
+                             mask=labels >= 0)
+    else:
+        ce = L.cross_entropy(logits[:, :-1, :V],
+                             torch.clamp(labels[:, 1:], min=0),
+                             mask=labels[:, 1:] >= 0)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux_loss": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,25 @@
-"""Runtime telemetry of the port; counterpart of `repro.runtime`. Only
-`DurationWindow` is ported (the storage of `obs.tail`); the rest of the
-runtime waits for its slice (ROADMAP.md)."""
-from .telemetry import DurationWindow
+"""Runtime substrates of the port: telemetry, the Chronos StepGovernor
+and speculative host tasks; counterpart of `repro.runtime`. Its
+`elastic` (re-sharding a training state over a shrunk mesh) waits for
+the multi-card slice (ROADMAP.md).
 
-__all__ = ["DurationWindow"]
+The governor and the runner resolve lazily: `obs.tail` imports this
+package's telemetry while `core` (which the governor needs) is still
+importing `obs`."""
+from .telemetry import DurationWindow, Telemetry
+
+__all__ = ["DurationWindow", "GovernorConfig", "ProgressBoard",
+           "SpeculativeTaskRunner", "StepGovernor", "TaskResult",
+           "Telemetry"]
+
+_LAZY = {"GovernorConfig": "governor", "StepGovernor": "governor",
+         "ProgressBoard": "speculation", "SpeculativeTaskRunner":
+         "speculation", "TaskResult": "speculation"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

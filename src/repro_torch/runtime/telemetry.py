@@ -1,9 +1,10 @@
-"""Task and request duration telemetry: the data the tail governor fits
-Pareto to; counterpart of `repro.runtime.telemetry` (`DurationWindow`
-only, copied: it is host Python with no framework in it)."""
+"""Task, step and request duration telemetry: the data the governors fit
+Pareto to; counterpart of `repro.runtime.telemetry`, copied (host Python
+with no framework in it)."""
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -32,3 +33,38 @@ class DurationWindow:
     def __len__(self):
         with self._lock:
             return len(self._buf)
+
+
+class Telemetry:
+    """Named duration windows and counters for the whole runtime."""
+
+    def __init__(self):
+        self.windows: dict[str, DurationWindow] = {}
+        self.counters: dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def window(self, name: str, capacity: int = 512) -> DurationWindow:
+        """Get or create the named window (`capacity` applies on create)."""
+        with self._lock:
+            if name not in self.windows:
+                self.windows[name] = DurationWindow(capacity=capacity)
+            return self.windows[name]
+
+    def bump(self, name: str, by: int = 1):
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + by
+
+    def timer(self, name: str):
+        """A context manager recording its body's wall seconds into the
+        named window."""
+        tel = self
+
+        class _T:
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+                return self
+
+            def __exit__(self, *exc):
+                tel.window(name).record(time.perf_counter() - self.t0)
+
+        return _T()

@@ -1,0 +1,142 @@
+"""The train step: microbatched gradient accumulation with Chronos
+backup-shard (Clone-strategy) masked aggregation; counterpart of
+`repro.train.train_step`.
+
+The global batch is split into `n_micro` microbatches run one after
+another. Each microbatch is a Chronos "task": the `shard_mask` (n_micro,)
+carries the governor's decision of which shards' gradients count; a
+dropped straggler or failed backup gets weight 0 and the aggregation
+renormalizes by max(sum(mask), 1).
+
+Gradients accumulate in each parameter's `.grad`: microbatch i adds the
+gradient of w_i * loss_i, and the sum is divided by the denominator at
+the end. For the 0/1 weights of a mask that is the reference's order
+(w_i g_i summed in microbatch order, then divided); other weights scale
+the loss before the backward instead of the gradient after it. This
+keeps one f32 gradient per parameter, with no separate accumulator
+(12.8 GB at gemma2-2b's full width). The "bf16_params" and "bf16_grads"
+options take the reference's path instead: per-microbatch gradients of
+the compute copies, added into an accumulator of their type.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..ckpt.checkpoint import tree_leaves, tree_rebuild
+
+
+class TrainState(NamedTuple):
+    params: object
+    opt_state: object
+    step: torch.Tensor      # int32, 0-dim
+
+
+def make_train_step(model, optimizer, n_micro: int, lr_schedule=None,
+                    opts: frozenset = frozenset(), grad_specs=None,
+                    mesh=None):
+    """Returns train_step(state, batch, shard_mask) -> (state, metrics);
+    the parameters and the optimizer state are updated in place.
+
+    opts:
+      "bf16_params"  cast f32 parameters of 2 or more dims to bf16 once a
+                     step, before the microbatches;
+      "bf16_grads"   accumulate gradients in bf16;
+      "shard_grads"  constrain the accumulator to the parameters'
+                     shardings; with `grad_specs` it needs a mesh, which
+                     the one-card port does not have, so it raises.
+    """
+    if "shard_grads" in opts and grad_specs is not None:
+        raise NotImplementedError(
+            "make_train_step: 'shard_grads' with grad_specs needs a device "
+            "mesh; the port runs on one card (ROADMAP.md, multi-card item)")
+    unknown = set(opts) - {"bf16_params", "bf16_grads", "shard_grads"}
+    if unknown:
+        raise ValueError(f"make_train_step: unknown opts {sorted(unknown)}")
+    separate = "bf16_params" in opts or "bf16_grads" in opts
+    acc_dt = torch.bfloat16 if "bf16_grads" in opts else torch.float32
+
+    def micro_of(batch, device):
+        out = {}
+        for k, x in batch.items():
+            x = torch.as_tensor(x, device=device)
+            out[k] = x.reshape((n_micro, x.shape[0] // n_micro)
+                               + tuple(x.shape[1:]))
+        return out
+
+    def grads_in_place(params, micro, mask, denom):
+        """The .grad path; returns (loss sum, gradient leaves)."""
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+            p.grad = None
+        loss_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
+        for i in range(n_micro):
+            mb = {k: x[i] for k, x in micro.items()}
+            loss, _ = model.loss_fn(params, mb)
+            (mask[i] * loss).backward()
+            loss_sum = loss_sum + mask[i] * loss.detach()
+        grads = [p.grad.div_(denom) for p in leaves]
+        for p in leaves:
+            p.grad = None
+        return loss_sum, grads
+
+    def grads_accumulated(params, micro, mask, denom):
+        """The reference's path: a gradient a microbatch, added in."""
+        def compute(p):
+            if ("bf16_params" in opts and p.dtype == torch.float32
+                    and p.dim() >= 2):
+                p = p.to(torch.bfloat16)
+            return p.detach().requires_grad_(True)
+
+        cparams = tree_rebuild(params, iter([compute(p) for p in
+                                             tree_leaves(params)]))
+        leaves = tree_leaves(cparams)
+        acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+               for p in leaves]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
+        for i in range(n_micro):
+            mb = {k: x[i] for k, x in micro.items()}
+            loss, _ = model.loss_fn(cparams, mb)
+            gs = torch.autograd.grad(loss, leaves)
+            for a, g in zip(acc, gs):
+                a.add_((mask[i] * g.to(torch.float32)).to(acc_dt))
+            loss_sum = loss_sum + mask[i] * loss.detach()
+        return loss_sum, [a.to(torch.float32) / denom for a in acc]
+
+    def train_step(state: TrainState, batch, shard_mask):
+        params = state.params
+        device = state.step.device
+        mask = torch.as_tensor(shard_mask, dtype=torch.float32,
+                               device=device)
+        micro = micro_of(batch, device)
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+        run = grads_accumulated if separate else grads_in_place
+        loss_sum, grads = run(params, micro, mask, denom)
+        mean_loss = loss_sum / denom
+        lr_scale = lr_schedule(state.step) if lr_schedule else 1.0
+        grad_tree = tree_rebuild(params, iter(grads))
+        with torch.no_grad():
+            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        new_params, new_opt = optimizer.update(grad_tree, state.opt_state,
+                                               params, lr_scale=lr_scale)
+        del grads, grad_tree
+        metrics = {"loss": mean_loss, "grad_norm": gnorm,
+                   "active_shards": torch.sum(mask)}
+        return TrainState(new_params, new_opt, state.step + 1), metrics
+
+    return train_step
+
+
+def cosine_schedule(base=1.0, warmup=100, total=10_000, floor=0.1):
+    """Linear warm-up to `base`, then a cosine down to `base * floor`;
+    fn(step) on an integer tensor, in f32."""
+    def fn(step):
+        step = step.to(torch.float32)
+        warm = torch.clamp(step / warmup, max=1.0)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0, 1)
+        cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return base * warm * cos
+    return fn

@@ -79,15 +79,18 @@ def both(a, cdt):
 
 
 def test_configs_equal_reference():
-    for name in ("gemma2-2b",):
+    dense = ("chatglm3-6b", "deepseek-coder-33b", "gemma2-2b",
+             "mistral-nemo-12b")
+    for name in dense:
         ref, port = ref_get_config(name), get_config(name)
         assert dataclasses.asdict(ref) == dataclasses.asdict(port)
         assert dataclasses.asdict(ref.reduced()) == \
             dataclasses.asdict(port.reduced())
-        assert port.param_count() == ref.param_count() == 3_203_923_968
-    assert list_configs() == ["gemma2-2b"]
+        assert port.param_count() == ref.param_count()
+    assert get_config("gemma2-2b").param_count() == 3_203_923_968
+    assert list_configs() == list(dense)
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("mistral-nemo-12b")
+        get_config("olmoe-1b-7b")
 
 
 def test_other_families_raise():
