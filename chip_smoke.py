@@ -317,11 +317,40 @@ Phases; each raises on failure, so any failure exits non-zero:
    run(fail_at=2) with checkpoints, restored into a fresh trainer, the
    continued losses equal to an uninterrupted run's.
 
-The last lines are the training JSON (phase 16), the chaos JSON (phases
-10e and 10f), the serving JSON (phase 10d), the fleet JSON (phase 10c),
-the cluster JSON (phase 10b), the scenarios JSON (phases 6-10), the
-kernels JSON, the card line and the result JSON; each of the first five
-and the kernels JSON is also written under `chiprun_out/`.
+17. the masks, head dim 80 and the moe, vlm and audio families. (a) Both
+   flash-attention kernels against the plain version on every mask
+   (FA_MASK_CASES: causal with windows 1 to 4096, at and off 64 and 128;
+   prefixes 64 to 4096; bidirectional with and without a window and with
+   a prefix; a window with a prefix) at D 64, 80, 128 and 256, S 1000 and 2049, 1, 2
+   and 4 kv heads, views and softcaps, bf16 on the tensor-core route and
+   one case in three in f32 on the SIMT route; and FA_HOT_SHAPES with a
+   window of S / 3 and a prefix of S / 4, q scaled by 16; phase 14's
+   limits. (b) Per launch at the paths' shapes: gemma2-2b's local
+   (window 4096) and global layers at S 8192, paligemma-3b's prefix
+   layer (B 4, S 2048, prefix 256, one kv head), hubert-xlarge's D 80
+   (B 8, H 16, S 1024, bidirectional): kernel ms, call ms, plain ms, the
+   bound over the allowed pairs only, SDPA with a boolean attn_mask and
+   no softcap. (c) Each family cut to 2 layers at full width, f32
+   compute, card (SIMT route, 2 launches) against the CPU's plain path:
+   olmoe-1b-7b and paligemma-3b by prefill and 3 decode steps (logits
+   within 1e-4), hubert-xlarge's forward logits. (d) The full-width
+   paths, every count set to 0 just before the first run and each
+   launch's mask recorded: gemma2-2b with a batch of 1 x 8192 tokens
+   and 32 generated (26 launches, the 13 local ones with window 4096;
+   one local and one global launch held against the plain version on
+   their own tensors), olmoe-1b-7b (4 x 2048, 32 tokens, 16 launches,
+   one held), paligemma-3b (4 x (256 patches + 1792 text), 32 tokens, 18
+   launches with prefix 256, one held) and hubert-xlarge's forward (8 x 1024
+   frames, 48 launches at D 80, one held): first and warm wall,
+   tokens/s or frames/s, peak memory, the same tokens twice, and one
+   profiled run (idle share, flash attention's share).
+
+The last lines are the families JSON (phase 17), the training JSON
+(phase 16), the chaos JSON (phases 10e and 10f), the serving JSON (phase
+10d), the fleet JSON (phase 10c), the cluster JSON (phase 10b), the
+scenarios JSON (phases 6-10), the kernels JSON, the card line and the
+result JSON; each of the first six and the kernels JSON is also written
+under `chiprun_out/`.
 The script needs one CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
@@ -382,9 +411,11 @@ from repro_torch.data.pipeline import (PipelineConfig,  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.inputs import make_batch  # noqa: E402
-from repro_torch.models.transformer import padded_vocab  # noqa: E402
+from repro_torch.models.transformer import (layer_specs,  # noqa: E402
+                                            padded_vocab)
 from repro_torch.runtime.governor import WARM_DECISIONS  # noqa: E402
 from repro_torch.serve import Engine  # noqa: E402
+from repro_torch.serve.engine import cast_weights  # noqa: E402
 from repro_torch.train import (AdamW, Trainer, TrainerConfig,  # noqa: E402
                                TrainState, make_train_step)
 from repro_torch.train.trainer import to_host  # noqa: E402
@@ -519,6 +550,41 @@ RESTART_RUN = dict(n_steps=4, global_batch=4, seq_len=256, n_micro=2,
                    ckpt_every=2, log_every=1000)
 SOURCES = ("grid_solve", "pocd_mc", "flash_attention",
            "flash_attention_sm90", "dispatch_scan", "philox_rows")
+# phase 17: the masks (causal, window, prefix) of both flash-attention
+# kernels: (B, H, K, S, D, dtype, causal, window, prefix, softcap, views)
+# at every head dim, ragged lengths, windows and prefixes at and off the
+# kernels' tiles (64 and 128 keys, 64-row warpgroups, 128-row blocks),
+# bidirectional with and without a window and with a prefix (which does
+# nothing without causal); every bf16 case through the
+# tensor-core kernel, one in three also in f32 through the SIMT kernel
+FA_MASKS = ((True, 1, 0), (True, 63, 0), (True, 64, 0), (True, 65, 0),
+            (True, 127, 0), (True, 128, 0), (True, 129, 0), (True, 700, 0),
+            (True, 4096, 0), (True, None, 64), (True, None, 77),
+            (True, None, 128), (True, None, 256), (True, None, 1000),
+            (True, None, 4096), (False, None, 0), (False, None, 64),
+            (False, 64, 0), (False, 300, 0), (True, 100, 50))
+FA_MASK_CASES = tuple(
+    (1, 8, (1, 2, 4)[i % 3], S, D, dt, causal, window, prefix,
+     (None, 50.0, 30.0)[i // 2 % 3], i % 2 == 0)
+    for i, (S, D, (causal, window, prefix), dt) in enumerate(
+        (S, D, m, dt) for S in (1000, 2049) for D in (64, 80, 128, 256)
+        for m in FA_MASKS for dt in ("bfloat16", "float32"))
+    if dt == "bfloat16" or i % 3 == 0)
+# the full-width paths of the new masks and families: gemma2-2b past its
+# 4096-token window (13 local layers of 26), olmoe-1b-7b (moe), paligemma-3b
+# (vlm: 256 patches + 1792 text tokens under the prefix-LM mask, one kv
+# head of 256) through the Engine, and hubert-xlarge (audio: 8 x 1024
+# frames, about 20 s of 16 kHz audio each at 50 frames/s, bidirectional,
+# head dim 80) through Model.forward
+WINDOW_SERVE = dict(arch="gemma2-2b", batch=1, prompt=8192, tokens=32)
+FAMILY_SERVE = (dict(arch="olmoe-1b-7b", batch=4, prompt=2048, tokens=32),
+                dict(arch="paligemma-3b", batch=4, prompt=2048, tokens=32))
+ENCODER = dict(arch="hubert-xlarge", batch=8, frames=1024)
+# each family cut to 2 layers at full width, f32 compute, card against
+# the CPU's plain path: B 1, 64 text tokens (after 256 patches for vlm)
+# or 128 frames, 3 decode steps
+CHECK_FAMILY = dict(layers=2, batch=1, prompt=64, frames=128, tokens=3,
+                    tol=1e-4)
 CHECK_SHAPES = ((37, 9), (64, 33), (2700, 9), (65536, 64))
 FLEET_SHAPE = (65536, 64)   # a fleet-sized chunk (ROADMAP A.5)
 THETA = 1e-4
@@ -972,12 +1038,13 @@ def phase_replay(jobs, p, dev) -> None:
 def phase_profile(fn, label: str, wall_s: float) -> dict:
     """One torch.profiler pass over fn(): device busy time, the idle share
     over the unprofiled warm wall `wall_s`, the port's kernels' device
-    time and the top device ops."""
+    time and the top device ops. It records the device's activity alone:
+    every number here is the device's, and with the host's activity too a
+    generate's ~100,000 device ops take about a minute to read back."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
@@ -3604,17 +3671,33 @@ def fa_compare(what, got, want, dt) -> tuple:
     return float(err.max()), mean_rel, max_rel
 
 
-def fa_bound(B, H, K, S, D, dtype, causal):
+def fa_pairs(S, causal, window, prefix) -> int:
+    """The (query, key) pairs the mask allows at Sq = Sk = S."""
+    allowed = fa.allowed_mask(S, S, causal, window, prefix, "cuda")
+    return S * S if allowed is None else int(allowed.sum())
+
+
+def fa_bound(B, H, K, S, D, dtype, causal, window=None, prefix=0):
     """(bytes ms, operations ms): q, k, v and out moved once; the two
     products' multiply-adds over the (query, key) pairs the mask allows
     (the softmax's few operations a pair are not counted), at the tensor
     rate for bf16 and the f32 rate for f32."""
     size = 2 if dtype == "bfloat16" else 4
     nbytes = size * D * S * (2 * B * H + 2 * B * K)
-    pairs = S * (S + 1) // 2 if causal else S * S
-    ops = 4 * B * H * pairs * D
+    ops = 4 * B * H * fa_pairs(S, causal, window, prefix) * D
     rate = BF16_TENSOR_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / rate
+
+
+def reset_counts():
+    gs.launches = pm.launches = pm.launches_all = 0
+    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
+
+
+def fa_counts() -> dict:
+    return dict(flash_attention=fa.launches,
+                flash_attention_sm90=fa.launches_sm90,
+                flash_attention_simt=fa.launches_simt)
 
 
 def phase_fa_check(dev) -> dict:
@@ -3696,18 +3779,17 @@ def fa_times(dev) -> dict:
     return out
 
 
-def step_compare(cfg, card, host, n_tokens, tol):
-    """Prefill, then n_tokens greedy decode steps of the same weights on
-    the card and on the CPU, the host's choice fed to both: logits within
-    `tol` at every step, and the choices equal wherever the host's top-2
-    margin exceeds 2 tol. Returns (max |logit error|, clear choices)."""
+def step_compare(cfg, card, host, batch, max_seq, n_tokens, tol):
+    """Prefill `batch` (CPU tensors), then n_tokens greedy decode steps of
+    the same weights on the card and on the CPU, the host's choice fed to
+    both: logits within `tol` at every step, and the choices equal
+    wherever the host's top-2 margin exceeds 2 tol. Returns (max |logit
+    error|, clear choices)."""
     V = cfg.vocab_size
-    batch = make_batch(cfg, CHECK_SERVE["batch"], CHECK_SERVE["prompt"],
-                       "prefill", seed=1, device="cpu")
-    max_seq = CHECK_SERVE["prompt"] + n_tokens
     dev = card.params["embed"].device
-    out = [eng.model.prefill(eng.params, {"tokens": batch["tokens"].to(
-        eng.params["embed"].device)}, max_seq) for eng in (card, host)]
+    out = [eng.model.prefill(eng.params, {
+        k: x.to(eng.params["embed"].device) for k, x in batch.items()},
+        max_seq) for eng in (card, host)]
     worst, clear = 0.0, 0
     for step in range(n_tokens + 1):
         (lg, cg), (lc, cc) = out
@@ -3748,9 +3830,11 @@ def phase_serve_check(dev) -> dict:
     card = Engine.build(cfg, max_seq=max_seq, params=params, device=dev)
     host = Engine.build(cfg, max_seq=max_seq, params=params, device="cpu")
     del params
-    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
-    err, clear = step_compare(cfg, card, host, CHECK_SERVE["tokens"],
-                              CHECK_SERVE["tol"])
+    reset_counts()
+    batch = make_batch(cfg, CHECK_SERVE["batch"], CHECK_SERVE["prompt"],
+                       "prefill", seed=1, device="cpu")
+    err, clear = step_compare(cfg, card, host, batch, max_seq,
+                              CHECK_SERVE["tokens"], CHECK_SERVE["tol"])
     if (fa.launches, fa.launches_simt, fa.launches_sm90) != (
             cfg.n_layers, cfg.n_layers, 0):
         raise AssertionError(f"serve check: {fa.launches} flash-attention "
@@ -3807,8 +3891,7 @@ def phase_serve(dev) -> dict:
     del logits, cache
 
     # the main path: every count set to 0 just before, read just after
-    gs.launches = pm.launches = pm.launches_all = 0
-    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
+    reset_counts()
     toks, gen_first_s = synced(lambda: eng.generate(batch, T))
     counts = dict(flash_attention=fa.launches,
                   flash_attention_sm90=fa.launches_sm90,
@@ -4044,7 +4127,7 @@ def phase_train_check(dev) -> dict:
                         torch.ones((1,), device=device))
         return float(m["loss"]), opt.grads, to_host(state.params)
 
-    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
+    reset_counts()
     card_loss, card_grads, card_params = one_step(params, dev)
     counts = (fa.launches_simt, fa.launches_sm90)
     if counts != (2 * cfg.n_layers, 0):
@@ -4197,8 +4280,7 @@ def trainer_run(cfg, tcfg, dev) -> tuple:
     `prefetch_depth` steps ahead of the training steps, and a reset
     after that could fall inside a decision. Returns (trainer, history,
     counts, peak bytes, build s, the warm decisions' host ms)."""
-    gs.launches = 0
-    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t, build_s = synced(lambda: Trainer(cfg, tcfg, seed=0, device=dev))
     decide_ms, specs = [], []
@@ -4389,6 +4471,324 @@ def phase_train_restart(dev) -> dict:
                 ckpt_bytes=ckpt_bytes, seconds=secs)
 
 
+def phase_fa_masks(dev) -> dict:
+    """Both kernels against the plain version on every mask of
+    FA_MASK_CASES, and on FA_HOT_SHAPES with a window and a prefix (q
+    scaled by FA_HOT_SCALE): each case moves its route's count by one and
+    holds FA_TOL (and, bf16, FA_MEAN_REL / FA_MAX_REL)."""
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    rel = {"mean_rel": 0.0, "max_rel": 0.0}
+    cases = [(c, 1.0) for c in FA_MASK_CASES]
+    for B, H, K, S, D, dt, causal, cap, views in FA_HOT_SHAPES:
+        cases += [((B, H, K, S, D, dt, causal, S // 3, 0, cap, views),
+                   FA_HOT_SCALE),
+                  ((B, H, K, S, D, dt, causal, None, S // 4, cap, views),
+                   FA_HOT_SCALE)]
+    n = {"sm90": 0, "simt": 0}
+    for i, (case, q_scale) in enumerate(cases):
+        B, H, K, S, D, dt, causal, window, prefix, cap, views = case
+        q, k, v = fa_inputs(B, H, K, S, D, dt, 500 + i, dev, views=views,
+                            q_scale=q_scale)
+        mask = dict(causal=causal, softcap=cap, window=window,
+                    prefix_len=prefix)
+        before = (fa.launches_sm90, fa.launches_simt)
+        got = fa.attention(q, k, v, **mask)
+        torch.cuda.synchronize()
+        route = "sm90" if dt == "bfloat16" else "simt"
+        moved = (fa.launches_sm90 - before[0], fa.launches_simt - before[1])
+        if moved != ((1, 0) if route == "sm90" else (0, 1)):
+            raise AssertionError(f"flash_attention mask {case}: route counts "
+                                 f"moved {moved}, expected one {route}")
+        e, mean_rel, max_rel = fa_compare(f"mask {case} q x{q_scale:g}", got,
+                                          fa.attention_plain(q, k, v, **mask),
+                                          dt)
+        n[route] += 1
+        err[dt] = max(err[dt], e)
+        if dt == "bfloat16":
+            rel = {"mean_rel": max(rel["mean_rel"], mean_rel),
+                   "max_rel": max(rel["max_rel"], max_rel)}
+    print(f"flash_attention masks: {n['sm90']} bf16 cases (sm90) and "
+          f"{n['simt']} f32 cases (simt) equal the plain version (D 64, 80,"
+          f" 128, 256; windows 1-4096, prefixes 64-4096, bidirectional with "
+          f"and without a window, hot softcaps); max abs err {err}, bf16 "
+          f"mean |err| / mean |want| <= {rel['mean_rel']:.3g}, max |err| / "
+          f"max |want| <= {rel['max_rel']:.3g}")
+    return dict(cases=n, max_abs_err=err, bf16_relative_err=rel)
+
+
+def fa_mask_times(dev) -> dict:
+    """Per launch on the paths' own shapes: the tensor-core kernel (ms by
+    the profiler, call ms), the plain version, the bound over the allowed
+    pairs, and SDPA with a boolean attn_mask and no softcap (a yardstick,
+    never on the path): gemma2-2b's local (window 4096) and global layers
+    at S 8192, paligemma-3b's prefix layer, hubert-xlarge's D = 80."""
+    shapes = {
+        "gemma2_local_8192": (1, 8, 4, 8192, 256, True, 4096, 0, 50.0),
+        "gemma2_global_8192": (1, 8, 4, 8192, 256, True, None, 0, 50.0),
+        "paligemma_prefix_2048": (4, 8, 1, 2048, 256, True, None, 256, None),
+        "hubert_d80_1024": (8, 16, 16, 1024, 80, False, None, 0, None)}
+    out = {}
+    for name, (B, H, K, S, D, causal, window, prefix, cap) in shapes.items():
+        q, k, v = fa_inputs(B, H, K, S, D, "bfloat16", 9, dev, views=True)
+        mask = dict(causal=causal, softcap=cap, window=window,
+                    prefix_len=prefix)
+        allowed = fa.allowed_mask(S, S, causal, window, prefix, dev)
+        launch = lambda: fa.attention_cuda(q, k, v, **mask)
+        plain = lambda: fa.attention_plain(q, k, v, **mask)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=allowed, enable_gqa=True)
+        bytes_ms, ops_ms = fa_bound(B, H, K, S, D, "bfloat16", causal,
+                                    window, prefix)
+        bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
+        t = dict(shape=dict(B=B, H=H, K=K, S=S, D=D, causal=causal,
+                            window=window, prefix_len=prefix, softcap=cap),
+                 pairs=fa_pairs(S, causal, window, prefix),
+                 ms=kernel_ms(launch, 20, "flash_attention_sm90_kernel"),
+                 call_ms=cuda_ms(launch, 10), plain_ms=cuda_ms(plain, 2),
+                 library_ms=cuda_ms(library, 10), bytes_ms=bytes_ms,
+                 ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
+        t["bound_share"] = bound_ms / t["ms"]
+        out[name] = t
+        print(f"flash_attention {name} {t['shape']}: {t['pairs']:,} allowed "
+              f"pairs a head; tensor-core kernel {t['ms']:.4f} ms (call "
+              f"{t['call_ms']:.4f}; {t['bound_share']:.3f} of the bound "
+              f"{bound_ms:.5f} ms, {bound_by}), plain {t['plain_ms']:.3f} ms,"
+              f" SDPA with the boolean mask, no softcap (yardstick) "
+              f"{t['library_ms']:.4f} ms")
+    return out
+
+
+class CapturedLaunches:
+    """Wraps `flash_attention._launch` while a path runs: records every
+    launch's (route, window, prefix_len) and keeps q, k, v and the output
+    of the first launch with a window and the first without one, as the
+    path's own launches gave them."""
+
+    def __init__(self):
+        self.inner, self.masks, self.held = fa._launch, [], {}
+
+    def __enter__(self):
+        def keep(route, q, k, v, causal, softcap, window=None,
+                 prefix_len=0):
+            out = self.inner(route, q, k, v, causal, softcap, window,
+                             prefix_len)
+            self.masks.append((route, window, prefix_len))
+            kind = "local" if window is not None else "global"
+            if kind not in self.held:
+                self.held[kind] = (q.clone(), k.clone(), v.clone(),
+                                   out.clone(), dict(
+                                       causal=causal, softcap=softcap,
+                                       window=window, prefix_len=prefix_len))
+            return out
+
+        fa._launch = keep
+        return self
+
+    def __exit__(self, *exc):
+        fa._launch = self.inner
+        return False
+
+    def check(self, what) -> dict:
+        """Each held launch against the plain version on its own
+        tensors."""
+        out = {}
+        for kind, (q, k, v, got, mask) in self.held.items():
+            want = fa.attention_plain(q, k, v, **mask)
+            e, mean_rel, max_rel = fa_compare(f"{what} {kind} launch", got,
+                                              want, "bfloat16")
+            out[kind] = dict(max_abs_err=e, mean_rel=mean_rel,
+                             max_rel=max_rel, window=mask["window"],
+                             prefix_len=mask["prefix_len"])
+            del want
+        self.held.clear()
+        torch.cuda.empty_cache()
+        return out
+
+
+def engine_path(spec, dev) -> dict:
+    """One Engine path at full width (gemma2-2b past its window, olmoe,
+    paligemma): build, the counted first generate (every count set to 0
+    just before, read just after; each launch's mask recorded, the first
+    launch with a window and the first without one held against the plain
+    version on their own tensors), a warm
+    generate (the same tokens), one profiled generate, peak memory."""
+    cfg = get_config(spec["arch"])
+    B, P, T = spec["batch"], spec["prompt"], spec["tokens"]
+    eng, build_s = synced(lambda: Engine.build(cfg, max_seq=P + T, seed=0,
+                                               device=dev))
+    batch = make_batch(cfg, B, P, "prefill", seed=0, device=dev)
+    n_params = n_elements(eng.params)
+    torch.cuda.reset_peak_memory_stats()
+    cap = CapturedLaunches()
+    reset_counts()
+    with cap:
+        toks, first_s = synced(lambda: eng.generate(batch, T))
+    counts = fa_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if (counts["flash_attention"], counts["flash_attention_sm90"]) != (
+            cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"{cfg.name}: flash-attention launches {counts},"
+                             f" expected {cfg.n_layers}, all sm90")
+    want = [("sm90", s.window, s.prefix_len) for s in layer_specs(
+        cfg, cfg.vision.n_patches if cfg.vision else 0)]
+    if cap.masks != want:
+        raise AssertionError(f"{cfg.name}: launch masks {cap.masks}, "
+                             f"expected {want}")
+    if toks.shape != (B, T) or toks.min() < 0 or toks.max() >= \
+            cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: tokens {toks.shape} outside the "
+                             f"vocabulary")
+    held = cap.check(cfg.name)
+    toks2, warm_s = synced(lambda: eng.generate(batch, T))
+    if not (toks2 == toks).all():
+        raise AssertionError(f"{cfg.name}: the warm generate's tokens "
+                             f"differ from the first's")
+    prof = phase_profile(lambda: eng.generate(batch, T),
+                         f"{cfg.name} generate (B {B}, prompt {P}, {T} "
+                         f"tokens)", warm_s)
+    out = dict(params=n_params, build_s=build_s, generate_first_s=first_s,
+               generate_warm_s=warm_s, tokens_per_s=B * T / warm_s,
+               prompt_tokens_per_s=B * P / warm_s, peak_memory_bytes=peak,
+               counts=counts, launch_masks=list(dict.fromkeys(cap.masks)),
+               held_launches=held, profile=prof,
+               kernel_share=prof["flash_attention_ms"]
+               / prof["device_busy_ms"], tokens_head=toks[:, :8].tolist())
+    print(f"{cfg.name} ({n_params:,} parameters; B {B}, prompt {P}, {T} "
+          f"tokens): build {build_s:.2f} s; generate first {first_s:.3f} s, "
+          f"warm {warm_s:.3f} s = {out['tokens_per_s']:.1f} tokens/s; peak "
+          f"device memory {peak / 2**30:.2f} GiB; idle share "
+          f"{prof['idle_share']:.3f}; launches {counts}, masks "
+          f"{out['launch_masks']}; held launches {held}")
+    del eng, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def encoder_path(dev) -> dict:
+    """hubert-xlarge's Model.forward at full width (ENCODER), bf16
+    weights: the counted first forward (48 launches at D = 80, causal off;
+    the first held against the plain version), a warm forward, one
+    profiled, frames/s and peak memory."""
+    cfg = get_config(ENCODER["arch"])
+    B, S = ENCODER["batch"], ENCODER["frames"]
+    model = model_lib.build(cfg)
+    params, build_s = synced(lambda: cast_weights(
+        model.init(seed=0, device=dev), getattr(torch, cfg.compute_dtype)))
+    batch = make_batch(cfg, B, S, "prefill", seed=0, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    cap = CapturedLaunches()
+    fwd = lambda: model.forward(params, batch)[0]
+    reset_counts()
+    with torch.no_grad(), cap:
+        logits, first_s = synced(fwd)
+    counts = fa_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if (counts["flash_attention"], counts["flash_attention_sm90"]) != (
+            cfg.n_layers, cfg.n_layers) or set(cap.masks) != {
+                ("sm90", None, 0)}:
+        raise AssertionError(f"{cfg.name}: launches {counts}, masks "
+                             f"{set(cap.masks)}")
+    if tuple(logits.shape) != (B, S, padded_vocab(cfg)) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: logits {tuple(logits.shape)}, "
+                             f"not all finite")
+    held = cap.check(cfg.name)
+    with torch.no_grad():
+        logits2, warm_s = synced(fwd)
+        if not torch.equal(logits2, logits):
+            raise AssertionError(f"{cfg.name}: the warm forward differs")
+        del logits2
+        prof = phase_profile(fwd, f"{cfg.name} forward (B {B}, {S} "
+                             f"frames)", warm_s)
+    out = dict(params=n_elements(params), build_s=build_s,
+               forward_first_s=first_s, forward_warm_s=warm_s,
+               frames_per_s=B * S / warm_s, peak_memory_bytes=peak,
+               counts=counts, held_launches=held, profile=prof,
+               kernel_share=prof["flash_attention_ms"]
+               / prof["device_busy_ms"])
+    print(f"{cfg.name} ({out['params']:,} parameters; B {B} x {S} frames): "
+          f"forward first {first_s:.3f} s, warm {warm_s:.4f} s = "
+          f"{out['frames_per_s']:.0f} frames/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; idle share {prof['idle_share']:.3f}; "
+          f"launches {counts}; held launch {held}")
+    del params, batch, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_family_check(dev) -> dict:
+    """Each new family cut to CHECK_FAMILY["layers"] layers at full width,
+    f32 compute, the same seeded weights on the card (SIMT route) and on
+    the CPU (plain path): olmoe and paligemma through step_compare,
+    hubert's forward logits."""
+    c = CHECK_FAMILY
+    out = {}
+    for arch in ("olmoe-1b-7b", "paligemma-3b", "hubert-xlarge"):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=c["layers"],
+                                  compute_dtype="float32")
+        params = model_lib.build(cfg).init(seed=1, device=dev)
+        reset_counts()
+        if cfg.has_decode:
+            P = c["prompt"] + (cfg.vision.n_patches if cfg.vision else 0)
+            batch = make_batch(cfg, c["batch"], P, "prefill", seed=1,
+                               device="cpu")
+            max_seq = P + c["tokens"]
+            card = Engine.build(cfg, max_seq=max_seq, params=params,
+                                device=dev)
+            host = Engine.build(cfg, max_seq=max_seq, params=params,
+                                device="cpu")
+            del params
+            err, clear = step_compare(cfg, card, host, batch, max_seq,
+                                      c["tokens"], c["tol"])
+            del card, host
+        else:
+            batch = make_batch(cfg, c["batch"], c["frames"], "prefill",
+                               seed=1, device="cpu")
+            host = to_host(params)
+            with torch.no_grad():
+                lg = model_lib.build(cfg).forward(
+                    params, {k: v.to(dev) for k, v in batch.items()})[0]
+                lc = model_lib.build(cfg).forward(host, batch)[0]
+            err = float((lg.cpu() - lc).abs().max())
+            if not torch.allclose(lg.cpu(), lc, rtol=c["tol"],
+                                  atol=c["tol"]):
+                raise AssertionError(f"family check {arch}: card logits "
+                                     f"{err:.3g} off the CPU's")
+            clear = None
+            del params, host, lg, lc
+        counts = fa_counts()
+        if (counts["flash_attention"], counts["flash_attention_simt"]) != (
+                cfg.n_layers, cfg.n_layers):
+            raise AssertionError(f"family check {arch}: launches {counts}, "
+                                 f"expected {cfg.n_layers} on the simt "
+                                 f"route")
+        torch.cuda.empty_cache()
+        out[arch] = dict(max_logit_err=err, clear_choices=clear,
+                         seconds=time.perf_counter() - t0,
+                         simt_launches=counts["flash_attention_simt"])
+        print(f"family check {arch} ({c['layers']} layers, full width, f32):"
+              f" card equals the CPU's plain path, max logit err {err:.3g} "
+              f"(tol {c['tol']}); clear greedy choices {clear}; "
+              f"{out[arch]['seconds']:.1f} s")
+    return out
+
+
+def phase_masks_families(dev) -> dict:
+    """Phase 17: the masks and head dim 80 in both kernels, the paths'
+    own launches held, the four full-width paths, the 2-layer checks."""
+    t0 = time.perf_counter()
+    out = dict(masks=phase_fa_masks(dev), times=fa_mask_times(dev),
+               check=phase_family_check(dev))
+    out["window_serve"] = engine_path(WINDOW_SERVE, dev)
+    for spec in FAMILY_SERVE:
+        out[spec["arch"]] = engine_path(spec, dev)
+    out[ENCODER["arch"]] = encoder_path(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 17: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -4504,6 +4904,7 @@ def main() -> None:
                  restart=phase_train_restart(dev))
     train["seconds"] = time.perf_counter() - t16
     print(f"phase 16: {train['seconds']:.1f} s")
+    families = phase_masks_families(dev)
 
     # last: a profiler session this large can cost the next session its
     # first kernel records, and kernel_ms counts every launch
@@ -4633,8 +5034,37 @@ def main() -> None:
              f32_route=dict(
                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
                  launches_serve_check=serve_check["simt_launches"]),
-             max_abs_err=max(fa_err.values()), max_abs_err_by_type=fa_err,
+             max_abs_err=max(*fa_err.values(),
+                             *families["masks"]["max_abs_err"].values()),
+             max_abs_err_by_type=fa_err,
              bf16_relative_err=fa_rel,
+             # phase 17: the masks (window, prefix, bidirectional) and head
+             # dim 80 on both routes, against the plain version
+             routes={
+                 "sm90": dict(
+                     source="src/repro_torch/kernels/csrc/"
+                            "flash_attention_sm90.cu",
+                     mask_cases=families["masks"]["cases"]["sm90"],
+                     max_abs_err_masks=families["masks"]["max_abs_err"][
+                         "bfloat16"],
+                     bf16_relative_err_masks=families["masks"][
+                         "bf16_relative_err"]),
+                 "simt": dict(
+                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                     mask_cases=families["masks"]["cases"]["simt"],
+                     max_abs_err_masks=families["masks"]["max_abs_err"][
+                         "float32"],
+                     launches_family_checks={
+                         k: v["simt_launches"]
+                         for k, v in families["check"].items()})},
+             # per launch on the new paths' shapes, bound over the allowed
+             # pairs, SDPA with a boolean mask and no softcap
+             mask_times=families["times"],
+             # each full-width path of phase 17, counted from 0
+             launches_phase17={
+                 k: families[k]["counts"]["flash_attention"]
+                 for k in ("window_serve", "olmoe-1b-7b", "paligemma-3b",
+                           "hubert-xlarge")},
              ms=fa_t["ms"], call_ms=fa_t["call_ms"],
              previous_ms=fa_t["previous_ms"],
              previous_call_ms=fa_t["previous_call_ms"],
@@ -4756,6 +5186,10 @@ def main() -> None:
         # phase 10e (a): the faulted chunked run_all, chunk 4 drawn twice
         launches_chaos=chaos["launches"]["philox_rows"],
         check=philox_check))
+    families_line = json.dumps({"families": families})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "families.json").write_text(families_line)
+    print(families_line)
     train_line = json.dumps({"train": train})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "train.json").write_text(train_line)

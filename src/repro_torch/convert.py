@@ -86,7 +86,12 @@ def model_params(tree: Mapping, cfg, *, device=None) -> dict:
     The reference stacks each block leaf with a leading `steps` axis, one
     dict per spec of the block pattern; layer l of the port is step
     l // len(specs) of spec l % len(specs). A 0-dim block leaf (an
-    optimizer's placeholder) goes to every layer as it is."""
+    optimizer's placeholder) goes to every layer as it is. Every leaf
+    keeps its type: a moe block's router stays f32 whatever
+    `param_dtype` is, as the reference keeps it; the expert weights
+    (`moe.wi_gate`, `wi_up`, `wo`, arctic's `moe.dense`) and the stub
+    front ends' `vision_proj` and `frame_proj` come across as they
+    are."""
     from .models.transformer import block_pattern, check_supported
     check_supported(cfg)
     dev = resolve_device(device)
@@ -106,11 +111,15 @@ def model_params(tree: Mapping, cfg, *, device=None) -> dict:
                 for k, v in sub.items()}
 
     n = len(pat.specs)
-    return {"embed": _param(tree["embed"], dev),
-            "blocks": [layer(stacked[i % n], i // n)
-                       for i in range(cfg.n_layers)],
-            "final_norm": _param(tree["final_norm"], dev),
-            "lm_head": _param(tree["lm_head"], dev)}
+    out = {"embed": _param(tree["embed"], dev),
+           "blocks": [layer(stacked[i % n], i // n)
+                      for i in range(cfg.n_layers)],
+           "final_norm": _param(tree["final_norm"], dev),
+           "lm_head": _param(tree["lm_head"], dev)}
+    for name in ("vision_proj", "frame_proj"):
+        if name in tree:
+            out[name] = _param(tree[name], dev)
+    return out
 
 
 def _step(a, dev) -> torch.Tensor:

@@ -6,7 +6,10 @@
 // (B, K, Sk, D) with H % K == 0, query head h reads kv head h / (H / K)
 // (grouped kv-major), and for every query row
 //   s   = (q . k) * D**-0.5, then cap * tanh(s / cap) if a softcap is set,
-//         then -1e30 where causal and k_pos > q_pos (top-left aligned);
+//         then -1e30 where the mask forbids key j to query i (positions
+//         from 0 on both sides): under causal unless j <= i or both are
+//         below `prefix`, and with a window unless j > i - window (the
+//         reference model's _mask_bias; window 0 and prefix 0 mean none);
 //   out = sum_t exp(s_t - m) v_t / max(sum_t exp(s_t - m), 1e-30)
 // with f32 running max m, sum l and accumulator, whatever the input type
 // (f32 or bf16); the output has the input's type.
@@ -24,15 +27,21 @@
 //     and each kv tile (32 x D of k and of v) is read once per block;
 //   * 256 threads as 16 x 16: thread (ty, tx) owns query rows 4 ty .. +3.
 //     For the scores it takes key columns tx and tx + 16 (float4 reads
-//     along D); for the output, D / 16 columns in float4 groups, so the
-//     f32 accumulator (64 floats a thread at D = 256) lives in registers;
+//     along D); for the output, D / 16 columns, in float4 groups where D
+//     is a multiple of 64 and columns tx + 16 c at D = 80, so the f32
+//     accumulator (64 floats a thread at D = 256) lives in registers;
 //   * a row's 16 owners sit in one half-warp: its max and sum are
 //     shuffle reductions, and P goes through shared memory transposed so
 //     the product with V reads 4 rows as one float4;
-//   * under causal, kv tiles wholly above the diagonal are skipped. This
-//     is exact: such a tile would give p = 0 and alpha = 1, and the first
-//     tile always holds key 0, so no row is ever empty. The longest rows'
-//     query tiles are scheduled first;
+//   * kv tiles that the mask forbids to every row of the block are
+//     skipped: under causal those wholly above the diagonal (or above the
+//     prefix, for blocks that start inside it), with a window those
+//     wholly at or below i - window for the block's first row. This is
+//     exact: such a tile would give p = 0 and alpha = 1. Key i is always
+//     allowed to row i, so no row is ever empty; a row whose first tiles
+//     are all masked holds m = -1e30 until its first allowed key, whose
+//     alpha = exp(-1e30 - m) = 0 then clears what those tiles added. The
+//     longest rows' query tiles are scheduled first;
 //   * a ragged last tile (S not a multiple of 64 or 32) is zero-filled
 //     and masked, so any S works (the Pallas wrapper asks for multiples
 //     of 128);
@@ -103,15 +112,35 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
+// the mask (see the header); window 0 and prefix 0 mean none
+struct Mask {
+  int causal, window, prefix;
+};
+
+__device__ __forceinline__ bool allowed(const Mask& mk, int qp, int kp) {
+  if (mk.causal && kp > qp && !(qp < mk.prefix && kp < mk.prefix))
+    return false;
+  return mk.window == 0 || kp > qp - mk.window;
+}
+
+// output columns: D / 16 a thread, 4 tx + 64 (c / 4) + c % 4 (float4
+// groups) where D is a multiple of 64, else tx + 16 c
+template <int D>
+__device__ __forceinline__ int out_col(int tx, int c) {
+  if constexpr (D % 64 == 0) return 4 * tx + 64 * (c / 4) + c % 4;
+  return tx + 16 * c;
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
                            int H, int group, int Sq, int Sk, Strides qs,
-                           Strides ks, Strides vs, Strides os, int causal,
+                           Strides ks, Strides vs, Strides os, Mask mk,
                            float scale, float cap) {
+  static_assert(D % 16 == 0, "16 threads share a row's output columns");
   constexpr int LD = D + kPad;
-  constexpr int NC = D / 64;  // float4 output groups per thread and row
+  constexpr int NC = D / 16;  // output columns per thread and row
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);  // kBQ x LD
   float* sk = sq + kBQ * LD;                    // kBK x LD
@@ -128,17 +157,22 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile<T, D>(sq, qb, qs.s, q0, kBQ, Sq);
 
-  float m[4], l[4], acc[4][4 * NC];
+  float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.0f;
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
   }
 
-  const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  // keys [kv_begin, kv_end) hold every one the block's rows may read
+  const int kv_end =
+      mk.causal ? min(Sk, max(q0 + kBQ, q0 < mk.prefix ? mk.prefix : 0))
+                : Sk;
+  const int kv_begin =
+      mk.window > 0 ? max(0, q0 - mk.window + 1) / kBK * kBK : 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, D>(sk, kb, ks.s, k0, kBK, Sk);
     load_tile<T, D>(sv, vb, vs.s, k0, kBK, Sk);
@@ -178,7 +212,7 @@ __global__ void __launch_bounds__(kThreads)
         const int kp = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
         if (cap > 0.0f) x = cap * tanhf(x / cap);
-        if (kp >= Sk || (causal && kp > qp)) x = kNegInf;
+        if (kp >= Sk || !allowed(mk, qp, kp)) x = kNegInf;
         s[i][j] = x;
       }
       const float m_new = fmaxf(m[i], half_warp_max(fmaxf(s[i][0], s[i][1])));
@@ -188,7 +222,7 @@ __global__ void __launch_bounds__(kThreads)
       l[i] = alpha * l[i] + half_warp_sum(p[i][0] + p[i][1]);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
     }
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -202,16 +236,25 @@ __global__ void __launch_bounds__(kThreads)
       const float4 pv =
           *reinterpret_cast<const float4*>(&sp[t * kLP + 4 * ty]);
       const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+      if constexpr (D % 64 == 0) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(&sv[t * LD + 4 * tx + 64 * c]);
+        for (int c = 0; c < NC / 4; ++c) {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              &sv[t * LD + 4 * tx + 64 * c]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4 * c + 0] += pr[i] * vv.x;
-          acc[i][4 * c + 1] += pr[i] * vv.y;
-          acc[i][4 * c + 2] += pr[i] * vv.z;
-          acc[i][4 * c + 3] += pr[i] * vv.w;
+          for (int i = 0; i < 4; ++i) {
+            acc[i][4 * c + 0] += pr[i] * vv.x;
+            acc[i][4 * c + 1] += pr[i] * vv.y;
+            acc[i][4 * c + 2] += pr[i] * vv.z;
+            acc[i][4 * c + 3] += pr[i] * vv.w;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float vv = sv[t * LD + out_col<D>(tx, c)];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][c] += pr[i] * vv;
         }
       }
     }
@@ -225,16 +268,14 @@ __global__ void __launch_bounds__(kThreads)
     T* out = ob + row * os.s;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        out[4 * tx + 64 * c + e] = from_float<T>(acc[i][4 * c + e] / denom);
+      out[out_col<D>(tx, c)] = from_float<T>(acc[i][c] / denom);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int K, int Sq, int Sk, Strides qs,
-                   Strides ks, Strides vs, Strides os, int causal,
+                   Strides ks, Strides vs, Strides os, Mask mk,
                    float scale, float cap, cudaStream_t stream) {
   const int smem = int(((kBQ + 2 * kBK) * (D + kPad) + kBK * kLP) *
                        sizeof(float));
@@ -246,22 +287,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, H / K, Sq, Sk, qs, ks,
-      vs, os, causal, scale, cap);
+      vs, os, mk, scale, cap);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      void* o, int B, int H, int K, int Sq, int Sk, Strides qs,
-                     Strides ks, Strides vs, Strides os, int causal,
+                     Strides ks, Strides vs, Strides os, Mask mk,
                      float scale, float cap, cudaStream_t stream) {
   switch (D) {
     case 64: return launch<T, 64>(q, k, v, o, B, H, K, Sq, Sk, qs, ks, vs, os,
-                                  causal, scale, cap, stream);
+                                  mk, scale, cap, stream);
+    case 80: return launch<T, 80>(q, k, v, o, B, H, K, Sq, Sk, qs, ks, vs, os,
+                                  mk, scale, cap, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, H, K, Sq, Sk, qs, ks, vs,
-                                    os, causal, scale, cap, stream);
+                                    os, mk, scale, cap, stream);
     case 256: return launch<T, 256>(q, k, v, o, B, H, K, Sq, Sk, qs, ks, vs,
-                                    os, causal, scale, cap, stream);
+                                    os, mk, scale, cap, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -269,17 +312,20 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype 0: float32, 1: bfloat16. strides: (b, h, s) in elements for q, k,
-// v, o in that order. cap <= 0 means no softcap. Returns a cudaError_t.
+// v, o in that order. window 0 and prefix 0 mean none; a window or a
+// prefix needs Sq == Sk. cap <= 0 means no softcap. Returns a cudaError_t.
 extern "C" int flash_attention_launch(int device, int dtype, const void* q,
                                       const void* k, const void* v, void* o,
                                       int B, int H, int K, int Sq, int Sk,
                                       int D, const long long* strides,
-                                      int causal, float scale, float cap,
-                                      void* stream) {
+                                      int causal, int window, int prefix,
+                                      float scale, float cap, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  if (K <= 0 || H % K != 0) return int(cudaErrorInvalidValue);
+  if (K <= 0 || H % K != 0 || window < 0 || prefix < 0)
+    return int(cudaErrorInvalidValue);
+  const Mask mk{causal, window, prefix};
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
@@ -287,9 +333,9 @@ extern "C" int flash_attention_launch(int device, int dtype, const void* q,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return int(launch_d<float>(D, q, k, v, o, B, H, K, Sq, Sk, qs, ks,
-                                       vs, os, causal, scale, cap, s));
+                                       vs, os, mk, scale, cap, s));
     case 1: return int(launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, K, Sq, Sk,
-                                               qs, ks, vs, os, causal, scale,
+                                               qs, ks, vs, os, mk, scale,
                                                cap, s));
     default: return int(cudaErrorInvalidValue);
   }

@@ -7,7 +7,10 @@
 // k, v (B, K, Sk, D) with H % K == 0, query head h reads kv head
 // h / (H / K) (grouped kv-major), and for every query row
 //   s   = (q . k) * D**-0.5, then cap * tanh(s / cap) if a softcap is set,
-//         then -1e30 where causal and k_pos > q_pos (top-left aligned);
+//         then -1e30 where the mask forbids key j to query i (positions
+//         from 0 on both sides): under causal unless j <= i or both are
+//         below `prefix`, and with a window unless j > i - window (the
+//         reference model's _mask_bias; window 0 and prefix 0 mean none);
 //   out = sum_t p_t v_t / max(sum_t p_t, 1e-30),  p_t = exp(s_t - m),
 // with f32 running max m, sum l and accumulator. One numerical change
 // from the SIMT kernel: p is rounded to bf16 before the product with V
@@ -39,16 +42,31 @@
 //     and 1 are consumers, 64 query rows each (a 128-row query tile per
 //     block), and take 240 registers a thread: at D = 256 the O
 //     accumulator alone is 128 f32 registers;
-//   * under causal, kv tiles wholly above the diagonal are not loaded (the
-//     first tile holds key 0, so no row is ever empty and a skipped tile
-//     would have given p = 0, alpha = 1: exact); the lower consumer skips
-//     the block's last tile when it lies above its rows. The longest query
-//     tiles of every head are scheduled first;
+//   * kv tiles that the mask forbids to every row of the block are not
+//     loaded: under causal those wholly above the diagonal (or above the
+//     prefix, for blocks that start inside it), with a window those wholly
+//     at or below i - window for the block's first row. Producer and
+//     consumers walk the same tile range (`tile_range` of the block's
+//     rows), so the ring's stage and parity are the tile's place in it;
+//     each consumer computes only its own rows' range inside it and only
+//     waits and releases on the rest. A skipped tile would have given
+//     p = 0, alpha = 1: exact.
+//     Key i is always allowed to row i, so no row is ever empty; a row
+//     whose first tiles are all masked holds m = -1e30 until its first
+//     allowed key, whose alpha = exp2(-1e30 - m) = 0 clears what those
+//     tiles added. The longest query tiles of every head are scheduled
+//     first;
 //   * ragged lengths: keys at or past Sk are masked to -1e30, rows at or
 //     past Sq are computed on zeros and not stored.
 // Keys per tile: 64 at D = 256 (S takes 32 registers beside O's 128), 128
-// at D = 64 and 128. Shared memory at D = 256: Q 64 KB + 2 x (K 32 KB +
+// at D = 64, 80 and 128. Shared memory at D = 256: Q 64 KB + 2 x (K 32 KB +
 // V 32 KB) = 192 KB of the 227 KB a block may have, so one block per SM.
+// D = 80 (hubert-xlarge) is 160 bytes a row, which the 128-byte swizzle
+// cannot hold in one chunk: the tiles are laid out as at D = 128 (two
+// chunks) and the TMA unit zero-fills columns 80-127 of the second,
+// which it reads past the tensor's end. Q K^T then takes 5 k-steps of 16
+// (K = 80) and O += P V an N of 80 (m64n80k16); the output stores 80
+// columns.
 //
 // cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint, so
 // the library needs no -lcuda.
@@ -72,7 +90,11 @@ constexpr int kConsumerRegs = 240;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D> struct KeysPerTile;
+// head dim of the shared tiles: whole 128-byte rows (80 -> 128)
+template <int D> constexpr int kTileDim = (D + kChunk - 1) / kChunk * kChunk;
+
+// keys per tile, by the tiles' head dim
+template <int DT> struct KeysPerTile;
 template <> struct KeysPerTile<64> { static constexpr int value = 128; };
 template <> struct KeysPerTile<128> { static constexpr int value = 128; };
 template <> struct KeysPerTile<256> { static constexpr int value = 64; };
@@ -81,6 +103,7 @@ struct Params {
   __nv_bfloat16* o;
   long long os_b, os_h, os_s;  // element strides of o; D has stride 1
   int H, group, Sq, Sk, causal;
+  int window, prefix;    // 0: none
   float scale_log2;      // D**-0.5 * log2(e)
   float scale_over_cap;  // D**-0.5 / cap (softcap only)
   float cap_log2;        // cap * log2(e), 0 without a softcap
@@ -220,6 +243,37 @@ struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<80> {
+  static __device__ __forceinline__ void rs_tb(float (&d)[40],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
           "r"(scale_d));
   }
@@ -369,14 +423,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ bool allowed(const Params& p, int qp, int kp) {
+  if (p.causal && kp > qp && !(qp < p.prefix && kp < p.prefix)) return false;
+  return p.window == 0 || kp > qp - p.window;
+}
+
+// the kv tiles [first, last) that hold every key rows r0 .. r0 + rows - 1
+// may read
+__device__ __forceinline__ int2 tile_range(const Params& p, int r0, int rows,
+                                           int bn) {
+  const int end =
+      p.causal ? min(p.Sk, max(r0 + rows, r0 < p.prefix ? p.prefix : 0))
+               : p.Sk;
+  const int begin = p.window > 0 ? max(0, r0 - p.window + 1) : 0;
+  return make_int2(begin / bn, (end + bn - 1) / bn);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv,
                                 const Params p) {
-  constexpr int BN = KeysPerTile<D>::value;
-  constexpr int NCH = D / kChunk;                // 128-byte column chunks
+  constexpr int DT = kTileDim<D>;               // the tiles' head dim
+  constexpr int BN = KeysPerTile<DT>::value;
+  constexpr int NCH = DT / kChunk;               // 128-byte column chunks
   constexpr uint32_t Q_CHUNK = kBQ * kRowBytes;  // one chunk of the Q tile
   constexpr uint32_t KV_CHUNK = BN * kRowBytes;  // one chunk of a K/V tile
   constexpr uint32_t Q_BYTES = NCH * Q_CHUNK;
@@ -392,8 +463,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // long rows first
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H, kh = h / p.group;
-  const int kv_end = p.causal ? min(p.Sk, q0 + kBQ) : p.Sk;
-  const int n_tiles = (kv_end + BN - 1) / BN;
+  const int2 tiles = tile_range(p, q0, kBQ, BN);  // the block's tiles
+  const int n_tiles = tiles.y - tiles.x;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -415,17 +486,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int c = 0; c < NCH; ++c)
         tma_load(sQ + c * Q_CHUNK, &tq, bar_q, c * kChunk, q0, h, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        if (t >= kStages) mbar_wait(bar_empty + 8 * s, (t / kStages - 1) & 1);
+      for (int u = 0; u < n_tiles; ++u) {  // tile tiles.x + u
+        const int s = u % kStages;
+        if (u >= kStages) mbar_wait(bar_empty + 8 * s, (u / kStages - 1) & 1);
         const uint32_t full = bar_full + 8 * s;
+        const int k_row = (tiles.x + u) * BN;
         mbar_expect_tx(full, 2 * KV_BYTES);
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
           tma_load(sK + s * KV_BYTES + c * KV_CHUNK, &tk, full, c * kChunk,
-                   t * BN, kh, b);
+                   k_row, kh, b);
           tma_load(sV + s * KV_BYTES + c * KV_CHUNK, &tv, full, c * kChunk,
-                   t * BN, kh, b);
+                   k_row, kh, b);
         }
       }
     }
@@ -436,8 +508,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int qw = q0 + wg * kBM;             // first row of this warpgroup
     const int r0 = qw + warp * 16 + lane / 4;  // this thread's rows r0, r0 + 8
     const int c0 = 2 * (lane % 4);            // and columns c0, c0 + 1 of 8
-    const int my_end = p.causal ? min(p.Sk, qw + kBM) : p.Sk;
-    const int n_mine = qw < p.Sq ? (my_end + BN - 1) / BN : 0;
+    // this warpgroup's tiles, inside the block's; none past Sq
+    const int2 mine = qw < p.Sq ? tile_range(p, qw, kBM, BN) : make_int2(0, 0);
     const uint32_t sQw = sQ + wg * kBM * kRowBytes;
     const bool capped = p.cap_log2 > 0.0f;
 
@@ -446,13 +518,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 
-    if (n_mine > 0) mbar_wait(bar_q, 0);
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % kStages;
-      mbar_wait(bar_full + 8 * s, (t / kStages) & 1);
-      if (t < n_mine) {
+    if (mine.y > mine.x) mbar_wait(bar_q, 0);
+    for (int u = 0; u < n_tiles; ++u) {
+      const int s = u % kStages, t = tiles.x + u;
+      mbar_wait(bar_full + 8 * s, (u / kStages) & 1);
+      if (t >= mine.x && t < mine.y) {
         const uint32_t k_s = sK + s * KV_BYTES, v_s = sV + s * KV_BYTES;
-        // S = Q K^T over D in steps of 16
+        // S = Q K^T over D in steps of 16 (columns past D are not read)
         float sc[BN / 2];
         wgmma_fence();
 #pragma unroll
@@ -475,13 +547,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int i = 0; i < BN / 2; ++i) sc[i] *= p.scale_log2;
         }
+        // elementwise only where some pair of the tile may be masked
         const int k0 = t * BN;
-        if ((p.causal && k0 + BN - 1 > qw) || k0 + BN > p.Sk) {
+        if ((p.causal && k0 + BN - 1 > qw) || k0 + BN > p.Sk ||
+            (p.window > 0 && k0 <= qw + kBM - 1 - p.window)) {
 #pragma unroll
           for (int i = 0; i < BN / 2; ++i) {
             const int kp = k0 + 8 * (i / 4) + c0 + (i % 2);
             const int qp = r0 + 8 * ((i / 2) % 2);
-            if (kp >= p.Sk || (p.causal && kp > qp)) sc[i] = kNegInf;
+            if (kp >= p.Sk || !allowed(p, qp, kp)) sc[i] = kNegInf;
           }
         }
 
@@ -605,16 +679,17 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int heads,
 // barriers, and 1024 bytes to align the tiles for the 128-byte swizzle
 template <int D>
 constexpr int smem_bytes() {
-  return (kBQ + 2 * kStages * KeysPerTile<D>::value) * D * 2 + 1024 +
+  constexpr int DT = kTileDim<D>;
+  return (kBQ + 2 * kStages * KeysPerTile<DT>::value) * DT * 2 + 1024 +
          8 * (1 + 2 * kStages);
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int K, int Sq, int Sk,
-                   const long long* st, int causal, float scale, float cap,
-                   cudaStream_t stream) {
-  constexpr int BN = KeysPerTile<D>::value;
+                   const long long* st, int causal, int window, int prefix,
+                   float scale, float cap, cudaStream_t stream) {
+  constexpr int BN = KeysPerTile<kTileDim<D>>::value;
   constexpr int smem = smem_bytes<D>();
   CUtensorMap tq, tk, tv;
   cudaError_t err = make_map(&tq, q, B, H, Sq, D, st + 0, kBQ);
@@ -635,6 +710,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   p.Sq = Sq;
   p.Sk = Sk;
   p.causal = causal;
+  p.window = window;
+  p.prefix = prefix;
   p.scale_log2 = scale * kLog2e;
   p.scale_over_cap = cap > 0.0f ? scale / cap : 0.0f;
   p.cap_log2 = cap > 0.0f ? cap * kLog2e : 0.0f;
@@ -649,27 +726,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // dtype 1 (bfloat16) only, the SIMT source's code. strides: (b, h, s) in
 // elements for q, k, v, o in that order; those of q, k and v are
 // multiples of 8 and the pointers 16-byte aligned (the TMA unit's rules).
+// window 0 and prefix 0 mean none; a window or a prefix needs Sq == Sk.
 // cap <= 0 means no softcap. Returns a cudaError_t.
 extern "C" int flash_attention_sm90_launch(int device, int dtype,
                                            const void* q, const void* k,
                                            const void* v, void* o, int B,
                                            int H, int K, int Sq, int Sk, int D,
                                            const long long* strides,
-                                           int causal, float scale, float cap,
+                                           int causal, int window, int prefix,
+                                           float scale, float cap,
                                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (dtype != 1) return int(cudaErrorInvalidValue);
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  if (K <= 0 || H % K != 0) return int(cudaErrorInvalidValue);
+  if (K <= 0 || H % K != 0 || window < 0 || prefix < 0)
+    return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return int(launch<64>(q, k, v, o, B, H, K, Sq, Sk, strides,
-                                   causal, scale, cap, s));
+                                   causal, window, prefix, scale, cap, s));
+    case 80: return int(launch<80>(q, k, v, o, B, H, K, Sq, Sk, strides,
+                                   causal, window, prefix, scale, cap, s));
     case 128: return int(launch<128>(q, k, v, o, B, H, K, Sq, Sk, strides,
-                                     causal, scale, cap, s));
+                                     causal, window, prefix, scale, cap, s));
     case 256: return int(launch<256>(q, k, v, o, B, H, K, Sq, Sk, strides,
-                                     causal, scale, cap, s));
+                                     causal, window, prefix, scale, cap, s));
     default: return int(cudaErrorInvalidValue);
   }
 }

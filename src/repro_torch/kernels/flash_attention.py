@@ -1,4 +1,5 @@
-"""Flash attention: causal or full, GQA, tanh logit softcap.
+"""Flash attention: causal, prefix-LM or bidirectional masks with an
+optional sliding window, GQA, tanh logit softcap.
 
 Replaces the Pallas TPU kernel `repro/kernels/flash_attention.py`
 (`flash_attention`, body `_kernel`), a forward. Forms:
@@ -21,20 +22,34 @@ Replaces the Pallas TPU kernel `repro/kernels/flash_attention.py`
 
 q is (B, H, Sq, D), k and v (B, K, Sk, D) with H % K == 0; query head h
 reads kv head h // (H // K). The scale is D**-0.5, the softcap
-cap * tanh(s / cap) comes after it, and the causal mask after that. The
-softmax is online with f32 running max, sum and accumulator; the output
-has q's type. The tensor-core kernel rounds the probabilities p to bf16
-before the product with V (its only numerical change from the plain
-version; the running sum adds the unrounded p).
+cap * tanh(s / cap) comes after it, and the mask after that: query i may
+read key j where, as the reference's `models/attention.py:_mask_bias`
+allows it,
+  * causal: j <= i, or both i and j below `prefix_len` (the prefix-LM
+    mask); not causal: any key (`prefix_len` then changes nothing);
+  * and, with a `window`, j > i - window (one-sided, causal or not).
+Masked scores are -1e30. The Pallas kernel has the causal mask and no
+mask only; the reference computes windows and prefixes with its einsum
+`_attend`, the port with these kernels. The softmax is online with f32
+running max, sum and accumulator; the output has q's type. The
+tensor-core kernel rounds the probabilities p to bf16 before the product
+with V (its only numerical change from the plain version; the running sum
+adds the unrounded p).
 
-Causal attention takes Sq == Sk only. The reference disagrees with itself
-otherwise: its Pallas kernel aligns the mask top-left (k_pos <= q_pos),
-its oracle bottom-right (tril(k=Sk-Sq)). Prefill always has Sq == Sk.
+A mask takes Sq == Sk only: positions start at 0 on both sides. For
+causal attention the reference disagrees with itself otherwise: its
+Pallas kernel aligns the mask top-left (k_pos <= q_pos), its oracle
+bottom-right (tril(k=Sk-Sq)). Prefill always has Sq == Sk.
 
-What bounds it on the card: operations (4 B H Sq Sk D, halved under
-causal) against q, k, v and out read or written once; at the serving
-shape 68.7 GFLOP, 0.069 ms at the bf16 tensor-core rate. See the .cu
-sources for each design.
+Head dims 64, 80 (hubert-xlarge), 128 and 256. At D = 80 the tensor-core
+kernel reads 80 columns and the TMA unit zero-fills its 128-column
+shared tiles past them: Q K^T runs over K = 80, and O += P V over N = 80.
+
+What bounds it on the card: operations (4 B H D for each (query, key)
+pair the mask allows: about half of Sq Sk under causal, S W - W^2 / 2
+with a window W) against q, k, v and out read or written once; at the
+serving shape 68.7 GFLOP, 0.069 ms at the bf16 tensor-core rate. See
+the .cu sources for each design.
 """
 from __future__ import annotations
 
@@ -52,14 +67,22 @@ launches_sm90 = 0
 launches_simt = 0
 
 #: head dims the kernels are instantiated for
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 80, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _tile_dim(D) -> int:
+    """The tensor-core kernel's shared tiles: D rounded up to whole
+    128-byte rows of 64 bf16 (80 -> 128)."""
+    return -(-D // 64) * 64
+
+
 #: dynamic shared memory of one tensor-core block by head dim, as
 #: `smem_bytes<D>()` in csrc/flash_attention_sm90.cu sizes it: the
-#: 128-row Q tile and 2 stages of K and V (128 keys a tile, 64 at D 256)
-#: in bf16, 1024 bytes to align them, 5 mbarriers
-SM90_SMEM_BYTES = {D: (128 + 4 * (64 if D == 256 else 128)) * D * 2 + 1064
-                   for D in KERNEL_HEAD_DIMS}
+#: 128-row Q tile and 2 stages of K and V (128 keys a tile, 64 at D 256),
+#: `_tile_dim(D)` bf16 a row, 1024 bytes to align them, 5 mbarriers
+SM90_SMEM_BYTES = {D: (128 + 4 * (64 if D == 256 else 128)) * _tile_dim(D)
+                   * 2 + 1064 for D in KERNEL_HEAD_DIMS}
 
 
 def _route(dtype, D) -> str:
@@ -76,7 +99,7 @@ def _route(dtype, D) -> str:
                      f"{dtype}")
 
 
-def _check(q, k, v, causal):
+def _check(q, k, v, causal, window=None, prefix_len=0):
     """(B, H, K, Sq, Sk, D) of a valid call; raises on anything else."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"attention: q, k, v must be 4-d, got "
@@ -89,25 +112,57 @@ def _check(q, k, v, causal):
         raise ValueError(f"attention: q (B, H, Sq, D) and k, v (B, K, Sk, "
                          f"D) with H % K == 0, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if causal and Sq != Sk:
+    if window is not None and window < 1:
+        raise ValueError(f"attention: window must be at least 1, got "
+                         f"{window}")
+    if prefix_len < 0:
+        raise ValueError(f"attention: prefix_len must be >= 0, got "
+                         f"{prefix_len}")
+    if (causal or window is not None or prefix_len) and Sq != Sk:
         raise ValueError(
-            f"attention: causal attention needs Sq == Sk, got Sq {Sq}, Sk "
-            f"{Sk}; the reference aligns the mask top-left in its kernel "
-            f"and bottom-right in its oracle, so no answer is the reference's")
+            f"attention: a causal, window or prefix mask needs Sq == Sk, got"
+            f" Sq {Sq}, Sk {Sk}; the reference aligns the causal mask "
+            f"top-left in its kernel and bottom-right in its oracle, so no "
+            f"answer is the reference's")
     return B, H, K, Sq, Sk, D
 
 
-def attention_plain(q, k, v, causal=True, softcap=None):
-    """Plain PyTorch attention, as `ref.attention_ref` computes it."""
-    B, H, K, Sq, Sk, D = _check(q, k, v, causal)
+def allowed_mask(Sq, Sk, causal, window=None, prefix_len=0, device=None):
+    """(Sq, Sk) bool: query i may read key j (`_mask_bias`'s rule); None
+    where every key is allowed."""
+    i = torch.arange(Sq, device=device)[:, None]
+    j = torch.arange(Sk, device=device)[None, :]
+    allowed = None
+    if causal:
+        allowed = j <= i
+        if prefix_len:
+            allowed = allowed | ((i < prefix_len) & (j < prefix_len))
+    if window is not None:
+        near = j > i - window
+        allowed = near if allowed is None else allowed & near
+    return allowed
+
+
+def _masked(s, causal, window, prefix_len):
+    """The scores s (..., Sq, Sk) with -1e30 where the mask forbids."""
+    allowed = allowed_mask(s.shape[-2], s.shape[-1], causal, window,
+                           prefix_len, s.device)
+    if allowed is None:
+        return s
+    return torch.where(allowed, s, torch.tensor(-1e30, device=s.device))
+
+
+def attention_plain(q, k, v, causal=True, softcap=None, window=None,
+                    prefix_len=0):
+    """Plain PyTorch attention, as `ref.attention_ref` computes it, with
+    the reference model's masks (`_mask_bias`)."""
+    B, H, K, Sq, Sk, D = _check(q, k, v, causal, window, prefix_len)
     qg = q.reshape(B, K, H // K, Sq, D).to(torch.float32)
     s = torch.einsum("bkgsd,bktd->bkgst", qg,
                      k.to(torch.float32)) * (D ** -0.5)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    if causal:
-        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device).tril()
-        s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    s = _masked(s, causal, window, prefix_len)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32))
     return o.reshape(B, H, Sq, D).to(q.dtype)
@@ -120,15 +175,15 @@ def _library(name):
     fn = getattr(build.load(name), f"{name}_launch")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = ([i, i] + [p] * 4 + [i] * 6
-                   + [ctypes.POINTER(ctypes.c_longlong), i, f, f, p])
+                   + [ctypes.POINTER(ctypes.c_longlong), i, i, i, f, f, p])
     fn.restype = i
     return fn
 
 
-def _check_cuda(q, k, v, causal, softcap) -> str:
+def _check_cuda(q, k, v, causal, softcap, window=None, prefix_len=0) -> str:
     """Raise on a call that neither kernel takes; else `_route`'s pick for
     q's type."""
-    B, H, K, Sq, Sk, D = _check(q, k, v, causal)
+    B, H, K, Sq, Sk, D = _check(q, k, v, causal, window, prefix_len)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"attention: the kernel needs q, k, v on one CUDA "
@@ -166,7 +221,15 @@ def _bhs_strides(x):
 _SOURCE = {"sm90": "flash_attention_sm90", "simt": "flash_attention"}
 
 
-def _launch(route, q, k, v, causal, softcap):
+def kernel_window(Sk, window) -> int:
+    """The window as the kernels take it: 0 for none. A window of at
+    least Sk allows every key at or after i - Sk + 1 <= 0, so it is none.
+    (The kernels' mask and tile ranges ignore a prefix without causal and
+    cut one at Sk, so prefix_len goes to them as it is.)"""
+    return 0 if window is None or window >= Sk else int(window)
+
+
+def _launch(route, q, k, v, causal, softcap, window=None, prefix_len=0):
     """Run the route's kernel on the current stream and count the launch;
     returns the output."""
     global launches, launches_sm90, launches_simt
@@ -183,7 +246,7 @@ def _launch(route, q, k, v, causal, softcap):
         dev.index if dev.index is not None else torch.cuda.current_device(),
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, H, K, Sq, Sk, D, strides, int(bool(causal)),
-        D ** -0.5, 0.0 if softcap is None else float(softcap),
+        kernel_window(Sk, window), int(prefix_len), D ** -0.5, 0.0 if softcap is None else float(softcap),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -195,15 +258,17 @@ def _launch(route, q, k, v, causal, softcap):
     return out
 
 
-def attention_simt(q, k, v, causal=True, softcap=None):
+def attention_simt(q, k, v, causal=True, softcap=None, window=None,
+                   prefix_len=0):
     """Launch `csrc/flash_attention.cu` (f32 SIMT products) on float32 or
     bfloat16 inputs. The f32 route; on bfloat16 it is the previous design,
     kept as a baseline and never called from the path."""
-    _check_cuda(q, k, v, causal, softcap)
-    return _launch("simt", q, k, v, causal, softcap)
+    _check_cuda(q, k, v, causal, softcap, window, prefix_len)
+    return _launch("simt", q, k, v, causal, softcap, window, prefix_len)
 
 
-def attention_cuda(q, k, v, causal=True, softcap=None):
+def attention_cuda(q, k, v, causal=True, softcap=None, window=None,
+                   prefix_len=0):
     """Launch the kernel `_route` picks for q's type on the current
     stream: bfloat16 on the tensor cores (the TMA unit needs 16-byte
     aligned pointers and (b, h, s) strides that are multiples of 8),
@@ -211,30 +276,34 @@ def attention_cuda(q, k, v, causal=True, softcap=None):
     passes (B, S, heads, D) activations seen as (B, heads, S, D)) as long
     as D is contiguous; the output has q's layout. No fallback: a build
     or launch error raises."""
-    route = _check_cuda(q, k, v, causal, softcap)
-    return _launch(route, q, k, v, causal, softcap)
+    route = _check_cuda(q, k, v, causal, softcap, window, prefix_len)
+    return _launch(route, q, k, v, causal, softcap, window, prefix_len)
 
 
-def attention_forward(q, k, v, causal=True, softcap=None):
+def attention_forward(q, k, v, causal=True, softcap=None, window=None,
+                      prefix_len=0):
     """Flash attention forward with no autograd record: q (B, H, Sq, D),
     k/v (B, K, Sk, D) -> (B, H, Sq, D) in q's type. The plain version for
     CPU tensors, the CUDA kernel for CUDA ones."""
+    mask = dict(causal=causal, softcap=softcap, window=window,
+                prefix_len=prefix_len)
     kind = q.device.type
     if kind == "cpu":
-        return attention_plain(q, k, v, causal=causal, softcap=softcap)
+        return attention_plain(q, k, v, **mask)
     if kind == "cuda":
-        return attention_cuda(q, k, v, causal=causal, softcap=softcap)
+        return attention_cuda(q, k, v, **mask)
     raise ValueError(f"attention: no kernel for device {q.device}")
 
 
-def attention_backward(q, k, v, dout, causal=True, softcap=None):
+def attention_backward(q, k, v, dout, causal=True, softcap=None,
+                       window=None, prefix_len=0):
     """(dq, dk, dv) of `attention` given the output's gradient `dout`,
     each in its input's type.
 
     The Pallas kernel has no backward (the reference differentiates its
     einsum attention through XLA), so this is ordinary torch code, the
     same on the CPU and the card, in f32: the scores are recomputed with
-    the softcap and the causal mask, then P = softmax(s), dP = dO V^T,
+    the softcap and the mask, then P = softmax(s), dP = dO V^T,
     D = rowsum(P * dP), dS = P * (dP - D), times the softcap's derivative
     1 - tanh^2(s / cap) of the scaled scores; dq = scale dS K, dk = scale
     dS^T Q and dv = P^T dO, each summed over the query heads of a kv
@@ -246,7 +315,7 @@ def attention_backward(q, k, v, dout, causal=True, softcap=None):
     mean error within 2^-8 of its mean size against autograd through
     `attention_plain`. From the recomputed f32 P it is what autograd of
     the softmax forms, so no output is saved."""
-    B, H, K, Sq, Sk, D = _check(q, k, v, causal)
+    B, H, K, Sq, Sk, D = _check(q, k, v, causal, window, prefix_len)
     f32 = torch.float32
     scale = D ** -0.5
     qg = q.reshape(B, K, H // K, Sq, D).to(f32)
@@ -256,9 +325,7 @@ def attention_backward(q, k, v, dout, causal=True, softcap=None):
     if softcap is not None:
         t = torch.tanh(s / softcap)
         s = softcap * t
-    if causal:
-        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device).tril()
-        s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    s = _masked(s, causal, window, prefix_len)
     p = torch.softmax(s, dim=-1)
     del s
     dv = torch.einsum("bkgst,bkgsd->bktd", p, do)
@@ -279,23 +346,24 @@ class _Attention(torch.autograd.Function):
     saves q, k and v (the backward recomputes the scores)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, softcap):
-        out = attention_forward(q, k, v, causal=causal, softcap=softcap)
+    def forward(ctx, q, k, v, causal, softcap, window, prefix_len):
+        ctx.mask = dict(causal=causal, softcap=softcap, window=window,
+                        prefix_len=prefix_len)
+        out = attention_forward(q, k, v, **ctx.mask)
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.softcap = causal, softcap
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = attention_backward(q, k, v, dout, ctx.causal,
-                                        ctx.softcap)
-        return dq, dk, dv, None, None
+        dq, dk, dv = attention_backward(q, k, v, dout, **ctx.mask)
+        return dq, dk, dv, None, None, None, None
 
 
-def attention(q, k, v, causal=True, softcap=None):
+def attention(q, k, v, causal=True, softcap=None, window=None, prefix_len=0):
     """Flash attention, differentiable: q (B, H, Sq, D), k/v (B, K, Sk, D)
-    -> (B, H, Sq, D) in q's type. The forward is `attention_forward` (the
-    plain version for CPU tensors, the CUDA kernel for CUDA ones), the
-    gradient `attention_backward` on either device."""
-    return _Attention.apply(q, k, v, causal, softcap)
+    -> (B, H, Sq, D) in q's type, under the mask of (causal, window,
+    prefix_len). The forward is `attention_forward` (the plain version for
+    CPU tensors, the CUDA kernel for CUDA ones), the gradient
+    `attention_backward` on either device."""
+    return _Attention.apply(q, k, v, causal, softcap, window, prefix_len)

@@ -5,10 +5,11 @@ Supports grouped-query attention (q heads grouped kv-major: head h reads
 kv head h // q_per_kv), causal / bidirectional / prefix-LM masks, sliding
 windows (gemma2 local layers), attention-logit softcapping and partial
 RoPE. The full-sequence path goes through the flash-attention kernel
-(`kernels.ops.attention`) whenever the mask is one the kernel expresses
-exactly; the reference's `attn_impl` picks between two plain forms of
-the same function (`_attend` and `_attend_blocked`), and the port needs
-neither on that path.
+(`kernels.ops.attention`) with every mask; the reference's `attn_impl`
+picks between two plain forms of the same function (`_attend` and
+`_attend_blocked`), and the port needs neither on that path. Decode
+stays plain torch (`_attend`), as the reference computes it with
+einsums.
 """
 from __future__ import annotations
 
@@ -70,14 +71,6 @@ def _attend(q, k, v, bias, n_kv, q_per_kv, cap):
     return out.reshape(B, Sq, H, Dh)
 
 
-def kernel_expresses(spec: MaskSpec, seq_len: int) -> bool:
-    """The flash-attention kernel's masks are causal or none; a causal
-    spec with no prefix and a window of at least the sequence allows the
-    same keys as the plain causal mask, exactly."""
-    return (spec.causal and spec.prefix_len == 0
-            and (spec.window is None or spec.window >= seq_len))
-
-
 def _project(x, w):
     """x (B, S, d) @ w (d, heads, Dh) -> (B, S, heads, Dh)."""
     return (x @ w.to(x.dtype).flatten(1)).unflatten(-1, w.shape[1:])
@@ -87,13 +80,10 @@ def attention_full(p, x, positions, cfg, spec: MaskSpec):
     """Attention over a full sequence, for prefill and for training.
     Returns (out, (k, v)).
 
-    Where the kernel expresses the mask (`kernel_expresses`), attention
-    goes through `ops.attention` whatever `cfg.attn_impl` says: the
-    kernel forward under autograd, with `attention_backward` as its
-    gradient. Otherwise a CPU tensor takes the plain `_attend`, which
-    autograd differentiates, and a CUDA tensor raises: the kernel has no
-    window or prefix mask yet (ROADMAP.md)."""
-    S = x.shape[1]
+    Attention goes through `ops.attention` with the spec's mask
+    (causal, window, prefix), whatever `cfg.attn_impl` says: the kernel
+    forward under autograd on a CUDA tensor, the plain version on a CPU
+    one, with `attention_backward` as the gradient on both."""
     xq = _project(x, p["wq"])
     xk = _project(x, p["wk"])
     xv = _project(x, p["wv"])
@@ -102,19 +92,10 @@ def attention_full(p, x, positions, cfg, spec: MaskSpec):
                         cfg.rope_theta)
         xk = apply_rope(xk, positions, cfg.head_dim, cfg.rope_fraction,
                         cfg.rope_theta)
-    if kernel_expresses(spec, S):
-        out = ops.attention(xq.transpose(1, 2), xk.transpose(1, 2),
-                            xv.transpose(1, 2), causal=True,
-                            softcap=cfg.attn_softcap).transpose(1, 2)
-    elif x.device.type == "cpu":
-        bias = _mask_bias(positions, positions, spec)
-        out = _attend(xq, xk, xv, bias, cfg.n_kv_heads, cfg.q_per_kv,
-                      cfg.attn_softcap)
-    else:
-        raise NotImplementedError(
-            f"attention_full: mask {spec} at sequence length {S} is not one "
-            f"the flash-attention kernel expresses (causal, no prefix, "
-            f"window >= S); its kernel is still to write (ROADMAP.md)")
+    out = ops.attention(xq.transpose(1, 2), xk.transpose(1, 2),
+                        xv.transpose(1, 2), causal=spec.causal,
+                        softcap=cfg.attn_softcap, window=spec.window,
+                        prefix_len=spec.prefix_len).transpose(1, 2)
     out = out.flatten(2) @ p["wo"].to(x.dtype).flatten(0, 1)
     return out, (xk, xv)
 

@@ -1,6 +1,8 @@
-"""Batch construction; counterpart of `repro.models.inputs.make_batch`
-for text models. The tokens are the reference's: the same numpy
-generator draws them in the same order."""
+"""Batch construction; counterpart of `repro.models.inputs.make_batch`.
+The arrays are the reference's: the same numpy generator draws them in
+the same order, and the stub front ends' inputs (vlm patch embeddings,
+audio frame features) are rounded to bfloat16 as the reference rounds
+them."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,11 +13,10 @@ from ..device import resolve_device
 
 def make_batch(cfg, batch: int, seq: int, kind: str, seed: int = 0,
                device=None) -> dict:
-    """{"tokens": (batch, seq) int32} (+ "labels" for kind "train") on
-    `device`."""
-    if cfg.vision is not None or cfg.audio is not None:
-        raise NotImplementedError(f"make_batch: {cfg.family} inputs are not "
-                                  f"ported (ROADMAP.md)")
+    """On `device`: {"tokens": (batch, seq) int32} (+ "labels" for kind
+    "train"); vlm: {"patch_embeds": (batch, n_patches, embed_dim) bf16,
+    "tokens": (batch, seq - n_patches)} (+ labels of the text); audio:
+    {"frames": (batch, seq, frame_dim) bf16} (+ labels (batch, seq))."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
 
@@ -23,6 +24,23 @@ def make_batch(cfg, batch: int, seq: int, kind: str, seed: int = 0,
         ids = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
         return torch.from_numpy(ids).to(dev)
 
+    def normal_bf16(shape):
+        return torch.from_numpy(rng.normal(size=shape)).to(
+            torch.bfloat16).to(dev)
+
+    if cfg.vision is not None:
+        n_text = seq - cfg.vision.n_patches
+        out = {"patch_embeds": normal_bf16((batch, cfg.vision.n_patches,
+                                            cfg.vision.embed_dim)),
+               "tokens": tok((batch, n_text))}
+        if kind == "train":
+            out["labels"] = tok((batch, n_text))
+        return out
+    if cfg.audio is not None:
+        out = {"frames": normal_bf16((batch, seq, cfg.audio.frame_dim))}
+        if kind == "train":
+            out["labels"] = tok((batch, seq))
+        return out
     out = {"tokens": tok((batch, seq))}
     if kind == "train":
         out["labels"] = tok((batch, seq))

@@ -1,4 +1,6 @@
-"""Model interface; counterpart of `repro.models.model`, dense family.
+"""Model interface; counterpart of `repro.models.model` for the
+transformer families (dense, moe, vlm, audio), which the reference also
+builds with one `_build_transformer`.
 
 `build(cfg)` returns a `Model` with:
   init(seed=0, device=None)        -> parameters (`transformer.init_params`)
@@ -9,7 +11,8 @@
 
 Cache convention, as in the reference: a dict with "kv" (one {"k", "v"}
 dict per layer) and "lengths" (B,) int32 holding the current position.
-The other families wait for later slices.
+An audio encoder has no decode (`cfg.has_decode`). The ssm and hybrid
+families wait for a later slice: `build` raises for them.
 """
 from __future__ import annotations
 

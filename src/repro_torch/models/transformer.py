@@ -1,5 +1,5 @@
-"""Transformer LM stack, dense family; counterpart of
-`repro.models.transformer`.
+"""Transformer stack for the dense, moe, vlm and audio families;
+counterpart of `repro.models.transformer`.
 
 The reference stacks each block's parameters with a leading `steps` axis
 and runs `lax.scan` over pattern steps (a pattern is the repeating unit:
@@ -7,6 +7,13 @@ one block for most archs, [local, global] for gemma2). The port keeps one
 parameter dict per layer in `params["blocks"]` and loops in Python: layer
 l is step l // len(specs) and uses spec l % len(specs). KV caches are one
 {"k", "v"} dict per layer, each (B, max_seq, K, Dh) in bf16.
+
+moe blocks replace the MLP with `moe.apply_moe` and add its aux loss;
+vlm prepends its projected patch embeddings to the text and attends
+with a prefix-LM mask over them (`prefix_len = n_patches`); audio
+projects its frame features and attends bidirectionally (`causal=False`
+in its config). The vision and audio front ends are stubs, as in the
+reference: the batch carries patch embeddings and frame features.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
 from . import layers as L
+from . import moe as MOE
 from .param import normal
 
 
@@ -25,15 +33,23 @@ class Pattern(NamedTuple):
     steps: int              # repeats of the unit
 
 
+#: the families this stack runs; ssm and hybrid wait for a later slice
+FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
 def check_supported(cfg) -> None:
-    """The port has the dense text transformer only so far."""
-    extra = [f for f in ("moe", "ssm", "hybrid", "vision", "audio")
-             if getattr(cfg, f) is not None]
-    if cfg.family != "dense" or extra:
+    """Raise for a family the port has not got (ssm, hybrid) or a config
+    whose extensions do not match its family."""
+    if cfg.family not in FAMILIES or cfg.ssm is not None \
+            or cfg.hybrid is not None:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with {extra or 'no'} "
-            f"extensions is not ported; only the dense text transformer is "
-            f"(ROADMAP.md lists the rest)")
+            f"{cfg.name}: family {cfg.family!r} is not ported; the port has "
+            f"{', '.join(FAMILIES)} (ROADMAP.md lists the rest)")
+    extensions = {"moe": "moe", "vlm": "vision", "audio": "audio"}
+    for family, ext in extensions.items():
+        if (cfg.family == family) != (getattr(cfg, ext) is not None):
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} with "
+                             f"{ext} {getattr(cfg, ext)!r}")
 
 
 def block_pattern(cfg, prefix_len: int = 0) -> Pattern:
@@ -70,9 +86,13 @@ def init_block(cfg, dtype, generator=None, device=None):
     p = {"ln1": zeros(),
          "attn": A.init_attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                   cfg.head_dim, dtype, **kw),
-         "ln2": zeros(),
-         "mlp": L.init_mlp(cfg.d_model, cfg.d_ff, cfg.activation, dtype,
-                           **kw)}
+         "ln2": zeros()}
+    if cfg.moe is not None:
+        p["moe"] = MOE.init_moe(cfg.d_model, cfg.moe, cfg.activation, dtype,
+                                **kw)
+    else:
+        p["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, cfg.activation, dtype,
+                              **kw)
     if cfg.post_block_norms:
         p["ln1_post"] = zeros()
         p["ln2_post"] = zeros()
@@ -80,7 +100,8 @@ def init_block(cfg, dtype, generator=None, device=None):
 
 
 def apply_block(p, x, positions, cfg, spec, cache=None, pos=None):
-    """Returns (x, new_cache_or_kv, aux); aux is 0 in the dense family."""
+    """Returns (x, new_cache_or_kv, aux); aux is the moe layer's load
+    balance loss, 0 elsewhere."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cache is None:
         attn_out, kv = A.attention_full(p["attn"], h, positions, cfg, spec)
@@ -91,11 +112,14 @@ def apply_block(p, x, positions, cfg, spec, cache=None, pos=None):
         attn_out = L.rms_norm(attn_out, p["ln1_post"], cfg.norm_eps)
     x = x + attn_out
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    mlp_out = L.apply_mlp(p["mlp"], h, cfg.activation)
+    if cfg.moe is not None:
+        mlp_out, aux = MOE.apply_moe(p["moe"], h, cfg.moe, cfg.activation)
+    else:
+        mlp_out = L.apply_mlp(p["mlp"], h, cfg.activation)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.post_block_norms:
         mlp_out = L.rms_norm(mlp_out, p["ln2_post"], cfg.norm_eps)
     x = x + mlp_out
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, {"k": kv[0], "v": kv[1]}, aux
 
 
@@ -109,14 +133,15 @@ def padded_vocab(cfg) -> int:
 
 
 def init_params(cfg, generator=None, dtype=None, device=None):
-    """{"embed", "blocks" (one dict per layer), "final_norm", "lm_head"} in
-    `cfg.param_dtype` unless `dtype` is given, drawn from `generator`
-    (which must live on `device`)."""
+    """{"embed", "blocks" (one dict per layer), "final_norm", "lm_head"}
+    (+ "vision_proj" (embed_dim, d_model) for vlm, "frame_proj"
+    (frame_dim, d_model) for audio) in `cfg.param_dtype` unless `dtype`
+    is given, drawn from `generator` (which must live on `device`)."""
     check_supported(cfg)
     dtype = dtype or getattr(torch, cfg.param_dtype)
     kw = dict(generator=generator, device=device)
     Vp = padded_vocab(cfg)
-    return {
+    params = {
         "embed": L.init_embed(Vp, cfg.d_model, dtype, **kw),
         "blocks": [init_block(cfg, dtype, **kw)
                    for _ in range(cfg.n_layers)],
@@ -124,15 +149,36 @@ def init_params(cfg, generator=None, dtype=None, device=None):
                                   device=device),
         "lm_head": normal((cfg.d_model, Vp), dtype=dtype, **kw),
     }
+    if cfg.vision is not None:
+        params["vision_proj"] = normal(
+            (cfg.vision.embed_dim, cfg.d_model), dtype=dtype, **kw)
+    if cfg.audio is not None:
+        params["frame_proj"] = normal(
+            (cfg.audio.frame_dim, cfg.d_model), dtype=dtype, **kw)
+    return params
 
 
 def _embed_inputs(params, batch, cfg):
-    """-> (x (B,S,D), prefix_len); text only."""
+    """-> (x (B,S,D), prefix_len): vlm's projected patch embeddings
+    before its embedded text (prefix_len = n_patches), audio's projected
+    frames, or the embedded text."""
     check_supported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    x = L.embed_tokens(params["embed"].to(cdt), tokens, cfg.embed_scale)
-    return x, 0
+    dev = params["embed"].device
+
+    def embed_text():
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        return L.embed_tokens(params["embed"].to(cdt), tokens,
+                              cfg.embed_scale)
+
+    if cfg.vision is not None:
+        patches = torch.as_tensor(batch["patch_embeds"], device=dev)
+        pe = patches.to(cdt) @ params["vision_proj"].to(cdt)
+        return torch.cat([pe, embed_text()], dim=1), cfg.vision.n_patches
+    if cfg.audio is not None:
+        frames = torch.as_tensor(batch["frames"], device=dev)
+        return frames.to(cdt) @ params["frame_proj"].to(cdt), 0
+    return embed_text(), 0
 
 
 def _positions(B, S, device):
@@ -173,13 +219,16 @@ def _block_train(p, x, positions, cfg, spec):
 
 
 def loss_fn(params, batch, cfg, remat=True):
-    """Next-token CE (+ the aux loss, 0 in the dense family). Returns
-    (loss, metrics). As in the reference, position t's logits are held
-    against labels[t + 1] (the batch's labels are already the next
-    tokens), over the first vocab_size logits."""
+    """Next-token CE, or frame-target CE for a bidirectional encoder (+
+    the moe aux loss, 0 elsewhere). Returns (loss, metrics). As in the
+    reference, position t's logits are held against labels[t + 1] (the
+    batch's labels are already the next tokens), over the first
+    vocab_size logits; vlm's loss covers the text positions only."""
     logits, aux = forward(params, batch, cfg, remat)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     V = cfg.vocab_size
+    if cfg.vision is not None:
+        logits = logits[:, cfg.vision.n_patches:]
     if not cfg.causal:
         ce = L.cross_entropy(logits[..., :V], torch.clamp(labels, min=0),
                              mask=labels >= 0)
@@ -206,6 +255,8 @@ def init_cache(cfg, batch, max_seq, dtype=torch.bfloat16, device=None):
 
 def prefill(params, batch, cfg, max_seq=None):
     """Run the prompt; returns (last-position logits, caches, lengths).
+    A vlm prompt is its patches and then its text; its length counts
+    both, and decode continues after the text.
 
     Each layer's k and v go into its bf16 cache as they come (the
     reference pads and casts the stacked kv after the scan: the same
@@ -232,7 +283,8 @@ def prefill(params, batch, cfg, max_seq=None):
 def decode_step(params, tokens, caches, lengths, cfg):
     """One decode step. tokens: (B,1) int32; lengths: (B,) current
     positions. Writes each layer's cache in place. Returns (logits
-    (B,1,V), caches, lengths+1)."""
+    (B,1,V), caches, lengths+1). The masks have no prefix here, as in
+    the reference: a decoded token is past any prefix."""
     check_supported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     x = L.embed_tokens(params["embed"].to(cdt), tokens, cfg.embed_scale)

@@ -38,7 +38,13 @@ class Engine:
               device=None):
         """The engine of `cfg` on `device` (the card unless asked for the
         CPU). Without `params`, random weights from a generator seeded
-        with `seed`; given `params` are moved to the device."""
+        with `seed`; given `params` are moved to the device. An encoder
+        (`cfg.has_decode` false: the audio family) has no decode, so no
+        engine: run `model.build(cfg).forward` instead."""
+        if not cfg.has_decode:
+            raise ValueError(f"Engine.build: {cfg.name} is an encoder "
+                             f"(has_decode is false); it has no decode "
+                             f"step to serve")
         dev = resolve_device(device)
         m = model_lib.build(cfg)
         if params is None:
@@ -50,8 +56,11 @@ class Engine:
     def generate(self, batch: dict, n_tokens: int, progress_cb=None):
         """Greedy decode of n_tokens after the prompt, in the reference's
         order; progress_cb(i, n) per token. Returns (B, n_tokens) int32
-        numpy."""
+        numpy. A vlm prompt's patches take cache places too."""
+        cfg = self.model.cfg
         S = batch["tokens"].shape[1]
+        if cfg.vision is not None:
+            S += cfg.vision.n_patches
         if S + n_tokens > self.max_seq:
             raise ValueError(f"generate: prompt {S} + {n_tokens} tokens "
                              f"exceed max_seq {self.max_seq}")

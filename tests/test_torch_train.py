@@ -18,9 +18,9 @@ up to 2^-7 relative) moves AdamW's second update by up to about 2^-7 of
 lr: parameters are held within 1e-5 relative plus lr * 2^-6 absolute.
 
 The config is gemma2-2b reduced with 2 kv heads (grouped-query
-attention). At sequence length 8 (its sliding window) every layer's mask
-is one the kernel expresses and attention goes through the autograd
-Function the card runs; at 16 the local layers take the plain `_attend`.
+attention). Attention goes through the autograd Function the card runs
+at every length: at sequence length 8 (its sliding window) every
+layer's mask is plain causal; at 16 the local layers pass window 8.
 """
 import dataclasses
 
@@ -45,6 +45,7 @@ from repro_torch import convert
 from repro_torch.ckpt.checkpoint import tree_map
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
 from repro_torch.launch import train as launch_train
 from repro_torch.models import layers as L
 from repro_torch.models import model as model_lib
@@ -223,7 +224,8 @@ def loss_setup():
 
 
 @pytest.mark.parametrize("seq", [8, 16], ids=["kernel_mask", "window_lt_S"])
-def test_loss_fn_value_and_grads_match_reference(loss_setup, seq):
+def test_loss_fn_value_and_grads_match_reference(loss_setup, seq,
+                                                 monkeypatch):
     rcfg, tcfg, rparams = loss_setup
     batch = batch_np(tcfg, 2, seq, seed=seq)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -233,8 +235,18 @@ def test_loss_fn_value_and_grads_match_reference(loss_setup, seq):
     leaves = [p.requires_grad_(True) for p in
               jax.tree.leaves(params)]
     model = model_lib.build(tcfg)
+    windows = []
+
+    def spy(*args, **mask):
+        windows.append(mask["window"])
+        return fa.attention(*args, **mask)
+
+    monkeypatch.setattr(ops, "attention", spy)
     loss, metrics = model.loss_fn(params, {k: torch.from_numpy(v)
                                            for k, v in batch.items()})
+    # both layers through the differentiable kernel call, the local one
+    # with its window
+    assert windows == [8, None]
     loss.backward()
     held(loss, rloss, TOL, "loss")
     assert float(metrics["aux_loss"]) == 0.0
