@@ -345,11 +345,36 @@ Phases; each raises on failure, so any failure exits non-zero:
    tokens/s or frames/s, peak memory, the same tokens twice, and one
    profiled run (idle share, flash attention's share).
 
-The last lines are the families JSON (phase 17), the training JSON
-(phase 16), the chaos JSON (phases 10e and 10f), the serving JSON (phase
-10d), the fleet JSON (phase 10c), the cluster JSON (phase 10b), the
-scenarios JSON (phases 6-10), the kernels JSON, the card line and the
-result JSON; each of the first six and the kernels JSON is also written
+18. head dim 112 and the ssm and hybrid families. (a) Both
+   flash-attention kernels at D 112 against the plain version on every
+   mask of FA_MASKS (FA_D112_CASES: S 1000 and 2049, 32 query heads over
+   1, 2, 4 and 32 kv heads, views, softcaps; bf16 on the tensor-core
+   route, one case in three in f32 on the SIMT route) and FA_D112_HOT (q
+   scaled by 16), phase 14's limits; ptxas's registers and spills of the
+   D 112 instantiations; zamba2-7b's launch (4, 32, 32, 2048, 112),
+   causal, timed beside its bound and SDPA(is_causal=True). (b)
+   mamba2-2.7b cut to 2 layers and zamba2-7b to 3 (one group of one
+   mamba layer and the shared block, one tail layer) at full width, f32,
+   card against the CPU's plain path, B 1 x 64 tokens and 3 decode steps:
+   logits within 1e-4 at every step, each card step from the CPU's cache;
+   the caches' f32 states within 1e-4 of their max and their bf16 states
+   and kv within that and one bf16 ulp; the card's run from its own
+   caches recorded beside it; zamba2's one launch on the SIMT route. (c)
+   mamba2-2.7b (64 layers, 2.83 B parameters) and zamba2-7b (81 layers,
+   5.74 B) at full width, bf16, through the Engine, 4 x 2048 + 32 tokens,
+   every count set to 0 just before the first generate: 0 flash launches
+   for mamba2, 13 sm90 ones for zamba2 (the first held against the plain
+   version on its own tensors); generate first and warm (the same
+   tokens), prefill and decode ms, tokens/s, peak memory, one profiled
+   generate (idle share), and the device time of a prefill and of one
+   decode step by op (profiler ranges around the Mamba2 projections, the
+   SSD intra-chunk work, the chunk scan and the shared attention block).
+
+The last lines are the ssm JSON (phase 18), the families JSON (phase
+17), the training JSON (phase 16), the chaos JSON (phases 10e and 10f),
+the serving JSON (phase 10d), the fleet JSON (phase 10c), the cluster
+JSON (phase 10b), the scenarios JSON (phases 6-10), the kernels JSON,
+the card line and the result JSON; each of the first seven and the kernels JSON is also written
 under `chiprun_out/`.
 The script needs one CUDA card and exits non-zero without one.
 """
@@ -409,7 +434,9 @@ from repro_torch.kernels import philox as ph  # noqa: E402
 from repro_torch.data.pipeline import (PipelineConfig,  # noqa: E402
                                        assemble, make_shard)
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import mamba2 as model_mamba2  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models import transformer as model_tf  # noqa: E402
 from repro_torch.models.inputs import make_batch  # noqa: E402
 from repro_torch.models.transformer import (layer_specs,  # noqa: E402
                                             padded_vocab)
@@ -585,6 +612,43 @@ ENCODER = dict(arch="hubert-xlarge", batch=8, frames=1024)
 # or 128 frames, 3 decode steps
 CHECK_FAMILY = dict(layers=2, batch=1, prompt=64, frames=128, tokens=3,
                     tol=1e-4)
+# phase 18: head dim 112 (zamba2-7b's shared attention) in both kernels,
+# (B, H, K, S, D, dtype, causal, window, prefix, softcap, views): every
+# mask of FA_MASKS at S 1000 and 2049, 32 query heads over 1, 2, 4 and 32
+# kv heads, contiguous and strided views, no softcap and caps of 50 and
+# 30; every case in bf16 through the tensor-core kernel, one in three also
+# in f32 through the SIMT kernel
+FA_D112_CASES = tuple(
+    (1, 32, (1, 2, 4, 32)[j % 4], S, 112, dt, causal, window, prefix,
+     (None, 50.0, 30.0)[j // 4 % 3], j // 4 % 2 == 0)
+    for j, (S, (causal, window, prefix)) in enumerate(
+        (S, m) for S in (1000, 2049) for m in FA_MASKS)
+    for dt in ("bfloat16", "float32") if dt == "bfloat16" or j % 3 == 0)
+# q scaled by FA_HOT_SCALE at D 112: zamba2-7b's launch shape with a
+# softcap, a window, a prefix, and f32 bidirectional
+FA_D112_HOT = (
+    (4, 32, 32, 2048, 112, "bfloat16", True, None, 0, 50.0, True),
+    (1, 32, 4, 2049, 112, "bfloat16", True, 683, 0, 30.0, True),
+    (1, 32, 2, 2049, 112, "bfloat16", True, None, 512, 50.0, False),
+    (1, 32, 32, 1000, 112, "float32", False, None, 0, 30.0, False))
+# zamba2-7b's launch: 4 x 2048 tokens, 32 heads of 112, causal, no softcap
+FA_D112_PATH = (4, 32, 32, 2048, 112)
+# (b): each family cut in depth at full width, f32 compute, card against
+# the CPU's plain path: mamba2-2.7b at 2 layers; zamba2-7b at 3 layers,
+# one group of one mamba layer and the shared block, then one tail layer
+CHECK_SSM = dict(batch=1, prompt=64, tokens=3, tol=1e-4,
+                 cuts={"mamba2-2.7b": dict(n_layers=2),
+                       "zamba2-7b": dict(n_layers=3, shared_attn_every=2)})
+# (c): both at full width through the Engine, bf16 weights
+SSM_SERVE = (dict(arch="mamba2-2.7b", batch=4, prompt=2048, tokens=32),
+             dict(arch="zamba2-7b", batch=4, prompt=2048, tokens=32))
+# the functions whose device time phase 18 (c) reads as a profiler range:
+# (range, module, function)
+SSM_RANGES = (("projections", model_mamba2, "_project"),
+              ("projections", model_mamba2, "_out_proj"),
+              ("ssd_intra", model_mamba2, "_ssd_intra"),
+              ("ssd_chunk_scan", model_mamba2, "_ssd_chunk_scan"),
+              ("shared_block", model_tf, "apply_block"))
 CHECK_SHAPES = ((37, 9), (64, 33), (2700, 9), (65536, 64))
 FLEET_SHAPE = (65536, 64)   # a fleet-sized chunk (ROADMAP A.5)
 THETA = 1e-4
@@ -3785,7 +3849,6 @@ def step_compare(cfg, card, host, batch, max_seq, n_tokens, tol):
     both: logits within `tol` at every step, and the choices equal
     wherever the host's top-2 margin exceeds 2 tol. Returns (max |logit
     error|, clear choices)."""
-    V = cfg.vocab_size
     dev = card.params["embed"].device
     out = [eng.model.prefill(eng.params, {
         k: x.to(eng.params["embed"].device) for k, x in batch.items()},
@@ -3793,28 +3856,36 @@ def step_compare(cfg, card, host, batch, max_seq, n_tokens, tol):
     worst, clear = 0.0, 0
     for step in range(n_tokens + 1):
         (lg, cg), (lc, cc) = out
-        lg = lg.cpu()
-        if not bool(torch.isfinite(lg).all()):
-            raise AssertionError(f"serve check step {step}: logits not "
-                                 f"finite")
-        err = float((lg - lc).abs().max())
-        if not torch.allclose(lg, lc, rtol=tol, atol=tol):
-            raise AssertionError(f"serve check step {step}: card logits "
-                                 f"{err:.3g} off the CPU's (tol {tol})")
-        worst = max(worst, err)
-        top = torch.topk(lc[:, -1, :V], 2).values
-        sure = (top[:, 0] - top[:, 1]) > 2 * tol
-        tok_c = torch.argmax(lc[:, -1:, :V], dim=-1).to(torch.int32)
-        tok_g = torch.argmax(lg[:, -1:, :V], dim=-1).to(torch.int32)
-        if not torch.equal(tok_g[sure], tok_c[sure]):
-            raise AssertionError(f"serve check step {step}: greedy choices "
-                                 f"differ from the CPU's")
-        clear += int(sure.sum())
+        err, sure, tok_c = held_step(cfg, step, lg, lc, tol, "serve check")
+        worst, clear = max(worst, err), clear + sure
         if step == n_tokens:
             break
         out = [card.model.decode_step(card.params, tok_c.to(dev), cg),
                host.model.decode_step(host.params, tok_c, cc)]
     return worst, clear
+
+
+def held_step(cfg, step, lg, lc, tol, what):
+    """One step of a card-vs-CPU comparison: the card's logits lg finite
+    and within `tol` of the CPU's lc, and the greedy choices equal
+    wherever the CPU's top-2 margin exceeds 2 tol. Returns (max |logit
+    error|, clear choices, the CPU's choice)."""
+    V = cfg.vocab_size
+    lg = lg.cpu()
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"{what} step {step}: logits not finite")
+    err = float((lg - lc).abs().max())
+    if not torch.allclose(lg, lc, rtol=tol, atol=tol):
+        raise AssertionError(f"{what} step {step}: card logits {err:.3g} "
+                             f"off the CPU's (tol {tol})")
+    top = torch.topk(lc[:, -1, :V], 2).values
+    sure = (top[:, 0] - top[:, 1]) > 2 * tol
+    tok_c = torch.argmax(lc[:, -1:, :V], dim=-1).to(torch.int32)
+    tok_g = torch.argmax(lg[:, -1:, :V], dim=-1).to(torch.int32)
+    if not torch.equal(tok_g[sure], tok_c[sure]):
+        raise AssertionError(f"{what} step {step}: greedy choices differ "
+                             f"from the CPU's")
+    return err, int(sure.sum()), tok_c
 
 
 def phase_serve_check(dev) -> dict:
@@ -4471,23 +4542,18 @@ def phase_train_restart(dev) -> dict:
                 ckpt_bytes=ckpt_bytes, seconds=secs)
 
 
-def phase_fa_masks(dev) -> dict:
-    """Both kernels against the plain version on every mask of
-    FA_MASK_CASES, and on FA_HOT_SHAPES with a window and a prefix (q
-    scaled by FA_HOT_SCALE): each case moves its route's count by one and
-    holds FA_TOL (and, bf16, FA_MEAN_REL / FA_MAX_REL)."""
+def check_fa_cases(cases, seed0: int, dev) -> dict:
+    """Each (case, q scale) of `cases`, (B, H, K, S, D, dtype, causal,
+    window, prefix, softcap, views), through `attention` against the
+    plain version: it moves its route's count by one and holds FA_TOL
+    (and, bf16, FA_MEAN_REL / FA_MAX_REL). Returns the cases by route,
+    max |error| by type and the largest bf16 relative readings."""
     err = {"float32": 0.0, "bfloat16": 0.0}
     rel = {"mean_rel": 0.0, "max_rel": 0.0}
-    cases = [(c, 1.0) for c in FA_MASK_CASES]
-    for B, H, K, S, D, dt, causal, cap, views in FA_HOT_SHAPES:
-        cases += [((B, H, K, S, D, dt, causal, S // 3, 0, cap, views),
-                   FA_HOT_SCALE),
-                  ((B, H, K, S, D, dt, causal, None, S // 4, cap, views),
-                   FA_HOT_SCALE)]
     n = {"sm90": 0, "simt": 0}
     for i, (case, q_scale) in enumerate(cases):
         B, H, K, S, D, dt, causal, window, prefix, cap, views = case
-        q, k, v = fa_inputs(B, H, K, S, D, dt, 500 + i, dev, views=views,
+        q, k, v = fa_inputs(B, H, K, S, D, dt, seed0 + i, dev, views=views,
                             q_scale=q_scale)
         mask = dict(causal=causal, softcap=cap, window=window,
                     prefix_len=prefix)
@@ -4507,13 +4573,28 @@ def phase_fa_masks(dev) -> dict:
         if dt == "bfloat16":
             rel = {"mean_rel": max(rel["mean_rel"], mean_rel),
                    "max_rel": max(rel["max_rel"], max_rel)}
+    return dict(cases=n, max_abs_err=err, bf16_relative_err=rel)
+
+
+def phase_fa_masks(dev) -> dict:
+    """Both kernels against the plain version on every mask of
+    FA_MASK_CASES, and on FA_HOT_SHAPES with a window and a prefix (q
+    scaled by FA_HOT_SCALE)."""
+    cases = [(c, 1.0) for c in FA_MASK_CASES]
+    for B, H, K, S, D, dt, causal, cap, views in FA_HOT_SHAPES:
+        cases += [((B, H, K, S, D, dt, causal, S // 3, 0, cap, views),
+                   FA_HOT_SCALE),
+                  ((B, H, K, S, D, dt, causal, None, S // 4, cap, views),
+                   FA_HOT_SCALE)]
+    out = check_fa_cases(cases, 500, dev)
+    n, err, rel = out["cases"], out["max_abs_err"], out["bf16_relative_err"]
     print(f"flash_attention masks: {n['sm90']} bf16 cases (sm90) and "
           f"{n['simt']} f32 cases (simt) equal the plain version (D 64, 80,"
           f" 128, 256; windows 1-4096, prefixes 64-4096, bidirectional with "
           f"and without a window, hot softcaps); max abs err {err}, bf16 "
           f"mean |err| / mean |want| <= {rel['mean_rel']:.3g}, max |err| / "
           f"max |want| <= {rel['max_rel']:.3g}")
-    return dict(cases=n, max_abs_err=err, bf16_relative_err=rel)
+    return out
 
 
 def fa_mask_times(dev) -> dict:
@@ -4789,6 +4870,357 @@ def phase_masks_families(dev) -> dict:
     return out
 
 
+def fa_d112_times(dev) -> dict:
+    """zamba2-7b's launch (FA_D112_PATH, causal, bf16, the model's strided
+    views): the tensor-core kernel (ms by the profiler, call ms), the
+    plain version, the bound over the causal pairs, and the yardstick
+    SDPA(is_causal=True), which the port never calls."""
+    B, H, K, S, D = FA_D112_PATH
+    q, k, v = fa_inputs(B, H, K, S, D, "bfloat16", 11, dev, views=True)
+    launch = lambda: fa.attention_cuda(q, k, v, causal=True)
+    plain = lambda: fa.attention_plain(q, k, v, causal=True)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True)
+    e, mean_rel, max_rel = fa_compare("D 112 path shape", launch(), plain(),
+                                      "bfloat16")
+    bytes_ms, ops_ms = fa_bound(B, H, K, S, D, "bfloat16", True)
+    bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
+    out = dict(shape=dict(B=B, H=H, K=K, S=S, D=D, causal=True,
+                          softcap=None),
+               pairs=fa_pairs(S, True, None, 0),
+               ms=kernel_ms(launch, 20, "flash_attention_sm90_kernel"),
+               call_ms=cuda_ms(launch, 20), plain_ms=cuda_ms(plain, 3),
+               library_ms=cuda_ms(library, 20), bytes_ms=bytes_ms,
+               ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by,
+               max_abs_err=e, mean_rel=mean_rel, max_rel=max_rel)
+    out["bound_share"] = bound_ms / out["ms"]
+    out["tflops"] = ops_ms * BF16_TENSOR_OPS_PER_S / 1e12 / out["ms"]
+    print(f"flash_attention D 112 at {FA_D112_PATH}, causal: tensor-core "
+          f"kernel {out['ms']:.4f} ms (call {out['call_ms']:.4f}; "
+          f"{out['tflops']:.1f} TFLOP/s, {out['bound_share']:.3f} of the "
+          f"bound {bound_ms:.5f} ms, {bound_by}; bytes {bytes_ms:.5f}), "
+          f"plain {out['plain_ms']:.3f} ms, SDPA is_causal (yardstick) "
+          f"{out['library_ms']:.4f} ms; max abs err {e:.3g}")
+    return out
+
+
+def tree_leaves_named(tree, name=""):
+    """(path, tensor) of every tensor of a cache (dicts, lists, tuples)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves_named(v, f"{name}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_named(v, f"{name}/{i}")
+    else:
+        yield name, tree
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def compare_caches(got, want, tol: float, what: str) -> dict:
+    """The card's cache (got) against the CPU's: f32 leaves within tol of
+    each tensor's largest value; bf16 leaves elementwise within that and
+    one bf16 ulp of the value (the f32 values before the cast may differ
+    by tol, and one near a rounding boundary then rounds the other way);
+    integer leaves equal. Returns the worst f32 error (relative to its
+    tensor's max) and the bf16 elements that differ."""
+    worst, flips = 0.0, 0
+    for (name, g), (_, w) in zip(tree_leaves_named(got),
+                                 tree_leaves_named(want), strict=True):
+        g = g.cpu()
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what} cache {name}: {g.dtype} "
+                                 f"{tuple(g.shape)} against {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        if g.dtype == torch.float32:
+            err = float((g - w).abs().max() / max(float(w.abs().max()),
+                                                  1e-30))
+            if err > tol:
+                raise AssertionError(f"{what} cache {name}: f32 error "
+                                     f"{err:.3g} of its max (tol {tol})")
+            worst = max(worst, err)
+        elif g.dtype == torch.bfloat16:
+            gf, wf = g.float(), w.float()
+            mag = torch.maximum(gf.abs(), wf.abs()).clamp_min(
+                torch.finfo(torch.float32).tiny)
+            ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            if not bool(((gf - wf).abs() <= ulp + tol * float(
+                    wf.abs().max())).all()):
+                raise AssertionError(f"{what} cache {name}: a bf16 element "
+                                     f"more than one ulp and tol off the "
+                                     f"CPU's")
+            flips += int((gf != wf).sum())
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{what} cache {name}: differs")
+    return dict(f32_rel_err=worst, bf16_ulp_flips=flips)
+
+
+def ssm_step_compare(cfg, card, host, batch, max_seq, n_tokens, tol):
+    """Prefill `batch` (CPU tensors), then n_tokens decode steps fed the
+    host's greedy choice, on the card and on the CPU. At every step the
+    logits within `tol` and the caches by `compare_caches`; each card
+    decode step starts from the CPU's cache, so that a bf16 state element
+    rounded the other way in an earlier step does not count against the
+    card's arithmetic. The card's run from its own caches is recorded
+    beside it (its max logit error, not held). Returns (max logit error,
+    clear choices, free-running max logit error, worst cache readings)."""
+    dev = card.params["embed"].device
+    on_card = {k: x.to(dev) for k, x in batch.items()}
+    lg, cg = card.model.prefill(card.params, on_card, max_seq)
+    lc, cc = host.model.prefill(host.params, batch, max_seq)
+    free, cfree = lg, tree_to(cg, dev)
+    worst, clear, free_err = 0.0, 0, 0.0
+    caches = dict(f32_rel_err=0.0, bf16_ulp_flips=0)
+    for step in range(n_tokens + 1):
+        err, sure, tok_c = held_step(cfg, step, lg, lc, tol, "ssm check")
+        worst, clear = max(worst, err), clear + sure
+        free_err = max(free_err, float((free.cpu() - lc).abs().max()))
+        got = compare_caches(cg, cc, tol, f"ssm check step {step}")
+        caches = {k: max(v, got[k]) for k, v in caches.items()}
+        if step == n_tokens:
+            break
+        free, cfree = card.model.decode_step(card.params, tok_c.to(dev),
+                                             cfree)
+        lg, cg = card.model.decode_step(card.params, tok_c.to(dev),
+                                        tree_to(cc, dev))
+        lc, cc = host.model.decode_step(host.params, tok_c, cc)
+    return worst, clear, free_err, caches
+
+
+def phase_ssm_check(dev) -> dict:
+    """mamba2-2.7b and zamba2-7b cut in depth (CHECK_SSM["cuts"]) at full
+    width, f32 compute, the same seeded weights on the card and on the
+    CPU (plain path): prefill and 3 decode steps through
+    ssm_step_compare. mamba2 launches no flash attention; zamba2's one
+    launch a prefill takes the f32 (simt) route."""
+    c = CHECK_SSM
+    out = {}
+    for arch, cut in c["cuts"].items():
+        t0 = time.perf_counter()
+        base = get_config(arch)
+        kw = dict(n_layers=cut["n_layers"], compute_dtype="float32")
+        if "shared_attn_every" in cut:
+            kw["hybrid"] = dataclasses.replace(
+                base.hybrid, shared_attn_every=cut["shared_attn_every"])
+        cfg = dataclasses.replace(base, **kw)
+        params = model_lib.build(cfg).init(seed=1, device=dev)
+        max_seq = c["prompt"] + c["tokens"]
+        card = Engine.build(cfg, max_seq=max_seq, params=params, device=dev)
+        host = Engine.build(cfg, max_seq=max_seq, params=params,
+                            device="cpu")
+        del params
+        reset_counts()
+        batch = make_batch(cfg, c["batch"], c["prompt"], "prefill", seed=1,
+                           device="cpu")
+        err, clear, free_err, caches = ssm_step_compare(
+            cfg, card, host, batch, max_seq, c["tokens"], c["tol"])
+        counts = fa_counts()
+        want = 0 if cfg.hybrid is None else \
+            cfg.n_layers // cfg.hybrid.shared_attn_every
+        if (counts["flash_attention"], counts["flash_attention_simt"]) != (
+                want, want):
+            raise AssertionError(f"ssm check {arch}: launches {counts}, "
+                                 f"expected {want} on the simt route")
+        del card, host
+        torch.cuda.empty_cache()
+        out[arch] = dict(layers=cfg.n_layers, max_logit_err=err,
+                         clear_choices=clear, simt_launches=want,
+                         free_running_max_logit_err=free_err, caches=caches,
+                         seconds=time.perf_counter() - t0)
+        print(f"ssm check {arch} ({cfg.n_layers} layers, full width, f32, "
+              f"B {c['batch']}, prompt {c['prompt']}, {c['tokens']} decode "
+              f"steps): card equals the CPU's plain path, max logit err "
+              f"{err:.3g} (tol {c['tol']}); caches: f32 within "
+              f"{caches['f32_rel_err']:.3g} of their max, up to "
+              f"{caches['bf16_ulp_flips']} bf16 elements one ulp off; from "
+              f"its own caches the card's logits are {free_err:.3g} off; "
+              f"{clear} clear greedy choices equal; {want} simt launches; "
+              f"{out[arch]['seconds']:.1f} s")
+    return out
+
+
+@contextlib.contextmanager
+def ssm_ranges():
+    """Each function of SSM_RANGES runs inside a profiler range named
+    `ssm:<range>` while the context is open."""
+    saved = []
+    for label, mod, name in SSM_RANGES:
+        inner = getattr(mod, name)
+
+        def ranged(*args, _inner=inner, _label=label, **kw):
+            with torch.profiler.record_function(f"ssm:{_label}"):
+                return _inner(*args, **kw)
+
+        saved.append((mod, name, inner))
+        setattr(mod, name, ranged)
+    try:
+        yield
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+
+
+def ssm_op_split(fn, label: str) -> dict:
+    """Device ms of one fn() by op: the Mamba2 projections, the SSD
+    intra-chunk work, the chunk states and recurrence, the shared
+    attention block (its flash-attention kernel also apart), and the
+    rest; from one torch.profiler pass with the host's activity, each
+    range's device time being that of the kernels launched inside it (the
+    host range's children)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with ssm_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    # the device's kernels; each range also shows as a user annotation on
+    # the device's timeline, which spans its kernels and is left out
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("ssm:")]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    out = {lab: sum(e.device_time_total for e in rows
+                    if e.key == f"ssm:{lab}"
+                    and e.device_type == DeviceType.CPU) / 1e3
+           for lab in dict.fromkeys(r[0] for r in SSM_RANGES)}
+    out["flash_attention"] = sum(e.device_time_total for e in kernels
+                                 if "flash_attention" in e.key) / 1e3
+    ranged = sum(out[lab] for lab in dict.fromkeys(r[0] for r in SSM_RANGES))
+    if busy <= 0 or ranged <= 0 or ranged > 1.001 * busy:
+        raise AssertionError(f"ssm op split {label}: busy {busy} ms, ranges "
+                             f"{out}: the ranges' device time is not a part "
+                             f"of the busy time")
+    out["other"] = busy - ranged
+    out["device_busy_ms"] = busy
+    print(f"ssm op split {label}: device busy {busy:.3f} ms: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / busy:.3f})" for k, v in out.items()
+        if k != "device_busy_ms"))
+    return out
+
+
+def ssm_engine_path(spec, dev) -> dict:
+    """One full-width Engine path of phase 18 (c): build, the counted first
+    generate (every count set to 0 just before, read just after: 0 flash
+    launches for mamba2, one sm90 launch a group for zamba2, the first
+    held against the plain version on its own tensors), a warm generate
+    (the same tokens), warm prefill and decode ms, one profiled generate
+    (idle share), and the busy time of a prefill and of one decode step
+    by op."""
+    cfg = get_config(spec["arch"])
+    B, P, T = spec["batch"], spec["prompt"], spec["tokens"]
+    eng, build_s = synced(lambda: Engine.build(cfg, max_seq=P + T, seed=0,
+                                               device=dev))
+    batch = make_batch(cfg, B, P, "prefill", seed=0, device=dev)
+    n_params = n_elements(eng.params)
+    want = 0 if cfg.hybrid is None else \
+        cfg.n_layers // cfg.hybrid.shared_attn_every
+    torch.cuda.reset_peak_memory_stats()
+    cap = CapturedLaunches()
+    reset_counts()
+    with cap:
+        toks, first_s = synced(lambda: eng.generate(batch, T))
+    counts = fa_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if (counts["flash_attention"], counts["flash_attention_sm90"]) != (
+            want, want) or cap.masks != [("sm90", None, 0)] * want:
+        raise AssertionError(f"{cfg.name}: flash-attention launches {counts},"
+                             f" masks {cap.masks}; expected {want} causal "
+                             f"sm90 launches")
+    if toks.shape != (B, T) or toks.min() < 0 or toks.max() >= \
+            cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: tokens {toks.shape} outside the "
+                             f"vocabulary")
+    held = cap.check(cfg.name)
+    toks2, warm_s = synced(lambda: eng.generate(batch, T))
+    if not (toks2 == toks).all():
+        raise AssertionError(f"{cfg.name}: the warm generate's tokens "
+                             f"differ from the first's")
+    prefill = lambda: eng.model.prefill(eng.params, batch, P + T)
+    warm = sorted(synced(prefill)[1] for _ in range(3))
+    (logits, cache), _ = synced(prefill)
+
+    def decode_all():
+        nonlocal logits, cache
+        for _ in range(T):
+            tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1).to(
+                torch.int32)
+            logits, cache = eng.model.decode_step(eng.params, tok, cache)
+
+    _, decode_s = synced(decode_all)
+    del logits, cache
+    prof = phase_profile(lambda: eng.generate(batch, T),
+                         f"{cfg.name} generate (B {B}, prompt {P}, {T} "
+                         f"tokens)", warm_s)
+    split_prefill = ssm_op_split(prefill, f"{cfg.name} prefill")
+    logits, cache = prefill()
+    tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1).to(
+        torch.int32)
+    split_decode = ssm_op_split(
+        lambda: eng.model.decode_step(eng.params, tok, cache),
+        f"{cfg.name} one decode step")
+    del logits, cache
+    out = dict(params=n_params, build_s=build_s, generate_first_s=first_s,
+               generate_warm_s=warm_s, tokens_per_s=B * T / warm_s,
+               prefill_warm_ms=1e3 * warm[1],
+               prompt_tokens_per_s=B * P / warm[1],
+               decode_ms_per_token=1e3 * decode_s / T,
+               peak_memory_bytes=peak, counts=counts, held_launches=held,
+               profile=prof, op_split_prefill=split_prefill,
+               op_split_decode_step=split_decode,
+               tokens_head=toks[:, :8].tolist())
+    print(f"{cfg.name} ({n_params:,} parameters; B {B}, prompt {P}, {T} "
+          f"tokens): build {build_s:.2f} s; generate first {first_s:.3f} s, "
+          f"warm {warm_s:.3f} s = {out['tokens_per_s']:.1f} tokens/s; "
+          f"prefill warm {out['prefill_warm_ms']:.1f} ms; decode "
+          f"{out['decode_ms_per_token']:.2f} ms a token; peak device memory "
+          f"{peak / 2**30:.2f} GiB; idle share {prof['idle_share']:.3f}; "
+          f"launches {counts}; held launches {held}")
+    del eng, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssm(dev) -> dict:
+    """Phase 18: head dim 112 in both kernels (every mask, the hot cases,
+    ptxas's report, zamba2-7b's launch timed), the two families cut in
+    depth card against the CPU, and both at full width through the
+    Engine."""
+    t0 = time.perf_counter()
+    regs = {r: ptxas_report(src, marker) for r, (src, marker) in {
+        "sm90": ("flash_attention_sm90", "Li112E"),
+        "simt_bf16": ("flash_attention", "I13__nv_bfloat16Li112E"),
+        "simt_f32": ("flash_attention", "IfLi112E")}.items()}
+    print(f"  ptxas at D 112: {regs}; tensor-core dynamic shared memory "
+          f"{fa.SM90_SMEM_BYTES[112]} bytes")
+    cases = [(c, 1.0) for c in FA_D112_CASES] + [
+        (c, FA_HOT_SCALE) for c in FA_D112_HOT]
+    masks = check_fa_cases(cases, 800, dev)
+    n, rel = masks["cases"], masks["bf16_relative_err"]
+    print(f"flash_attention D 112: {n['sm90']} bf16 cases (sm90) and "
+          f"{n['simt']} f32 cases (simt) equal the plain version (every "
+          f"mask, 1-32 kv heads, views, hot softcaps); max abs err "
+          f"{masks['max_abs_err']}, bf16 mean |err| / mean |want| <= "
+          f"{rel['mean_rel']:.3g}, max |err| / max |want| <= "
+          f"{rel['max_rel']:.3g}")
+    out = dict(registers=regs, smem_bytes=fa.SM90_SMEM_BYTES[112],
+               masks=masks, times=fa_d112_times(dev),
+               check=phase_ssm_check(dev))
+    for spec in SSM_SERVE:
+        out[spec["arch"]] = ssm_engine_path(spec, dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 18: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -4905,6 +5337,7 @@ def main() -> None:
     train["seconds"] = time.perf_counter() - t16
     print(f"phase 16: {train['seconds']:.1f} s")
     families = phase_masks_families(dev)
+    ssm = phase_ssm(dev)
 
     # last: a profiler session this large can cost the next session its
     # first kernel records, and kernel_ms counts every launch
@@ -5035,7 +5468,8 @@ def main() -> None:
                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
                  launches_serve_check=serve_check["simt_launches"]),
              max_abs_err=max(*fa_err.values(),
-                             *families["masks"]["max_abs_err"].values()),
+                             *families["masks"]["max_abs_err"].values(),
+                             *ssm["masks"]["max_abs_err"].values()),
              max_abs_err_by_type=fa_err,
              bf16_relative_err=fa_rel,
              # phase 17: the masks (window, prefix, bidirectional) and head
@@ -5065,6 +5499,19 @@ def main() -> None:
                  k: families[k]["counts"]["flash_attention"]
                  for k in ("window_serve", "olmoe-1b-7b", "paligemma-3b",
                            "hubert-xlarge")},
+             # phase 18: head dim 112 on both routes (every mask), zamba2-7b's
+             # launch timed, and the full-width paths' launches from 0
+             d112=dict(
+                 cases=ssm["masks"]["cases"],
+                 max_abs_err=ssm["masks"]["max_abs_err"],
+                 bf16_relative_err=ssm["masks"]["bf16_relative_err"],
+                 registers=ssm["registers"], smem_bytes=ssm["smem_bytes"],
+                 times=ssm["times"],
+                 launches_simt_check={k: v["simt_launches"]
+                                      for k, v in ssm["check"].items()}),
+             launches_phase18={
+                 spec["arch"]: ssm[spec["arch"]]["counts"]["flash_attention"]
+                 for spec in SSM_SERVE},
              ms=fa_t["ms"], call_ms=fa_t["call_ms"],
              previous_ms=fa_t["previous_ms"],
              previous_call_ms=fa_t["previous_call_ms"],
@@ -5186,6 +5633,10 @@ def main() -> None:
         # phase 10e (a): the faulted chunked run_all, chunk 4 drawn twice
         launches_chaos=chaos["launches"]["philox_rows"],
         check=philox_check))
+    ssm_line = json.dumps({"ssm": ssm})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "ssm.json").write_text(ssm_line)
+    print(ssm_line)
     families_line = json.dumps({"families": families})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "families.json").write_text(families_line)

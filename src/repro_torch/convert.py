@@ -80,42 +80,56 @@ def _param(a, dev) -> torch.Tensor:
 
 
 def model_params(tree: Mapping, cfg, *, device=None) -> dict:
-    """The port's parameters (`models.transformer.init_params` layout)
-    from the reference's `values_of(model.init(key))` as a numpy pytree.
+    """The port's parameters (`models.model.build(cfg).init` layout) from
+    the reference's `values_of(model.init(key))` as a numpy pytree.
 
-    The reference stacks each block leaf with a leading `steps` axis, one
-    dict per spec of the block pattern; layer l of the port is step
-    l // len(specs) of spec l % len(specs). A 0-dim block leaf (an
-    optimizer's placeholder) goes to every layer as it is. Every leaf
-    keeps its type: a moe block's router stays f32 whatever
-    `param_dtype` is, as the reference keeps it; the expert weights
-    (`moe.wi_gate`, `wi_up`, `wo`, arctic's `moe.dense`) and the stub
-    front ends' `vision_proj` and `frame_proj` come across as they
+    Transformer families: the reference stacks each block leaf with a
+    leading `steps` axis, one dict per spec of the block pattern; layer l
+    of the port is step l // len(specs) of spec l % len(specs). ssm:
+    "blocks" leaves are (L, ...); layer l is index l. hybrid: "groups"
+    leaves are (n_groups, inner, ...), "shared_attn" is one block,
+    "tail" leaves are (tail, ...) (None without a tail: an empty list
+    here). A 0-dim block leaf (an optimizer's placeholder) goes to every
+    layer as it is. Every leaf keeps its type: a moe block's router stays
+    f32 whatever `param_dtype` is, as the reference keeps it; the expert
+    weights (`moe.wi_gate`, `wi_up`, `wo`, arctic's `moe.dense`) and the
+    stub front ends' `vision_proj` and `frame_proj` come across as they
     are."""
+    from .models.model import _hybrid_layout
     from .models.transformer import block_pattern, check_supported
     check_supported(cfg)
     dev = resolve_device(device)
-    pat = block_pattern(cfg)
-    stacked = tuple(tree["blocks"])
-    if len(stacked) != len(pat.specs):
-        raise ValueError(f"model_params: {len(stacked)} stacked block dicts, "
-                         f"the pattern has {len(pat.specs)}")
 
-    def at(a, step):
+    def at(a, idx):
         a = np.asarray(a)
-        return a if a.ndim == 0 else a[step]
+        return a if a.ndim == 0 else a[idx]
 
-    def layer(sub, step):
-        return {k: layer(v, step) if isinstance(v, Mapping)
-                else _param(at(v, step), dev)
+    def layer(sub, idx=()):
+        return {k: layer(v, idx) if isinstance(v, Mapping)
+                else _param(at(v, idx), dev)
                 for k, v in sub.items()}
 
-    n = len(pat.specs)
-    out = {"embed": _param(tree["embed"], dev),
-           "blocks": [layer(stacked[i % n], i // n)
-                      for i in range(cfg.n_layers)],
-           "final_norm": _param(tree["final_norm"], dev),
-           "lm_head": _param(tree["lm_head"], dev)}
+    out = {"embed": _param(tree["embed"], dev)}
+    if cfg.family == "ssm":
+        out["blocks"] = [layer(tree["blocks"], (i,))
+                         for i in range(cfg.n_layers)]
+    elif cfg.family == "hybrid":
+        n_groups, inner, tail = _hybrid_layout(cfg)
+        out["groups"] = [[layer(tree["groups"], (g, i)) for i in range(inner)]
+                         for g in range(n_groups)]
+        out["shared_attn"] = layer(tree["shared_attn"])
+        out["tail"] = [layer(tree["tail"], (i,)) for i in range(tail)]
+    else:
+        pat = block_pattern(cfg)
+        stacked = tuple(tree["blocks"])
+        if len(stacked) != len(pat.specs):
+            raise ValueError(f"model_params: {len(stacked)} stacked block "
+                             f"dicts, the pattern has {len(pat.specs)}")
+        n = len(pat.specs)
+        out["blocks"] = [layer(stacked[i % n], (i // n,))
+                         for i in range(cfg.n_layers)]
+    out["final_norm"] = _param(tree["final_norm"], dev)
+    out["lm_head"] = _param(tree["lm_head"], dev)
     for name in ("vision_proj", "frame_proj"):
         if name in tree:
             out[name] = _param(tree[name], dev)

@@ -28,8 +28,9 @@
 //   * 256 threads as 16 x 16: thread (ty, tx) owns query rows 4 ty .. +3.
 //     For the scores it takes key columns tx and tx + 16 (float4 reads
 //     along D); for the output, D / 16 columns, in float4 groups where D
-//     is a multiple of 64 and columns tx + 16 c at D = 80, so the f32
-//     accumulator (64 floats a thread at D = 256) lives in registers;
+//     is a multiple of 64 and columns tx + 16 c at D = 80 and 112 (5 and
+//     7 a thread), so the f32 accumulator (64 floats a thread at D = 256)
+//     lives in registers;
 //   * a row's 16 owners sit in one half-warp: its max and sum are
 //     shuffle reductions, and P goes through shared memory transposed so
 //     the product with V reads 4 rows as one float4;
@@ -301,6 +302,8 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                                   mk, scale, cap, stream);
     case 80: return launch<T, 80>(q, k, v, o, B, H, K, Sq, Sk, qs, ks, vs, os,
                                   mk, scale, cap, stream);
+    case 112: return launch<T, 112>(q, k, v, o, B, H, K, Sq, Sk, qs, ks, vs,
+                                    os, mk, scale, cap, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, H, K, Sq, Sk, qs, ks, vs,
                                     os, mk, scale, cap, stream);
     case 256: return launch<T, 256>(q, k, v, o, B, H, K, Sq, Sk, qs, ks, vs,

@@ -59,14 +59,17 @@
 //   * ragged lengths: keys at or past Sk are masked to -1e30, rows at or
 //     past Sq are computed on zeros and not stored.
 // Keys per tile: 64 at D = 256 (S takes 32 registers beside O's 128), 128
-// at D = 64, 80 and 128. Shared memory at D = 256: Q 64 KB + 2 x (K 32 KB +
+// at D = 64, 80, 112 and 128. Shared memory at D = 256: Q 64 KB + 2 x (K 32 KB +
 // V 32 KB) = 192 KB of the 227 KB a block may have, so one block per SM.
 // D = 80 (hubert-xlarge) is 160 bytes a row, which the 128-byte swizzle
 // cannot hold in one chunk: the tiles are laid out as at D = 128 (two
 // chunks) and the TMA unit zero-fills columns 80-127 of the second,
 // which it reads past the tensor's end. Q K^T then takes 5 k-steps of 16
 // (K = 80) and O += P V an N of 80 (m64n80k16); the output stores 80
-// columns.
+// columns. D = 112 (zamba2-7b's shared attention) is laid out the same
+// way, 224 bytes a row with columns 112-127 zero-filled: Q K^T takes 7
+// k-steps, O += P V an N of 112 (m64n112k16, 56 f32 accumulators a
+// thread), and the output stores 112 columns.
 //
 // cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint, so
 // the library needs no -lcuda.
@@ -90,7 +93,7 @@ constexpr int kConsumerRegs = 240;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// head dim of the shared tiles: whole 128-byte rows (80 -> 128)
+// head dim of the shared tiles: whole 128-byte rows (80, 112 -> 128)
 template <int D> constexpr int kTileDim = (D + kChunk - 1) / kChunk * kChunk;
 
 // keys per tile, by the tiles' head dim
@@ -274,6 +277,43 @@ struct Wgmma<80> {
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<112> {
+  static __device__ __forceinline__ void rs_tb(float (&d)[56],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55"
+        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
           "r"(scale_d));
   }
@@ -748,6 +788,8 @@ extern "C" int flash_attention_sm90_launch(int device, int dtype,
                                    causal, window, prefix, scale, cap, s));
     case 80: return int(launch<80>(q, k, v, o, B, H, K, Sq, Sk, strides,
                                    causal, window, prefix, scale, cap, s));
+    case 112: return int(launch<112>(q, k, v, o, B, H, K, Sq, Sk, strides,
+                                     causal, window, prefix, scale, cap, s));
     case 128: return int(launch<128>(q, k, v, o, B, H, K, Sq, Sk, strides,
                                      causal, window, prefix, scale, cap, s));
     case 256: return int(launch<256>(q, k, v, o, B, H, K, Sq, Sk, strides,

@@ -41,9 +41,10 @@ causal attention the reference disagrees with itself otherwise: its
 Pallas kernel aligns the mask top-left (k_pos <= q_pos), its oracle
 bottom-right (tril(k=Sk-Sq)). Prefill always has Sq == Sk.
 
-Head dims 64, 80 (hubert-xlarge), 128 and 256. At D = 80 the tensor-core
-kernel reads 80 columns and the TMA unit zero-fills its 128-column
-shared tiles past them: Q K^T runs over K = 80, and O += P V over N = 80.
+Head dims 64, 80 (hubert-xlarge), 112 (zamba2-7b's shared attention),
+128 and 256. At D = 80 and 112 the tensor-core kernel reads D columns
+and the TMA unit zero-fills its 128-column shared tiles past them: Q K^T
+runs over K = D, and O += P V over N = D.
 
 What bounds it on the card: operations (4 B H D for each (query, key)
 pair the mask allows: about half of Sq Sk under causal, S W - W^2 / 2
@@ -67,13 +68,13 @@ launches_sm90 = 0
 launches_simt = 0
 
 #: head dims the kernels are instantiated for
-KERNEL_HEAD_DIMS = (64, 80, 128, 256)
+KERNEL_HEAD_DIMS = (64, 80, 112, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _tile_dim(D) -> int:
     """The tensor-core kernel's shared tiles: D rounded up to whole
-    128-byte rows of 64 bf16 (80 -> 128)."""
+    128-byte rows of 64 bf16 (80 and 112 -> 128)."""
     return -(-D // 64) * 64
 
 

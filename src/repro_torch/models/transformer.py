@@ -33,21 +33,25 @@ class Pattern(NamedTuple):
     steps: int              # repeats of the unit
 
 
-#: the families this stack runs; ssm and hybrid wait for a later slice
-FAMILIES = ("dense", "moe", "vlm", "audio")
+#: the families the port builds; this stack runs the first four, and
+#: `model.py` builds ssm and hybrid over `mamba2.py`
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
+TRANSFORMER_FAMILIES = FAMILIES[:4]
+#: the config extensions each family has, and no other
+_EXTENSIONS = {"moe": ("moe",), "vlm": ("vision",), "audio": ("audio",),
+               "ssm": ("ssm",), "hybrid": ("ssm", "hybrid")}
 
 
-def check_supported(cfg) -> None:
-    """Raise for a family the port has not got (ssm, hybrid) or a config
-    whose extensions do not match its family."""
-    if cfg.family not in FAMILIES or cfg.ssm is not None \
-            or cfg.hybrid is not None:
+def check_supported(cfg, families=FAMILIES) -> None:
+    """Raise for a family not in `families` or a config whose extensions
+    do not match its family."""
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; the port has "
-            f"{', '.join(FAMILIES)} (ROADMAP.md lists the rest)")
-    extensions = {"moe": "moe", "vlm": "vision", "audio": "audio"}
-    for family, ext in extensions.items():
-        if (cfg.family == family) != (getattr(cfg, ext) is not None):
+            f"{cfg.name}: family {cfg.family!r} is not one of "
+            f"{', '.join(families)} (ROADMAP.md lists the port's families)")
+    want = _EXTENSIONS.get(cfg.family, ())
+    for ext in ("moe", "vision", "audio", "ssm", "hybrid"):
+        if (ext in want) != (getattr(cfg, ext) is not None):
             raise ValueError(f"{cfg.name}: family {cfg.family!r} with "
                              f"{ext} {getattr(cfg, ext)!r}")
 
@@ -137,7 +141,7 @@ def init_params(cfg, generator=None, dtype=None, device=None):
     (+ "vision_proj" (embed_dim, d_model) for vlm, "frame_proj"
     (frame_dim, d_model) for audio) in `cfg.param_dtype` unless `dtype`
     is given, drawn from `generator` (which must live on `device`)."""
-    check_supported(cfg)
+    check_supported(cfg, TRANSFORMER_FAMILIES)
     dtype = dtype or getattr(torch, cfg.param_dtype)
     kw = dict(generator=generator, device=device)
     Vp = padded_vocab(cfg)
@@ -162,7 +166,7 @@ def _embed_inputs(params, batch, cfg):
     """-> (x (B,S,D), prefix_len): vlm's projected patch embeddings
     before its embedded text (prefix_len = n_patches), audio's projected
     frames, or the embedded text."""
-    check_supported(cfg)
+    check_supported(cfg, TRANSFORMER_FAMILIES)
     cdt = getattr(torch, cfg.compute_dtype)
     dev = params["embed"].device
 
@@ -285,7 +289,7 @@ def decode_step(params, tokens, caches, lengths, cfg):
     positions. Writes each layer's cache in place. Returns (logits
     (B,1,V), caches, lengths+1). The masks have no prefix here, as in
     the reference: a decoded token is past any prefix."""
-    check_supported(cfg)
+    check_supported(cfg, TRANSFORMER_FAMILIES)
     cdt = getattr(torch, cfg.compute_dtype)
     x = L.embed_tokens(params["embed"].to(cdt), tokens, cfg.embed_scale)
     for p, spec, cache in zip(params["blocks"], layer_specs(cfg), caches,

@@ -9,22 +9,28 @@ import torch
 from ..device import resolve_device
 from ..models import model as model_lib
 
-#: leaves of a block read in f32 by rms_norm; they keep param_dtype
-_NORMS = ("ln1", "ln2", "ln1_post", "ln2_post", "final_norm")
+#: leaves that keep param_dtype: the norm weights, which rms_norm and
+#: the Mamba2 block's gated norm read in f32, and the Mamba2 block's
+#: per-head `A_log`, `dt_bias` and `D`, which the reference casts to f32
+#: where it uses them (log(linspace(1, 16, H)) is not exact in bf16)
+_KEEP = ("ln1", "ln2", "ln1_post", "ln2_post", "final_norm", "ln", "norm",
+         "A_log", "dt_bias", "D")
 
 
 def cast_weights(params, dtype):
-    """The weight matrices in `dtype`, norm weights as they are. The
-    reference casts each weight to the compute type where it is used
-    (`w.astype(x.dtype)`); casting once gives the same values."""
-    def cast(tree):
-        return {k: (cast(v) if isinstance(v, dict)
-                    else v if k in _NORMS else v.to(dtype))
-                for k, v in tree.items()}
+    """The weight matrices in `dtype`, the `_KEEP` leaves as they are,
+    through every dict and list of the tree (a transformer's "blocks",
+    a hybrid's "groups", "shared_attn" and "tail"). The reference casts
+    each weight to the compute type where it is used (`w.astype(x.dtype)`);
+    casting once gives the same values."""
+    def cast(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: cast(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v, key) for v in tree]
+        return tree if key in _KEEP else tree.to(dtype)
 
-    out = cast({k: v for k, v in params.items() if k != "blocks"})
-    out["blocks"] = [cast(b) for b in params["blocks"]]
-    return out
+    return cast(params)
 
 
 @dataclass
@@ -56,12 +62,13 @@ class Engine:
     def generate(self, batch: dict, n_tokens: int, progress_cb=None):
         """Greedy decode of n_tokens after the prompt, in the reference's
         order; progress_cb(i, n) per token. Returns (B, n_tokens) int32
-        numpy. A vlm prompt's patches take cache places too."""
+        numpy. A vlm prompt's patches take cache places too; an ssm model
+        has no KV cache, so no max_seq bound (as in the reference)."""
         cfg = self.model.cfg
         S = batch["tokens"].shape[1]
         if cfg.vision is not None:
             S += cfg.vision.n_patches
-        if S + n_tokens > self.max_seq:
+        if cfg.family != "ssm" and S + n_tokens > self.max_seq:
             raise ValueError(f"generate: prompt {S} + {n_tokens} tokens "
                              f"exceed max_seq {self.max_seq}")
         logits, cache = self.model.prefill(self.params, batch, self.max_seq)

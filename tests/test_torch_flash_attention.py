@@ -246,6 +246,14 @@ def test_route_raises_on_anything_else(dtype, D):
         fa._route(dtype, D)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_route_raises_for_head_dim_96(dtype):
+    """96 lies between the instantiated 80 and 112: neither kernel takes
+    it, whatever the type."""
+    with pytest.raises(ValueError, match="head dims"):
+        fa._route(dtype, 96)
+
+
 # (dtype, (B, H, K, S, D), causal, softcap, strided (B, S, heads, D) views,
 # q scale): ragged lengths at every head dim in both types, then bf16 at
 # every head dim, 1, 2 and 4 kv heads, ragged and tile-multiple lengths,
@@ -253,11 +261,12 @@ def test_route_raises_on_anything_else(dtype, D):
 CARD_CASES = (
     [(dt, shape, True, 50.0, False, 1.0) for dt in ("float32", "bfloat16")
      for shape in ((1, 4, 4, 256, 64), (2, 8, 4, 200, 256),
-                   (1, 8, 2, 77, 128))]
+                   (1, 8, 2, 77, 128), (1, 8, 4, 300, 112))]
     + [("bfloat16", (1, 8, (1, 2, 4)[(i + i // 3) % 3], S, D), causal, cap,
         i % 2 == 1, 1.0)
        for i, (D, S, (causal, cap)) in enumerate(
-           (D, S, mode) for D in (64, 128, 256) for S in (77, 200, 2048, 2049)
+           (D, S, mode) for D in (64, 112, 128, 256)
+           for S in (77, 200, 2048, 2049)
            for mode in ((True, None), (True, 50.0), (False, 30.0)))]
     + [("bfloat16", (4, 8, 4, 2048, 256), True, 50.0, True, HOT_SCALE),
        ("bfloat16", (1, 8, 2, 2049, 128), False, 30.0, True, HOT_SCALE),

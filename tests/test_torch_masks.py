@@ -20,7 +20,7 @@ the CUDA kernels on a card). On the same numpy inputs, made from a seed:
   reduced gemma2 past its window, tests/test_torch_families.py on
   reduced paligemma's prefix);
 - on a card only (`cuda`, skipped here): both kernels against the
-  plain version on every mask and at head dim 80.
+  plain version on every mask and at head dims 80 and 112.
 """
 import functools
 import importlib
@@ -54,6 +54,8 @@ MASKS = [
     (4, 2, 33, 16, False, 6, 0, 50.0, HOT),
     (4, 2, 33, 16, True, 6, 9, None, 1.0),      # window and prefix
     (8, 2, 40, 80, False, None, 0, None, 1.0),  # hubert's head dim
+    (4, 4, 40, 112, True, None, 0, None, 1.0),  # zamba2's head dim
+    (4, 2, 40, 112, True, 9, 0, 50.0, HOT),
 ]
 
 
@@ -198,13 +200,14 @@ def test_masked_backward_matches_jax_grad(case):
 # (dtype, (B, H, K, S, D), causal, window, prefix, softcap, views):
 # windows and prefixes at and off the kernels' tiles (64 and 128 keys,
 # 64 and 128 query rows), the bidirectional mask with and without a
-# window, and head dim 80
+# window, and head dims 80 and 112
 CARD_MASKS = [
     (dt, (1, 8, K, S, D), causal, window, prefix, cap, views)
     for i, (dt, (S, D), (causal, window, prefix), cap) in enumerate(
         (dt, sd, m, cap)
         for dt in ("bfloat16", "float32")
-        for sd in ((200, 64), (1000, 80), (2049, 128), (300, 256))
+        for sd in ((200, 64), (1000, 80), (2049, 128), (300, 256),
+                   (700, 112))
         for m in ((True, 1, 0), (True, 64, 0), (True, 129, 0),
                   (True, None, 128), (True, None, 77), (False, None, 0),
                   (False, 100, 0), (True, 65, 200))

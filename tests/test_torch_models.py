@@ -79,12 +79,12 @@ def both(a, cdt):
 
 
 def test_configs_equal_reference():
-    """The dense, moe, vlm and audio configs are the reference's, field
-    for field; the ssm and hybrid ones are not registered and name
-    ROADMAP.md."""
+    """Every config of the reference is registered and is the
+    reference's, field for field."""
     ported = ("arctic-480b", "chatglm3-6b", "deepseek-coder-33b",
-              "gemma2-2b", "hubert-xlarge", "mistral-nemo-12b",
-              "olmoe-1b-7b", "paligemma-3b")
+              "gemma2-2b", "hubert-xlarge", "mamba2-2.7b",
+              "mistral-nemo-12b", "olmoe-1b-7b", "paligemma-3b",
+              "zamba2-7b")
     for name in ported:
         ref, port = ref_get_config(name), get_config(name)
         assert dataclasses.asdict(ref) == dataclasses.asdict(port)
@@ -94,20 +94,40 @@ def test_configs_equal_reference():
         assert port.active_param_count() == ref.active_param_count()
     assert get_config("gemma2-2b").param_count() == 3_203_923_968
     assert list_configs() == list(ported)
-    for name in ("mamba2-2.7b", "zamba2-7b"):
-        with pytest.raises(KeyError, match="ROADMAP.md"):
-            get_config(name)
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        get_config("llama-405b")
 
 
 def test_other_families_raise():
-    """ssm and hybrid wait for a later slice: build raises and names
-    ROADMAP.md; a family whose extension is missing raises too."""
+    """A family the port does not know raises and names ROADMAP.md; a
+    family whose extension is missing raises too, as does a transformer
+    stack call on an ssm config."""
     cfg = get_config("gemma2-2b").reduced()
-    for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        model_lib.build(dataclasses.replace(cfg, family="rnn"))
+    for family, ext in (("ssm", "ssm"), ("hybrid", "ssm"), ("moe", "moe")):
+        with pytest.raises(ValueError, match=ext):
             model_lib.build(dataclasses.replace(cfg, family=family))
-    with pytest.raises(ValueError, match="moe"):
-        model_lib.build(dataclasses.replace(cfg, family="moe"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        T.init_params(get_config("mamba2-2.7b").reduced())
+
+
+def test_init_cache_is_the_reference_cache_spec():
+    """The transformer's empty cache: layer l's k and v have the shape
+    and type of step l // n of spec l % n in `cache_spec`, all zeros."""
+    rcfg, tcfg = configs("float32")
+    spec = ref_model.build(rcfg).cache_spec(2, 24)
+    cache = model_lib.build(tcfg).init_cache(2, 24, device="cpu")
+    n = len(spec["kv"])
+    assert len(cache["kv"]) == tcfg.n_layers
+    for layer, kv in enumerate(cache["kv"]):
+        for name in ("k", "v"):
+            want = spec["kv"][layer % n][name]
+            assert tuple(kv[name].shape) == tuple(want.shape[1:])
+            assert str(kv[name].dtype).split(".")[-1] == str(want.dtype)
+            assert not bool(kv[name].any())
+    assert cache["lengths"].dtype == torch.int32
+    assert tuple(cache["lengths"].shape) == tuple(spec["lengths"].shape)
 
 
 def test_init_params_has_the_reference_layout():
