@@ -370,18 +370,59 @@ Phases; each raises on failure, so any failure exits non-zero:
    decode step by op (profiler ranges around the Mamba2 projections, the
    SSD intra-chunk work, the chunk scan and the shared attention block).
 
-The last lines are the ssm JSON (phase 18), the families JSON (phase
-17), the training JSON (phase 16), the chaos JSON (phases 10e and 10f),
-the serving JSON (phase 10d), the fleet JSON (phase 10c), the cluster
-JSON (phase 10b), the scenarios JSON (phases 6-10), the kernels JSON,
-the card line and the result JSON; each of the first seven and the kernels JSON is also written
-under `chiprun_out/`.
+19. training of the moe, vlm, audio, ssm and hybrid families. (a) The
+   differentiable attention call at D 80 and 112 on every mask of
+   FA_MASKS (FA_GRAD_CASES: S 1000 and 2049, 1 to all kv heads, views,
+   softcaps none, 50 and 30; bf16 on the tensor-core route, one case in
+   three in f32 on the SIMT route) and FA_GRAD_HOT (q scaled by 16): the
+   forward moves its route's count by one, dq, dk and dv within phase
+   16 (a)'s limits of autograd through the plain version on the card.
+   (b) Each family cut in depth at full width, f32 compute
+   (CHECK_TRAIN_FAMILIES: 2 layers; zamba2 3, one group of one Mamba2
+   layer and the shared block, then one tail layer): one make_train_step
+   on 1 x 128 tokens (paligemma 256 patches + 64 text tokens, hubert 128
+   frames) on the card (SIMT route, 2 launches an attention layer) and
+   on the CPU from the same seeded weights; hubert on both gradient
+   paths, its unused `embed` with an all-zero gradient on both: loss
+   within 1e-5, the gradient norm within 1e-4 (2^-7 bf16-accumulated),
+   each gradient within 1e-3 of its tensor's max (2^-7; the elements
+   past 1e-4 counted), the updated parameters within 1e-4 of the CPU's
+   AdamW on the card's gradients; the CPU's work under
+   host_heap_reuse, as phase 16 (b)'s. (c) Each family at
+   full width, f32 parameters and AdamW, bf16 compute, remat per block,
+   4 steps of 4 microbatches of 1 x 2048 tokens (paligemma 256 + 1792;
+   hubert 2 x 1024 frames) on one repeated batch: olmoe-1b-7b,
+   mamba2-2.7b and zamba2-7b through the Trainer (pipeline and governor
+   on), paligemma-3b and hubert-xlarge (at lr 3e-4) through
+   make_train_step; olmoe-1b-7b and zamba2-7b cut in depth to the most
+   layers (groups) whose 16 bytes a parameter leave 10 GiB (zamba2 16
+   GiB) of the card. Every count set to 0 just before and read after
+   step 4: flash attention 2 per attention layer, microbatch and step,
+   all sm90; grid solve 5 per warm governor decision (Trainer) or none;
+   losses finite and lower at step 4 than at step 1; first and warm step
+   s, tokens (frames) a second, peak memory, MFU (phase 16's formula,
+   olmoe's experts at top-8 of 64); one microbatch's warm step profiled
+   (the device's activity: idle share against its own wall, top ops) and
+   the attention gradient's call timed alone at the path's shape. (d)
+   `repro_torch.launch.serve.main(SERVE_LAUNCHER)`: full-width gemma2-2b,
+   16 tokens for a batch of 2, then 100 hedged requests; its two lines,
+   26 sm90 flash-attention launches, and the grid-solve (1) and Philox
+   launches and printed numbers of the same HedgedScheduler run alone.
+
+The last lines are the training-families JSON (phase 19), the ssm JSON
+(phase 18), the families JSON (phase 17), the training JSON (phase 16),
+the chaos JSON (phases 10e and 10f), the serving JSON (phase 10d), the
+fleet JSON (phase 10c), the cluster JSON (phase 10b), the scenarios JSON
+(phases 6-10), the kernels JSON, the card line and the result JSON; each
+of the first eight and the kernels JSON is also written under
+`chiprun_out/`.
 The script needs one CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import io
 import json
@@ -441,10 +482,12 @@ from repro_torch.models.inputs import make_batch  # noqa: E402
 from repro_torch.models.transformer import (layer_specs,  # noqa: E402
                                             padded_vocab)
 from repro_torch.runtime.governor import WARM_DECISIONS  # noqa: E402
-from repro_torch.serve import Engine  # noqa: E402
+from repro_torch.serve import (Engine, HedgedScheduler,  # noqa: E402
+                               ReplicaPool, Request)
 from repro_torch.serve.engine import cast_weights  # noqa: E402
 from repro_torch.train import (AdamW, Trainer, TrainerConfig,  # noqa: E402
-                               TrainState, make_train_step)
+                               TrainState, cosine_schedule, make_optimizer,
+                               make_train_step)
 from repro_torch.train.trainer import to_host  # noqa: E402
 from repro_torch.serve import (make_requests, run_serve,  # noqa: E402
                                serve_trace)
@@ -649,6 +692,73 @@ SSM_RANGES = (("projections", model_mamba2, "_project"),
               ("ssd_intra", model_mamba2, "_ssd_intra"),
               ("ssd_chunk_scan", model_mamba2, "_ssd_chunk_scan"),
               ("shared_block", model_tf, "apply_block"))
+# phase 19: training of the moe, vlm, audio, ssm and hybrid families.
+# (a) the attention gradient at head dims 80 (hubert-xlarge's 16 heads)
+# and 112 (zamba2-7b's 32) on every mask of FA_MASKS at S 1000 and 2049,
+# 1 to all kv heads, views, softcaps none, 50 and 30: every case in bf16
+# on the tensor-core route, one in three also in f32 on the SIMT route;
+# then the hot cases (q scaled by FA_HOT_SCALE), FA_D112_HOT and their
+# D 80 counterparts
+FA_GRAD_CASES = tuple(
+    (1, H, kvs[j % 4], S, D, dt, causal, window, prefix,
+     (None, 50.0, 30.0)[j // 4 % 3], j // 4 % 2 == 0)
+    for D, H, kvs in ((80, 16, (1, 2, 4, 16)), (112, 32, (1, 2, 4, 32)))
+    for j, (S, (causal, window, prefix)) in enumerate(
+        (S, m) for S in (1000, 2049) for m in FA_MASKS)
+    for dt in ("bfloat16", "float32") if dt == "bfloat16" or j % 3 == 0)
+FA_GRAD_HOT = FA_D112_HOT + (
+    (8, 16, 16, 1024, 80, "bfloat16", False, None, 0, 30.0, True),
+    (1, 16, 4, 2049, 80, "bfloat16", True, 683, 0, 50.0, True),
+    (1, 16, 2, 2049, 80, "bfloat16", True, None, 512, 30.0, False),
+    (1, 16, 16, 1000, 80, "float32", False, 300, 0, 50.0, False))
+# (b): each family cut in depth at full width, f32 compute: one
+# make_train_step (AdamW, no schedule) on one batch of 1 x 128 tokens
+# (paligemma 256 patches + 64 text tokens, hubert 128 frames), card
+# against the CPU's plain path from the same seeded weights; hubert on
+# both gradient paths (its `embed` gets no gradient). The loss within
+# loss_rtol; gradients and their norm within tol of each tensor's max,
+# bf16-accumulated ones within bf16_tol (one that rounds the other way
+# is one bf16 ulp, 2^-8, off); the updated parameters within tol of the
+# CPU's AdamW applied to the card's gradients (phase 16 (b)'s rule).
+# Each gradient tensor is held within grad_tol of its max (the elements
+# past tol counted): a Mamba2 layer's per-head A_log, dt_bias and D sum
+# every token's and channel's terms of their head, and f32 sums in the
+# card's order and the CPU's part by up to ~1.3e-4 of their largest
+CHECK_TRAIN_FAMILIES = dict(
+    batch=1, seq=128, text=64, lr=3e-3, loss_rtol=1e-5, tol=1e-4,
+    grad_tol=1e-3, bf16_tol=2.0 ** -7,
+    cuts={"olmoe-1b-7b": dict(n_layers=2), "paligemma-3b": dict(n_layers=2),
+          "hubert-xlarge": dict(n_layers=2), "mamba2-2.7b": dict(n_layers=2),
+          "zamba2-7b": dict(n_layers=3, shared_attn_every=2)},
+    paths={"hubert-xlarge": ((), ("bf16_grads",))})
+# (c): each family at full width, f32 parameters and AdamW, bf16 compute,
+# remat each block (zamba2: each group), TRAIN's 4 steps of 4
+# microbatches on one repeated batch: 1 x 2048 tokens (paligemma 256
+# patches + 1792 text tokens; hubert 2 x 1024 frames). olmoe, mamba2 and
+# zamba2 through the Trainer, the speculative pipeline and governor on;
+# paligemma and hubert through make_train_step with the Trainer's
+# optimizer and schedule (the Trainer feeds tokens only, as the
+# reference's). At 16 bytes a parameter olmoe-1b-7b (103 GiB) and
+# zamba2-7b (86 GiB) do not fit: their depth is cut, never their width,
+# to the most layers (zamba2: groups of 5 Mamba2 layers and the shared
+# block, its 3 tail layers kept) that leave `headroom` bytes of the card
+# for activations: 10 GiB for olmoe; 16 GiB for zamba2, whose backward
+# of a group holds five Mamba2 layers' recomputed activations and the
+# plain attention backward's (1, 32, 2048, 2048) f32 tensors (10 GiB ran
+# out of memory at 10 groups). hubert-xlarge trains at lr 3e-4, not the
+# Trainer's 3e-3, at which its 48 layers' loss rose over the 4 steps on
+# this batch of random frame labels
+TRAIN_FAMILIES = (
+    dict(arch="olmoe-1b-7b", via="trainer", cut="layers",
+         headroom=10 * 2 ** 30),
+    dict(arch="paligemma-3b", via="step", batch=4, seq=2048, lr=3e-3),
+    dict(arch="hubert-xlarge", via="step", batch=8, seq=1024, lr=3e-4),
+    dict(arch="mamba2-2.7b", via="trainer"),
+    dict(arch="zamba2-7b", via="trainer", cut="groups",
+         headroom=16 * 2 ** 30))
+# (d): the serving launcher on the card, as a user runs it
+SERVE_LAUNCHER = ["--arch", "gemma2-2b", "--full-config", "--tokens", "16",
+                  "--batch", "2"]
 CHECK_SHAPES = ((37, 9), (64, 33), (2700, 9), (65536, 64))
 FLEET_SHAPE = (65536, 64)   # a fleet-sized chunk (ROADMAP A.5)
 THETA = 1e-4
@@ -1131,11 +1241,14 @@ def phase_profile(fn, label: str, wall_s: float) -> dict:
           f"{ours['flash_attention']:.3f} ms, dispatch_scan kernel "
           f"{ours['dispatch_scan']:.3f} ms, philox_rows kernel "
           f"{ours['philox_rows']:.3f} ms, sorts {sort_ms:.3f} ms")
-    for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
+    top = sorted(rows, key=lambda e: -e.device_time_total)[:10]
+    for e in top[:8]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms "
               f"{100 * e.device_time_total / busy_us:5.1f}% x{e.count:<5d} "
               f"{e.key[:90]}")
     return dict(device_busy_ms=busy_us / 1e3, device_ops=n_ops,
+                top=[dict(op=e.key[:90], ms=e.device_time_total / 1e3,
+                          count=e.count) for e in top],
                 idle_share=idle, grid_solve_ms=ours["grid_solve"],
                 pocd_mc_ms=ours["pocd_mc"],
                 flash_attention_ms=ours["flash_attention"],
@@ -4044,6 +4157,14 @@ def fa_grad_compare(what, got, want, dt) -> tuple:
                              f"all finite")
     g, w = got.float(), want.float()
     err = (g - w).abs()
+    if not bool(w.any()):
+        # a query that may see only itself (window 1) has dq = 0 and adds
+        # 0 to dk: exactly, in both
+        if bool(g.any()):
+            raise AssertionError(f"attention gradient {what}: nonzero where "
+                                 f"autograd through the plain version's is "
+                                 f"all zero")
+        return 0.0, 0.0
     mean_rel = float(err.mean() / w.abs().mean())
     max_rel = float(err.max() / w.abs().max())
     lost = int(((g == 0) & (w != 0)).sum())
@@ -4075,36 +4196,12 @@ def phase_train_attention(dev) -> dict:
     (`attention_backward`) against autograd through `attention_plain` on
     the same card, at phase 14's shapes, the training path's and the hot
     softcap cases; then the backward's time at the path's shape."""
-    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
     cases = ([(x, 1.0) for x in FA_SHAPES + (FA_TRAIN + (True,),)]
              + [(x, FA_HOT_SCALE) for x in FA_HOT_SHAPES])
-    for i, (shape, q_scale) in enumerate(cases):
-        B, H, K, S, D, dt, causal, cap, views = shape
-        q, k, v = fa_inputs(B, H, K, S, D, dt, 200 + i, dev, views=views,
-                            q_scale=q_scale)
-        g = torch.Generator(device=dev)
-        g.manual_seed(400 + i)
-        dout = torch.randn((B, H, S, D), generator=g, device=dev).to(q.dtype)
-        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        before = (fa.launches_sm90, fa.launches_simt)
-        out = fa.attention(*leaves, causal=causal, softcap=cap)
-        grads = torch.autograd.grad(out, leaves, dout)
-        torch.cuda.synchronize()
-        moved = (fa.launches_sm90 - before[0], fa.launches_simt - before[1])
-        route = "sm90" if dt == "bfloat16" else "simt"
-        if moved != ((1, 0) if route == "sm90" else (0, 1)):
-            raise AssertionError(f"attention grad {shape}: route counts moved "
-                                 f"(sm90, simt) = {moved}, expected one "
-                                 f"{route} launch (the forward)")
-        plain = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        want_out = fa.attention_plain(*plain, causal=causal, softcap=cap)
-        want = torch.autograd.grad(want_out, plain, dout)
-        fa_compare(f"{shape} (forward under autograd)", out.detach(),
-                   want_out.detach(), dt)
-        for n, a, b in zip("qkv", grads, want):
-            rel = fa_grad_compare(f"d{n} {shape} q x{q_scale:g}", a, b, dt)
-            worst[dt] = [max(worst[dt][0], rel[0]), max(worst[dt][1], rel[1])]
-        del q, k, v, dout, leaves, out, grads, plain, want_out, want
+    worst = check_grad_cases(
+        [((B, H, K, S, D, dt, causal, None, 0, cap, views), q_scale)
+         for (B, H, K, S, D, dt, causal, cap, views), q_scale in cases],
+        200, dev, dout_seed0=400)["worst_rel"]
     print(f"train attention: {len(cases)} cases, dq, dk, dv equal autograd "
           f"through the plain version (nonzero where it is); worst (mean "
           f"|err| / mean |want|, max |err| / max |want|) f32 "
@@ -4150,8 +4247,9 @@ def phase_train_attention(dev) -> dict:
 
 
 class GradRecorder:
-    """An optimizer that keeps a host copy of the gradients it is given,
-    then updates as the optimizer it wraps."""
+    """An optimizer that keeps a host copy of the gradients it is given
+    (the gradients themselves when they are on the host: the optimizers
+    do not write them), then updates as the optimizer it wraps."""
 
     def __init__(self, opt):
         self.opt, self.grads = opt, None
@@ -4160,8 +4258,49 @@ class GradRecorder:
         return self.opt.init(params)
 
     def update(self, grads, state, params, lr_scale=1.0):
-        self.grads = to_host(grads)
+        on_host = all(g.device.type == "cpu"
+                      for g in ckpt.checkpoint.tree_leaves(grads))
+        self.grads = grads if on_host else to_host(grads)
         return self.opt.update(grads, state, params, lr_scale=lr_scale)
+
+
+@contextlib.contextmanager
+def host_heap_reuse():
+    """While open, glibc's malloc serves every allocation from its heap
+    and keeps what is freed there (no mmap, no trim), so the CPU's
+    full-width steps and comparisons reuse host memory instead of
+    faulting fresh pages for each gigabyte-sized temporary; on exit the
+    defaults come back and the heap is trimmed."""
+    import ctypes
+    libc = ctypes.CDLL("libc.so.6")
+    m_trim_threshold, m_mmap_max = -1, -4
+    if not (libc.mallopt(m_mmap_max, 0)
+            and libc.mallopt(m_trim_threshold, 2 ** 31 - 1)):
+        raise RuntimeError("host_heap_reuse: mallopt refused")
+    try:
+        yield
+    finally:
+        libc.mallopt(m_mmap_max, 65536)
+        libc.mallopt(m_trim_threshold, 128 * 1024)
+        libc.malloc_trim(0)
+
+
+def tree_worst(got, want, tol: float, what: str, fail: bool = True):
+    """(the largest |got - want| over each tensor's max |want|, the
+    elements beyond tol of it) over two trees of host tensors; raises past
+    tol if `fail`."""
+    rel, off = 0.0, 0
+    leaves = ckpt.checkpoint.tree_leaves_with_paths
+    for (path, a), (_, b) in zip(leaves(got), leaves(want), strict=True):
+        scale = max(float(b.abs().max()), 1e-30)
+        err = (a - b).abs()
+        rel = max(rel, float(err.max()) / scale)
+        off += int((err > tol * scale).sum())
+        if fail and float(err.max()) > tol * scale:
+            raise AssertionError(f"{what} {path} "
+                                 f"{float(err.max()) / scale:.3g} of its max "
+                                 f"off (tol {tol})")
+    return rel, off
 
 
 def phase_train_check(dev) -> dict:
@@ -4216,20 +4355,8 @@ def phase_train_check(dev) -> dict:
     opt = AdamW(lr=c["lr"])
     opt.update(card_grads, opt.init(start), start)
 
-    def worst(got, want, what, fail=True):
-        rel, off = 0.0, 0
-        leaves = ckpt.checkpoint.tree_leaves_with_paths
-        for (path, a), (_, b) in zip(leaves(got), leaves(want), strict=True):
-            scale = max(float(b.abs().max()), 1e-30)
-            err = (a - b).abs()
-            rel = max(rel, float(err.max()) / scale)
-            off += int((err > c["tol"] * scale).sum())
-            if fail and float(err.max()) > c["tol"] * scale:
-                raise AssertionError(f"train check: {what} {path} "
-                                     f"{float(err.max()) / scale:.3g} of its "
-                                     f"max off (tol {c['tol']})")
-        return rel, off
-
+    worst = lambda got, want, what, fail=True: tree_worst(
+        got, want, c["tol"], f"train check: {what}", fail)
     grad_rel, _ = worst(card_grads, cpu_grads, "gradient")
     param_rel, _ = worst(card_params, start, "updated parameter (against "
                          "the CPU's AdamW on the card's gradients)")
@@ -4994,6 +5121,17 @@ def ssm_step_compare(cfg, card, host, batch, max_seq, n_tokens, tol):
     return worst, clear, free_err, caches
 
 
+def cut_config(arch: str, cut: dict):
+    """`arch`'s full-width config in f32 compute at the depth of `cut`
+    (n_layers, and for the hybrid its shared_attn_every)."""
+    base = get_config(arch)
+    kw = dict(n_layers=cut["n_layers"], compute_dtype="float32")
+    if "shared_attn_every" in cut:
+        kw["hybrid"] = dataclasses.replace(
+            base.hybrid, shared_attn_every=cut["shared_attn_every"])
+    return dataclasses.replace(base, **kw)
+
+
 def phase_ssm_check(dev) -> dict:
     """mamba2-2.7b and zamba2-7b cut in depth (CHECK_SSM["cuts"]) at full
     width, f32 compute, the same seeded weights on the card and on the
@@ -5004,12 +5142,7 @@ def phase_ssm_check(dev) -> dict:
     out = {}
     for arch, cut in c["cuts"].items():
         t0 = time.perf_counter()
-        base = get_config(arch)
-        kw = dict(n_layers=cut["n_layers"], compute_dtype="float32")
-        if "shared_attn_every" in cut:
-            kw["hybrid"] = dataclasses.replace(
-                base.hybrid, shared_attn_every=cut["shared_attn_every"])
-        cfg = dataclasses.replace(base, **kw)
+        cfg = cut_config(arch, cut)
         params = model_lib.build(cfg).init(seed=1, device=dev)
         max_seq = c["prompt"] + c["tokens"]
         card = Engine.build(cfg, max_seq=max_seq, params=params, device=dev)
@@ -5221,6 +5354,443 @@ def phase_ssm(dev) -> dict:
     return out
 
 
+def check_grad_cases(cases, seed0: int, dev, dout_seed0=None) -> dict:
+    """Each (case, q scale) of `cases` (check_fa_cases' tuples) through the
+    differentiable `attention` on the card: the forward moves its route's
+    count by one and holds fa_compare; dq, dk and dv hold fa_grad_compare
+    against autograd through `attention_plain` on the same card. Case i's
+    inputs are seeded seed0 + i, its output gradient dout_seed0 + i
+    (default seed0 + 10,000 + i). Returns the cases by route and the
+    worst (mean, max) relative readings by type."""
+    dout_seed0 = seed0 + 10_000 if dout_seed0 is None else dout_seed0
+    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    n = {"sm90": 0, "simt": 0}
+    for i, (case, q_scale) in enumerate(cases):
+        B, H, K, S, D, dt, causal, window, prefix, cap, views = case
+        q, k, v = fa_inputs(B, H, K, S, D, dt, seed0 + i, dev, views=views,
+                            q_scale=q_scale)
+        g = torch.Generator(device=dev)
+        g.manual_seed(dout_seed0 + i)
+        dout = torch.randn((B, H, S, D), generator=g, device=dev).to(q.dtype)
+        mask = dict(causal=causal, softcap=cap, window=window,
+                    prefix_len=prefix)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        before = (fa.launches_sm90, fa.launches_simt)
+        out = fa.attention(*leaves, **mask)
+        grads = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        route = "sm90" if dt == "bfloat16" else "simt"
+        moved = (fa.launches_sm90 - before[0], fa.launches_simt - before[1])
+        if moved != ((1, 0) if route == "sm90" else (0, 1)):
+            raise AssertionError(f"attention grad {case}: route counts moved "
+                                 f"(sm90, simt) = {moved}, expected one "
+                                 f"{route} launch (the forward)")
+        plain = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        want_out = fa.attention_plain(*plain, **mask)
+        want = torch.autograd.grad(want_out, plain, dout)
+        fa_compare(f"{case} (forward under autograd)", out.detach(),
+                   want_out.detach(), dt)
+        for name, a, b in zip("qkv", grads, want):
+            rel = fa_grad_compare(f"d{name} {case} q x{q_scale:g}", a, b, dt)
+            worst[dt] = [max(worst[dt][0], rel[0]), max(worst[dt][1], rel[1])]
+        n[route] += 1
+        del q, k, v, dout, leaves, out, grads, plain, want_out, want
+    return dict(cases=n, worst_rel=worst)
+
+
+def attention_layers(cfg) -> int:
+    """The layers that call flash attention: every block of a transformer
+    family, each group's application of the hybrid's shared block, none
+    in ssm."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid.shared_attn_every
+    return cfg.n_layers
+
+
+def train_family_check(arch: str, opts, dev) -> dict:
+    """(b) for one family and gradient path: one make_train_step on the
+    card (the SIMT route: the forward and the remat recompute of each
+    attention layer) and on the CPU from the same seeded weights, held to
+    CHECK_TRAIN_FAMILIES' limits; a leaf the loss does not use gets an
+    all-zero gradient on both."""
+    c = CHECK_TRAIN_FAMILIES
+    cfg = cut_config(arch, c["cuts"][arch])
+    t0 = time.perf_counter()
+    model = model_lib.build(cfg)
+    params = model.init(seed=1, device=dev)
+    host_params = to_host(params)
+    start = to_host(host_params)
+    S = c["seq"] if cfg.vision is None else cfg.vision.n_patches + c["text"]
+    batch = make_batch(cfg, c["batch"], S, "train", seed=5, device="cpu")
+
+    def one_step(p, device):
+        opt = GradRecorder(AdamW(lr=c["lr"]))
+        step = make_train_step(model, opt, n_micro=1, opts=frozenset(opts))
+        state = TrainState(p, opt.init(p),
+                           torch.zeros((), dtype=torch.int32, device=device))
+        state, m = step(state, {k: v.to(device) for k, v in batch.items()},
+                        torch.ones((1,), device=device))
+        return (float(m["loss"]), float(m["grad_norm"]), opt.grads,
+                state.params if device == "cpu" else to_host(state.params))
+
+    reset_counts()
+    card_loss, card_norm, card_grads, card_params = one_step(params, dev)
+    counts = fa_counts()
+    want = 2 * attention_layers(cfg)
+    if (counts["flash_attention_simt"], counts["flash_attention_sm90"]) != (
+            want, 0):
+        raise AssertionError(f"train check {arch} {sorted(opts)}: launches "
+                             f"{counts}, expected {want} on the simt route "
+                             f"(forward and recompute)")
+    del params
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    cpu_loss, cpu_norm, cpu_grads, _ = one_step(host_params, "cpu")
+    del host_params
+    t2 = time.perf_counter()
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    if not math.isfinite(card_loss) or loss_rel > c["loss_rtol"]:
+        raise AssertionError(f"train check {arch}: loss {card_loss} on the "
+                             f"card, {cpu_loss} on the CPU (rel "
+                             f"{loss_rel:.3g})")
+    bf16 = "bf16_grads" in opts
+    norm_rel = abs(card_norm - cpu_norm) / cpu_norm
+    if not math.isfinite(card_norm) or norm_rel > (c["bf16_tol"] if bf16
+                                                   else c["tol"]):
+        raise AssertionError(f"train check {arch}: grad_norm {card_norm} on "
+                             f"the card, {cpu_norm} on the CPU")
+    gtol = c["bf16_tol"] if bf16 else c["grad_tol"]
+    grad_rel, _ = tree_worst(card_grads, cpu_grads, gtol,
+                             f"train check {arch}: gradient")
+    _, grad_off = tree_worst(card_grads, cpu_grads, c["tol"], "", False)
+    zero = [".".join(map(str, path)) for path, g in
+            ckpt.checkpoint.tree_leaves_with_paths(card_grads)
+            if not bool(g.any())]
+    cpu_zero = [".".join(map(str, path)) for path, g in
+                ckpt.checkpoint.tree_leaves_with_paths(cpu_grads)
+                if not bool(g.any())]
+    if zero != cpu_zero or (cfg.audio is not None) != (zero == ["embed"]):
+        raise AssertionError(f"train check {arch}: all-zero gradients {zero} "
+                             f"on the card, {cpu_zero} on the CPU")
+    opt = AdamW(lr=c["lr"])
+    opt.update(card_grads, opt.init(start), start)
+    param_rel, _ = tree_worst(card_params, start, c["tol"],
+                              f"train check {arch}: updated parameter "
+                              f"(against the CPU's AdamW on the card's "
+                              f"gradients)")
+    out = dict(layers=cfg.n_layers, opts=sorted(opts), loss_card=card_loss,
+               loss_cpu=cpu_loss, loss_rel=loss_rel, grad_norm_rel=norm_rel,
+               grad_rel=grad_rel, grad_elements_past_tol=grad_off,
+               param_rel=param_rel, zero_grads=zero,
+               simt_launches=counts["flash_attention_simt"],
+               seconds=time.perf_counter() - t0, card_s=t1 - t0,
+               cpu_step_s=t2 - t1, checks_s=time.perf_counter() - t2)
+    print(f"train check {arch} ({cfg.n_layers} layers, full width, f32, "
+          f"{sorted(opts) or 'in place'}): loss {card_loss:.6f} card, "
+          f"{cpu_loss:.6f} CPU (rel {loss_rel:.3g}); grad_norm rel "
+          f"{norm_rel:.3g}; gradients within {grad_rel:.3g} of each "
+          f"tensor's max (tol {gtol:.3g}; {grad_off} elements past "
+          f"{c['tol']}); all-zero gradients {zero}; "
+          f"updated parameters within {param_rel:.3g} of the CPU's AdamW "
+          f"on the card's gradients; {out['simt_launches']} simt launches; "
+          f"{out['seconds']:.1f} s (card and copies {out['card_s']:.1f}, "
+          f"CPU step {out['cpu_step_s']:.1f}, checks {out['checks_s']:.1f})")
+    return out
+
+
+def matmul_params(cfg, params) -> float:
+    """Parameters a token multiplies once in the forward: every weight of
+    two or more dims but the embedding table, a moe expert's at top_k /
+    n_experts (the active parameters), the hybrid's shared block once a
+    group."""
+    total = 0.0
+    for path, x in ckpt.checkpoint.tree_leaves_with_paths(params):
+        if x.dim() < 2 or path[0] == "embed":
+            continue
+        n = float(x.numel())
+        if "moe" in path and path[-1] != "router":
+            n *= cfg.moe.top_k / cfg.moe.n_experts
+        if path[0] == "shared_attn":
+            n *= attention_layers(cfg)
+        total += n
+    return total
+
+
+def train_flops_per_step(cfg, params, seqs: int, seq: int) -> float:
+    """Phase 16's formula for any family: 6 x matmul_params x tokens, plus
+    3 x the attention products over the (query, key) pairs each
+    attention layer's mask allows (forward and backward); the remat
+    recompute and the SSD's own products not counted."""
+    prefix = cfg.vision.n_patches if cfg.vision is not None else 0
+    pairs = fa_pairs(seq, cfg.causal, cfg.sliding_window, prefix) \
+        if attention_layers(cfg) else 0
+    attn = attention_layers(cfg) * seqs * 4 * cfg.n_heads * cfg.head_dim * \
+        pairs
+    return 6 * matmul_params(cfg, params) * seqs * seq + 3 * attn
+
+
+def depth_cut(spec, dev):
+    """(config, its depth record): the family's full config, or for a
+    `cut` spec the most layers (or hybrid groups, the tail kept) whose
+    f32 parameters, gradients and AdamW moments (16 bytes a parameter,
+    counted from models built on the card at depths 1 and 2) leave the
+    spec's `headroom` bytes of the card."""
+    cfg = get_config(spec["arch"])
+    if "cut" not in spec:
+        return cfg, None
+    if spec["cut"] == "layers":
+        full, layers_of = cfg.n_layers, lambda n: n
+    else:
+        per = cfg.hybrid.shared_attn_every
+        full = cfg.n_layers // per
+        tail = cfg.n_layers - full * per
+        layers_of = lambda n: n * per + tail
+
+    def count(n):
+        p = model_lib.build(dataclasses.replace(
+            cfg, n_layers=layers_of(n))).init(seed=0, device=dev)
+        return n_elements(p)
+
+    one, two = count(1), count(2)
+    torch.cuda.empty_cache()
+    unit, base = two - one, 2 * one - two
+    total = torch.cuda.get_device_properties(dev).total_memory
+    n = min(full, (total - spec["headroom"] - 16 * base) // (16 * unit))
+    cut = dataclasses.replace(cfg, n_layers=layers_of(n))
+    return cut, dict(unit=spec["cut"], kept=int(n), full=full,
+                     layers=cut.n_layers, full_layers=cfg.n_layers,
+                     params_per_unit=unit, params_outside=base,
+                     state_bytes=16 * (base + n * unit), card_bytes=total,
+                     headroom_bytes=spec["headroom"])
+
+
+def train_family(spec, dev) -> dict:
+    """(c) for one family: TRAIN's 4 steps at full width (depth cut where
+    `spec` says), every count set to 0 just before (the Trainer's producer
+    thread decides as soon as it exists) and read after step 4:
+    flash-attention launches 2 a layer, microbatch and step, all sm90;
+    grid solve 5 a warm governor decision (Trainer) or none; losses
+    finite and lower at step 4 than at step 1. First and warm step s,
+    tokens (frames) a second, peak memory, MFU; one microbatch's warm
+    step profiled (the device's activity only: idle share against its
+    own unprofiled wall, top ops), and the attention gradient's call
+    timed alone at the path's shape (its share of that step)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, cut = depth_cut(spec, dev)
+    n_steps, n_micro = TRAIN["n_steps"], TRAIN["n_micro"]
+    decide_ms, governor_err = [], None
+    if spec["via"] == "trainer":
+        seqs, seq = TRAIN["global_batch"], TRAIN["seq_len"]
+        tcfg = TrainerConfig(n_steps=n_steps, global_batch=seqs,
+                             seq_len=seq, n_micro=n_micro,
+                             n_data_shards=TRAIN["n_data_shards"],
+                             data_cycle=TRAIN["data_cycle"],
+                             speculative_input=True, log_every=1000)
+        t, hist, counts, peak, build_s, decide_ms, specs = trainer_run(
+            cfg, tcfg, dev)
+        losses = [h["loss"] for h in hist]
+        times = [h["time"] for h in hist]
+        governor_err = check_governor(t.governor, specs)
+        model, optimizer, state = t.model, t.optimizer, t.state
+        batch = train_batch(tcfg, cfg, dev)
+        step = make_train_step(model, optimizer, n_micro)
+        del t
+    else:
+        seqs, seq = spec["batch"], spec["seq"]
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        model = model_lib.build(cfg)
+        params, build_s = synced(lambda: model.init(seed=0, device=dev))
+        optimizer = make_optimizer(cfg, lr=spec["lr"])
+        state = TrainState(params, optimizer.init(params),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        del params
+        step = make_train_step(model, optimizer, n_micro, cosine_schedule(
+            base=1.0, warmup=10, total=n_steps))
+        batch = make_batch(cfg, seqs, seq, "train", seed=0, device=dev)
+        mask = torch.ones((n_micro,), device=dev)
+        losses, times = [], []
+        for _ in range(n_steps):
+            (state, m), dt = synced(lambda: step(state, batch, mask))
+            losses.append(float(m["loss"]))
+            times.append(dt)
+        counts = dict(fa_counts(), grid_solve=gs.launches, warm_decisions=0)
+        peak = torch.cuda.max_memory_allocated()
+    want_fa = 2 * attention_layers(cfg) * n_micro * n_steps
+    n_chronos = len(names(kind="chronos"))
+    want_gs = n_chronos * counts["warm_decisions"]
+    if (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_simt"]) != (want_fa, want_fa, 0) or \
+            counts["grid_solve"] != want_gs or (
+                spec["via"] == "trainer") != bool(counts["warm_decisions"]):
+        raise AssertionError(f"train {cfg.name}: launches {counts}, expected "
+                             f"{want_fa} sm90 flash-attention launches "
+                             f"(forward and recompute of "
+                             f"{attention_layers(cfg)} attention layers x "
+                             f"{n_micro} microbatches x {n_steps} steps) and "
+                             f"{n_chronos} grid solves a warm governor "
+                             f"decision")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train {cfg.name}: losses {losses} (finite, "
+                             f"and lower at the last step than at the "
+                             f"first)")
+    warm_s = sorted(times[1:])[len(times[1:]) // 2]
+    # one microbatch's step (its forward, backward and one AdamW update),
+    # timed warm, then profiled: a quarter of a step's device ops (a
+    # whole mamba2 step has ~180,000, slow for the profiler to read back)
+    t_prof = time.perf_counter()
+    one = make_train_step(model, optimizer, 1)
+    micro = {k: x[:seqs // n_micro] for k, x in batch.items()}
+    mask = torch.ones((1,), device=dev)
+    micro_s = min(synced(lambda: one(state, micro, mask))[1]
+                  for _ in range(2))
+    prof = phase_profile(lambda: one(state, micro, mask),
+                         f"train {cfg.name} one microbatch's warm step",
+                         micro_s)
+    t_prof = time.perf_counter() - t_prof
+    n_params = n_elements(state.params)
+    flops = train_flops_per_step(cfg, state.params, seqs, seq)
+    busy = prof["device_busy_ms"]
+    out = dict(
+        arch=spec["arch"], via=spec["via"], layers=cfg.n_layers,
+        depth_cut=cut, params=n_params, batch=dict(seqs=seqs, seq=seq,
+                                                   n_micro=n_micro),
+        build_s=build_s, losses=losses, step_s=times, first_step_s=times[0],
+        warm_step_s=warm_s, tokens_per_s=seqs * seq / warm_s,
+        peak_memory_bytes=peak, counts=counts,
+        flash_attention_predicted=want_fa, model_flops_per_step=flops,
+        matmul_params=matmul_params(cfg, state.params),
+        mfu=flops / warm_s / BF16_TENSOR_OPS_PER_S, profile=prof,
+        top_shares=[dict(op=r["op"], share=r["ms"] / busy)
+                    for r in prof["top"]],
+        lr=spec.get("lr", TrainerConfig.lr), decide_ms_during_run=decide_ms,
+        governor_grid_max_abs_err=governor_err, micro_step_s=micro_s,
+        profile_s=t_prof)
+    unit = "frames" if cfg.audio is not None else "tokens"
+    print(f"train {cfg.name} via {spec['via']} ({cfg.n_layers} layers"
+          f"{'' if cut is None else ' of ' + str(cut['full_layers'])}, "
+          f"{n_params:,} parameters, f32; bf16 compute; {n_steps} steps of "
+          f"{n_micro} x {seqs // n_micro} x {seq}): build {build_s:.2f} s; "
+          f"losses {losses}; step s {times} (first {times[0]:.3f}, warm "
+          f"{warm_s:.3f}); {out['tokens_per_s']:.0f} {unit}/s; peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches {counts} (flash "
+          f"predicted {want_fa}); model FLOPs a step {flops:.4g}, MFU "
+          f"{out['mfu']:.3f}; idle share {prof['idle_share']:.3f}; depth "
+          f"{cut}")
+    del state, batch, micro, step, one, model, optimizer, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the gradient of one microbatch's attention call alone, at the
+    # path's shape and mask (the model's strided views), and its share of
+    # a step's busy time over every attention layer and microbatch
+    if attention_layers(cfg):
+        B = seqs // n_micro
+        prefix = cfg.vision.n_patches if cfg.vision is not None else 0
+        q, k, v = fa_inputs(B, cfg.n_heads, cfg.n_kv_heads, seq,
+                            cfg.head_dim, "bfloat16", 17, dev, views=True)
+        dout = torch.randn_like(q)
+        bwd_ms = cuda_ms(lambda: fa.attention_backward(
+            q, k, v, dout, cfg.causal, cfg.attn_softcap, cfg.sliding_window,
+            prefix), 3)
+        out["attention_backward_ms_alone"] = bwd_ms
+        out["attention_backward_share_alone"] = (
+            bwd_ms * attention_layers(cfg) / busy)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  {cfg.name}: attention_backward alone "
+          f"{out.get('attention_backward_ms_alone', 0.0):.2f} ms a "
+          f"microbatch's call, "
+          f"{out.get('attention_backward_share_alone', 0.0):.3f} of a "
+          f"microbatch step's busy time; {out['seconds']:.1f} s (profile "
+          f"{t_prof:.1f})")
+    return out
+
+
+def phase_serve_launcher(dev) -> dict:
+    """(d) `repro_torch.launch.serve.main(SERVE_LAUNCHER)` on the card,
+    every count set to 0 just before: its two lines, flash attention 26
+    sm90 launches (one prefill of gemma2-2b's 26 layers), and the hedged
+    half's grid-solve and Philox launches equal to those of the same
+    HedgedScheduler run alone on the same requests, which must print the
+    same attainment and machine time."""
+    from repro_torch.launch import serve as launch_serve
+    reset_counts()
+    ph.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, wall = synced(lambda: launch_serve.main(SERVE_LAUNCHER))
+    lines = buf.getvalue().splitlines()
+    counts = dict(fa_counts(), grid_solve=gs.launches,
+                  philox_rows=ph.launches)
+    gs.launches = ph.launches = 0
+    sched = HedgedScheduler(ReplicaPool(n_replicas=4, beta=1.4), theta=1e-2,
+                            device=dev)
+    alone = sched.run_workload([Request(deadline=0.6, rid=i, n_tokens=64)
+                                for i in range(100)])
+    want = dict(grid_solve=gs.launches, philox_rows=ph.launches)
+    cfg = get_config(SERVE_LAUNCHER[1])
+    tokens, batch = int(SERVE_LAUNCHER[4]), int(SERVE_LAUNCHER[6])
+    want_lines = [f"decoded ({batch}, {tokens}) tokens on {cfg.name}",
+                  f"hedged SLA attainment: {alone['pocd']:.3f} (mean "
+                  f"machine-time {alone['mean_machine_time']:.3f}s)"]
+    if lines != want_lines:
+        raise AssertionError(f"serve launcher: printed {lines}, expected "
+                             f"{want_lines}")
+    if (counts["flash_attention"], counts["flash_attention_sm90"]) != (
+            cfg.n_layers, cfg.n_layers) or want["grid_solve"] != 1 or \
+            not want["philox_rows"] or \
+            {k: counts[k] for k in want} != want:
+        raise AssertionError(f"serve launcher: launches {counts}, expected "
+                             f"{cfg.n_layers} sm90 flash-attention launches "
+                             f"and the hedged run's {want}")
+    print(f"serve launcher {' '.join(SERVE_LAUNCHER)}: {lines}; launches "
+          f"{counts}; {wall:.2f} s")
+    return dict(argv=SERVE_LAUNCHER, lines=lines, counts=counts,
+                wall_s=wall)
+
+
+def phase_train_families(dev) -> dict:
+    """Phase 19: training of the moe, vlm, audio, ssm and hybrid families:
+    (a) the attention gradient at D 80 and 112 on every mask, (b) each
+    family cut in depth card against the CPU, (c) each at full width
+    (olmoe and zamba2 cut in depth), (d) the serving launcher."""
+    t0 = time.perf_counter()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"phase 19: device memory free {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    cases = [(c, 1.0) for c in FA_GRAD_CASES] + [
+        (c, FA_HOT_SCALE) for c in FA_GRAD_HOT]
+    ta = time.perf_counter()
+    grads = check_grad_cases(cases, 900, dev)
+    grads["seconds"] = time.perf_counter() - ta
+    print(f"train attention D 80 and 112: {grads['cases']['sm90']} bf16 "
+          f"cases (sm90) and {grads['cases']['simt']} f32 cases (simt): dq, "
+          f"dk, dv equal autograd through the plain version (every mask, "
+          f"softcaps, hot cases); worst (mean |err| / mean |want|, max |err| "
+          f"/ max |want|) {grads['worst_rel']}")
+    check = {}
+    with host_heap_reuse():
+        for arch in CHECK_TRAIN_FAMILIES["cuts"]:
+            for opts in CHECK_TRAIN_FAMILIES["paths"].get(arch, ((),)):
+                key = arch if not opts else f"{arch} {'+'.join(opts)}"
+                check[key] = train_family_check(arch, opts, dev)
+    out = dict(attention_grad=grads, check=check)
+    for spec in TRAIN_FAMILIES:
+        out[spec["arch"]] = train_family(spec, dev)
+    out["serve_launcher"] = phase_serve_launcher(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 19: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -5331,13 +5901,16 @@ def main() -> None:
     serve_check = phase_serve_check(dev)
     serve = phase_serve(dev)
     t16 = time.perf_counter()
-    train = dict(attention=phase_train_attention(dev),
-                 check=phase_train_check(dev), full_width=phase_train(dev),
+    train = dict(attention=phase_train_attention(dev))
+    with host_heap_reuse():
+        train["check"] = phase_train_check(dev)
+    train.update(full_width=phase_train(dev),
                  restart=phase_train_restart(dev))
     train["seconds"] = time.perf_counter() - t16
     print(f"phase 16: {train['seconds']:.1f} s")
     families = phase_masks_families(dev)
     ssm = phase_ssm(dev)
+    train_families = phase_train_families(dev)
 
     # last: a profiler session this large can cost the next session its
     # first kernel records, and kernel_ms counts every launch
@@ -5415,6 +5988,16 @@ def main() -> None:
         "train_warm_decisions": train["full_width"]["counts"][
             "warm_decisions"],
         "max_abs_err_train": train["full_width"]["governor_grid_max_abs_err"],
+        # phase 19 (c): each Trainer family's 4 steps, counted from 0; (d)
+        # the serving launcher's hedged run
+        "launches_train_families": {
+            k: train_families[k]["counts"]["grid_solve"]
+            for k in (s["arch"] for s in TRAIN_FAMILIES)},
+        "max_abs_err_train_families": max(
+            train_families[s["arch"]]["governor_grid_max_abs_err"] or 0.0
+            for s in TRAIN_FAMILIES),
+        "launches_serve_launcher": train_families["serve_launcher"][
+            "counts"]["grid_solve"],
     }]
 
     def mc_entry(name, line, launches, parts, err, **extra):
@@ -5540,7 +6123,19 @@ def main() -> None:
              train_backward={k: train["attention"][k] for k in (
                  "backward_ms", "forward_backward_ms",
                  "plain_forward_backward_ms", "library_forward_backward_ms",
-                 "bound_ms", "bound_by", "shape")}),
+                 "bound_ms", "bound_by", "shape")},
+             # phase 19: the gradient at D 80 and 112 on every mask, and
+             # each family's 4 full-width training steps counted from 0
+             # (all sm90), beside their prediction; the serving launcher's
+             train_backward_d80_d112=train_families["attention_grad"],
+             launches_phase19={
+                 s["arch"]: dict(
+                     counts=train_families[s["arch"]]["counts"],
+                     predicted=train_families[s["arch"]][
+                         "flash_attention_predicted"])
+                 for s in TRAIN_FAMILIES},
+             launches_serve_launcher=train_families["serve_launcher"][
+                 "counts"]["flash_attention"]),
     ]
     ct = cluster["times"]
     kernels.append(dict(
@@ -5632,7 +6227,15 @@ def main() -> None:
                         for k, v in fleet["flat"]["draws"].items()},
         # phase 10e (a): the faulted chunked run_all, chunk 4 drawn twice
         launches_chaos=chaos["launches"]["philox_rows"],
+        # phase 19 (d): the serving launcher's hedged run
+        launches_serve_launcher=train_families["serve_launcher"]["counts"][
+            "philox_rows"],
         check=philox_check))
+    train_families_line = json.dumps({"train_families": train_families})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "train_families.json").write_text(
+        train_families_line)
+    print(train_families_line)
     ssm_line = json.dumps({"ssm": ssm})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "ssm.json").write_text(ssm_line)

@@ -78,7 +78,10 @@ def make_train_step(model, optimizer, n_micro: int, lr_schedule=None,
             loss, _ = model.loss_fn(params, mb)
             (mask[i] * loss).backward()
             loss_sum = loss_sum + mask[i] * loss.detach()
-        grads = [p.grad.div_(denom) for p in leaves]
+        # a leaf the loss does not use (audio's `embed`) gets no .grad;
+        # jax.grad gives it zeros, and so does this
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad.div_(denom)
+                 for p in leaves]
         for p in leaves:
             p.grad = None
         return loss_sum, grads
@@ -100,7 +103,8 @@ def make_train_step(model, optimizer, n_micro: int, lr_schedule=None,
         for i in range(n_micro):
             mb = {k: x[i] for k, x in micro.items()}
             loss, _ = model.loss_fn(cparams, mb)
-            gs = torch.autograd.grad(loss, leaves)
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                     materialize_grads=True)
             for a, g in zip(acc, gs):
                 a.add_((mask[i] * g.to(torch.float32)).to(acc_dt))
             loss_sum = loss_sum + mask[i] * loss.detach()

@@ -187,6 +187,8 @@ def test_serving_imports_neither_jax_nor_the_reference():
         "import repro_torch.serve.loop, repro_torch.serve.scheduler\n"
         "import repro_torch.serve.requests, repro_torch.obs.tail\n"
         "import repro_torch.runtime.telemetry\n"
+        "import repro_torch.launch.serve, repro_torch.configs.chronos_sim\n"
+        "from repro_torch.configs import SHAPES, shape_applicable\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")

@@ -118,17 +118,22 @@ def batch_np(cfg, B, S, seed):
 
 
 ATTN_CASES = [
-    # B, H, K, S, D, causal, softcap, q scale
+    # B, H, K, S, D, causal, softcap, q scale[, window, prefix_len]
     (2, 4, 2, 33, 16, True, 50.0, 1.0),
     (1, 4, 4, 20, 32, True, None, 1.0),
     (2, 6, 2, 17, 16, False, 30.0, 1.0),
     (1, 4, 1, 24, 16, True, 30.0, 16.0),   # scores past the softcap
+    (2, 4, 2, 33, 16, True, 50.0, 1.0, 8, 0),        # sliding window
+    (1, 4, 1, 29, 32, True, None, 1.0, None, 11),    # prefix-LM
+    (2, 6, 2, 23, 16, False, 30.0, 1.0, 7, 0),       # bidirectional window
 ]
 
 
 @pytest.mark.parametrize("case", ATTN_CASES, ids=str)
 def test_attention_backward_matches_jax_and_autograd(case):
-    B, H, K, S, D, causal, cap, scale = case
+    B, H, K, S, D, causal, cap, scale, *mask = case
+    window, prefix = mask or (None, 0)
+    masks = dict(causal=causal, window=window, prefix_len=prefix)
     rng = np.random.default_rng(sum(case[:5]))
     q = (scale * rng.standard_normal((B, S, H, D))).astype(np.float32)
     k, v = (rng.standard_normal((B, S, K, D)).astype(np.float32)
@@ -137,7 +142,8 @@ def test_attention_backward_matches_jax_and_autograd(case):
 
     # the reference: jax.grad of its einsum attention, (B, S, heads, D)
     pos = jnp.broadcast_to(jnp.arange(S)[None], (B, S))
-    bias = RA._mask_bias(pos, pos, RA.MaskSpec(causal=causal))
+    bias = RA._mask_bias(pos, pos, RA.MaskSpec(causal=causal, window=window,
+                                               prefix_len=prefix))
 
     def ref_loss(q, k, v):
         out = RA._attend(q, k, v, bias, K, H // K, cap)
@@ -146,17 +152,17 @@ def test_attention_backward_matches_jax_and_autograd(case):
     want = jax.grad(ref_loss, argnums=(0, 1, 2))(q, k, v)
     bhsd = [torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)]
     got = fa.attention_backward(*bhsd, torch.from_numpy(dout).transpose(1, 2),
-                                causal=causal, softcap=cap)
+                                softcap=cap, **masks)
     for g, w, n in zip(got, want, "qkv"):
         held(g.transpose(1, 2), w, TOL, f"d{n} vs jax.grad")
 
     # autograd through the plain version, and the Function's own backward
     leaves = [x.clone().requires_grad_(True) for x in bhsd]
-    out = fa.attention_plain(*leaves, causal=causal, softcap=cap)
+    out = fa.attention_plain(*leaves, softcap=cap, **masks)
     plain = torch.autograd.grad(out, leaves,
                                 torch.from_numpy(dout).transpose(1, 2))
     leaves2 = [x.clone().requires_grad_(True) for x in bhsd]
-    out2 = fa.attention(*leaves2, causal=causal, softcap=cap)
+    out2 = fa.attention(*leaves2, softcap=cap, **masks)
     torch.testing.assert_close(out2, out, rtol=0, atol=0)
     fn = torch.autograd.grad(out2, leaves2,
                              torch.from_numpy(dout).transpose(1, 2))
