@@ -409,12 +409,33 @@ Phases; each raises on failure, so any failure exits non-zero:
    26 sm90 flash-attention launches, and the grid-solve (1) and Philox
    launches and printed numbers of the same HedgedScheduler run alone.
 
-The last lines are the training-families JSON (phase 19), the ssm JSON
+20. the sharding planner, the dry run and the roofline. (a)
+   `launch/dryrun.py`'s cells on fake CUDA tensors at full width, in 4
+   spawned processes (DRYRUN_GROUPS) while (b) and (c) use the card:
+   every applicable shape of gemma2-2b and zamba2-7b and arctic-480b's
+   train_4k, on `h100` and `16x16`; each cell checks every spec against
+   its leaf (no mesh axis twice, every sharded dim divisible); per cell
+   FLOPs and bytes per device, arguments per device, `fits` and the
+   roofline's dominant term; arctic-480b must not fit one card. (b)
+   gemma2-2b at full width, each step traced on fake tensors and run on
+   the card under the op analyzer: one microbatch's train step
+   (TRACE_TRAIN: 1 x 4096, AdamW) and one decode step (TRACE_DECODE: 8
+   x 32,768 of cache): FLOPs equal, bytes within 1% (any op that
+   differs printed), the flash-attention entries equal to the sm90
+   launches, the warm device time (CUDA events) at least the roofline
+   bound; MFU by `model_flops_analytic` and by phase 16's formula. (c)
+   `card_mesh()` over NCCL: gemma2-2b's full-width parameters placed
+   with the (1, 1) plan and re-sharded onto a fresh plan, every leaf
+   placed as planned and bit-equal to the original; the process group
+   destroyed. The script's total time is printed before the JSON lines.
+
+The last lines are the planner JSON (phase 20), the training-families
+JSON (phase 19), the ssm JSON
 (phase 18), the families JSON (phase 17), the training JSON (phase 16),
 the chaos JSON (phases 10e and 10f), the serving JSON (phase 10d), the
 fleet JSON (phase 10c), the cluster JSON (phase 10b), the scenarios JSON
 (phases 6-10), the kernels JSON, the card line and the result JSON; each
-of the first eight and the kernels JSON is also written under
+of the first nine and the kernels JSON is also written under
 `chiprun_out/`.
 The script needs one CUDA card and exits non-zero without one.
 """
@@ -5791,10 +5812,341 @@ def phase_train_families(dev) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 20: the sharding planner, the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+# (a) the dry run's cells on the card's fake tensors, one process a group
+# of cells, while (b) and (c) use the card; a cell's traces are shared by
+# the meshes of one process, so each (arch, shape) keeps its meshes
+# together but for the two longest train traces, which run apart (a
+# mesh of None: every mesh of DRYRUN_MESHES)
+DRYRUN_MESHES = ("h100", "16x16")
+DRYRUN_GROUPS = (
+    (("zamba2-7b", "train_4k", "h100"), ("zamba2-7b", "decode_32k", None)),
+    (("zamba2-7b", "train_4k", "16x16"), ("zamba2-7b", "long_500k", None)),
+    (("arctic-480b", "train_4k", None), ("gemma2-2b", "prefill_32k", None),
+     ("gemma2-2b", "decode_32k", None), ("gemma2-2b", "long_500k", None)),
+    (("zamba2-7b", "prefill_32k", None), ("gemma2-2b", "train_4k", None)))
+# (b) gemma2-2b at full width traced fake and run on the card: one
+# microbatch's train step (train_4k's 4 x 4096 cut to the 1 x 4096 that
+# fits beside the f32 parameters, AdamW's moments and the gradients) and
+# one decode step at decode_32k's context with its batch of 128 cut to 8
+# (the f32 parameters and 8 x 3.49 GB of cache)
+TRACE_TRAIN = dict(batch=1, seq=4096, cut_from=(256, 4096))
+TRACE_DECODE = dict(batch=8, seq=32768, cut_from=(128, 32768))
+
+
+def dryrun_group(cells) -> list:
+    """The records of one worker's cells (a mesh of None: every mesh of
+    DRYRUN_MESHES), traced on fake CUDA tensors."""
+    from repro_torch.launch import dryrun
+    out = []
+    for arch, shape, mesh in cells:
+        for m in (DRYRUN_MESHES if mesh is None else (mesh,)):
+            with contextlib.redirect_stdout(io.StringIO()):
+                rec, _ = dryrun.cell(arch, shape, m, device="cuda")
+            out.append(rec)
+    return out
+
+
+def start_dryrun():
+    """(a)'s processes started: (pool, futures, groups, start time)."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.configs import shape_applicable
+    groups = [[c for c in g if shape_applicable(c[0], c[1])[0]]
+              for g in DRYRUN_GROUPS]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(groups), mp_context=multiprocessing.get_context("spawn"))
+    return pool, [pool.submit(dryrun_group, g) for g in groups], groups, \
+        time.perf_counter()
+
+
+def phase_dryrun(futures, groups, t0) -> dict:
+    """(a): every applicable shape of gemma2-2b and zamba2-7b and
+    arctic-480b's train_4k on `h100` and `16x16` (every spec checked
+    against its leaf's shape in the cell: no mesh axis twice, every
+    sharded dim divisible), each record's roofline row."""
+    from repro_torch.launch import roofline
+    recs = [r for f in futures for r in f.result()]
+    seconds = time.perf_counter() - t0
+    rows = {}
+    for rec in recs:
+        row = roofline.roofline_row(rec)
+        key = f"{rec['arch']}/{rec['shape']}/{rec['mesh']}"
+        rows[key] = dict(
+            flops_per_device=rec["flops_per_device"],
+            hbm_bytes_per_device=rec["hbm_bytes_per_device"],
+            argument_bytes_per_device=rec["memory"]["argument_bytes"],
+            fits=rec["fits"], dominant=row["dominant"],
+            compute_s=row["compute_s"], memory_s=row["memory_s"],
+            collective_s=row["collective_s"], ideal_s=row["ideal_s"],
+            roofline_fraction=row["roofline_fraction"],
+            model_flops=rec["model_flops"], trace_s=rec["trace_s"],
+            n_micro=rec.get("n_micro"), plan_notes=rec["plan_notes"],
+            flash_attention_entries=rec["flash_attention_entries"])
+        print(f"  {key}: flops/dev {rec['flops_per_device']:.4e}, bytes/dev "
+              f"{rec['hbm_bytes_per_device']:.4e}, args/dev "
+              f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB, fits "
+              f"{rec['fits']}, dominant {row['dominant']} (trace "
+              f"{rec['trace_s']:.1f} s)")
+    want = {f"{a}/{s}/{m}" for g in groups for a, s, mesh in g
+            for m in (DRYRUN_MESHES if mesh is None else (mesh,))}
+    if set(rows) != want:
+        raise AssertionError(f"dry run: cells {sorted(want ^ set(rows))}")
+    if rows["arctic-480b/train_4k/h100"]["fits"]:
+        raise AssertionError("dry run: arctic-480b fits one card")
+    print(f"phase 20 (a): {len(rows)} cells in {seconds:.1f} s "
+          f"({len(groups)} processes, beside (b) and (c))")
+    return dict(cells=rows, seconds=seconds, processes=len(groups))
+
+
+def op_diff(fake: dict, real: dict) -> dict:
+    """{op: (fake count, real count)} where the two traces differ."""
+    a, b = fake["op_counts"], real["op_counts"]
+    return {k: (a.get(k, 0), b.get(k, 0)) for k in sorted(set(a) | set(b))
+            if a.get(k, 0) != b.get(k, 0)}
+
+
+def device_ms(fn, reps: int = 2) -> float:
+    """The least of `reps` CUDA-event timings of fn() on the current
+    stream (a warm call first)."""
+    fn()
+    best = None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def traced_against_card(what, fake, real, ms, launches) -> dict:
+    """(b)'s checks of one step: FLOPs equal, bytes within 1%, the flash
+    entries equal to the sm90 launches, the roofline share <= 1."""
+    from repro_torch.launch import roofline
+    diff = op_diff(fake, real)
+    if diff:
+        print(f"  {what}: ops that differ (fake, real): {diff}")
+    if fake["dot_flops"] != real["dot_flops"]:
+        raise AssertionError(f"{what}: FLOPs fake {fake['dot_flops']!r} != "
+                             f"real {real['dot_flops']!r}")
+    rel = abs(fake["hbm_bytes"] - real["hbm_bytes"]) / real["hbm_bytes"]
+    if rel > 0.01:
+        raise AssertionError(f"{what}: bytes fake {fake['hbm_bytes']} vs "
+                             f"real {real['hbm_bytes']} ({rel:.3%})")
+    entries = real["flash_attention_entries"]
+    if not (entries == fake["flash_attention_entries"]
+            == launches["flash_attention_sm90"]
+            and launches["flash_attention_simt"] == 0):
+        raise AssertionError(f"{what}: flash entries fake "
+                             f"{fake['flash_attention_entries']}, real "
+                             f"{entries}, launches {launches}")
+    compute_ms = 1e3 * real["dot_flops"] / roofline.PEAK_FLOPS
+    memory_ms = 1e3 * real["hbm_bytes"] / roofline.HBM_BW
+    bound = max(compute_ms, memory_ms)
+    by = "compute" if compute_ms >= memory_ms else "memory"
+    share = bound / ms
+    print(f"  {what}: FLOPs {real['dot_flops']:.6e} (fake = real), bytes "
+          f"fake {fake['hbm_bytes']:.6e} real {real['hbm_bytes']:.6e} "
+          f"({rel:.2e}); flash entries {entries} = sm90 launches; device "
+          f"{ms:.3f} ms, bound {bound:.3f} ms ({by}), share {share:.4f}; "
+          f"ops fake {sum(fake['op_counts'].values())} real "
+          f"{sum(real['op_counts'].values())}")
+    if share > 1.0:
+        raise AssertionError(f"{what}: measured {ms} ms below the roofline "
+                             f"bound {bound} ms")
+    return dict(flops=real["dot_flops"], bytes_fake=fake["hbm_bytes"],
+                bytes_real=real["hbm_bytes"], bytes_rel_diff=rel, bound_by=by,
+                ops_fake=sum(fake["op_counts"].values()),
+                ops_real=sum(real["op_counts"].values()), op_diff=diff,
+                flash_attention_entries=entries, launches=launches,
+                device_ms=ms, compute_ms=compute_ms, memory_ms=memory_ms,
+                bound_ms=bound, share=share)
+
+
+def phase_trace_card(dev) -> dict:
+    """(b): gemma2-2b at full width, each step traced on fake tensors and
+    run on the card under the op analyzer, its warm device time beside
+    the roofline bound; MFU by both formulas."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.op_analyzer import OpAnalyzer
+    from repro_torch.models.inputs import batch_struct
+    cfg = get_config("gemma2-2b")
+    model = model_lib.build(cfg)
+    opt = make_optimizer(cfg)
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    B, S = TRACE_TRAIN["batch"], TRACE_TRAIN["seq"]
+    with FakeTensorMode():
+        params = model.init(seed=0, device=dev)
+        state = TrainState(params, opt.init(params),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        fake = OpAnalyzer()
+        dryrun.trace_train(model, opt, state,
+                           batch_struct(cfg, B, S, "train", dev), 1, fake)
+    params = model.init(seed=0, device=dev)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    batch = make_batch(cfg, B, S, "train", device=dev)
+    step = make_train_step(model, opt, 1)
+    ms = device_ms(lambda: step(state, batch, [1.0]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    reset_counts()
+    real = OpAnalyzer()
+    dryrun.trace_train(model, opt, state, batch, 1, real)
+    torch.cuda.synchronize()
+    train = traced_against_card("train step 1 x 4096", fake.summary(),
+                                real.summary(), ms, fa_counts())
+    # MFU two ways: the dry run's formula (the reference's; every
+    # non-embedding parameter, norms too, 6 FLOPs a token, attention at
+    # S/2 a token) and phase 16's (the matmul parameters, the lm-head
+    # among them, and the causal pairs S(S+1)/2)
+    share = B * S / (TRACE_TRAIN["cut_from"][0] * TRACE_TRAIN["cut_from"][1])
+    analytic = dryrun.model_flops_analytic(cfg, "train_4k") * share
+    phase16 = model_flops_per_step(cfg, B * S, B, S)
+    peak_ops = roofline.PEAK_FLOPS
+    train.update(model_flops_analytic=analytic, model_flops_phase16=phase16,
+                 mfu_analytic=analytic / (1e-3 * ms * peak_ops),
+                 mfu_phase16=phase16 / (1e-3 * ms * peak_ops),
+                 peak_bytes=peak, reduced=dict(
+                     batch=f"{TRACE_TRAIN['cut_from'][0]} -> {B} sequences "
+                           f"(one microbatch of {B} x {S})"))
+    n_eff = cfg.active_param_count() - padded_vocab(cfg) * cfg.d_model
+    matmul = (cfg.n_layers * (cfg.d_model * cfg.head_dim * (
+        2 * cfg.n_heads + 2 * cfg.n_kv_heads) + 3 * cfg.d_model * cfg.d_ff)
+        + cfg.d_model * padded_vocab(cfg))
+    print(f"  MFU formulas: the dry run's counts {n_eff:,} parameters "
+          f"(active_param_count less the padded embedding table) at 6 "
+          f"FLOPs a token and attention at S/2 a token; phase 16's counts "
+          f"{matmul:,} matmul parameters (lm-head included) and the causal "
+          f"pairs S(S+1)/2: {analytic:.4e} against {phase16:.4e} FLOPs "
+          f"({phase16 / analytic - 1:+.2%})")
+    print(f"  train step 1 x {S}: MFU {train['mfu_analytic']:.4f} "
+          f"(model_flops_analytic), {train['mfu_phase16']:.4f} (phase 16's "
+          f"formula); traced FLOPs {train['flops'] / analytic:.3f}x the "
+          f"analytic; peak {peak / 2**30:.2f} GiB")
+    out["train"] = train
+    del params, state, batch, step, real
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    B, S = TRACE_DECODE["batch"], TRACE_DECODE["seq"]
+    with FakeTensorMode():
+        params = model.init(seed=0, device=dev)
+        cache = model.init_cache(B, S, device=dev)
+        tokens_fake = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        fake = OpAnalyzer()
+        dryrun.trace_decode(model, params, tokens_fake, cache, fake)
+    params = model.init(seed=0, device=dev)
+    cache = model.init_cache(B, S, device=dev)
+    cache["lengths"].fill_(S - 1)
+    tokens = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        ms = device_ms(lambda: model.decode_step(params, tokens, cache))
+    reset_counts()
+    real = OpAnalyzer()
+    dryrun.trace_decode(model, params, tokens, cache, real)
+    torch.cuda.synchronize()
+    decode = traced_against_card(f"decode step {B} x {S}", fake.summary(),
+                                 real.summary(), ms, fa_counts())
+    arg = n_elements(params) * 4 + sum(
+        x.numel() * x.element_size() for layer in cache["kv"]
+        for x in layer.values())
+    decode.update(argument_bytes=arg,
+                  argument_floor_ms=1e3 * arg / roofline.HBM_BW,
+                  reduced=dict(batch=f"{TRACE_DECODE['cut_from'][0]} -> {B}"))
+    print(f"  decode step: every argument byte once "
+          f"{decode['argument_floor_ms']:.3f} ms of {ms:.3f} ms")
+    out["decode"] = decode
+    del params, cache, tokens, real
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_planner_card(dev) -> dict:
+    """(c): card_mesh over NCCL, gemma2-2b's full-width state placed with
+    the (1, 1) plan and placed again on a fresh plan, every leaf's bits
+    equal to the original's; the process group destroyed."""
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import tree_leaves_with_paths
+    from repro_torch.launch.mesh import card_mesh
+    from repro_torch.models.param import param_axes
+    from repro_torch.runtime import elastic
+    from repro_torch.sharding import make_plan, placements
+    t0 = time.perf_counter()
+    mesh = card_mesh()
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"card_mesh: backend {backend}, not nccl")
+        cfg = get_config("gemma2-2b")
+        params = model_lib.build(cfg).init(seed=0, device=dev)
+        axes = param_axes(cfg, params)
+        plan = make_plan(cfg, mesh)
+        state = elastic.reshard_state(params, None, plan, axes)
+        moved = elastic.reshard_state(state, plan, make_plan(cfg, mesh), axes)
+        del state
+        leaves = equal = placed = 0
+        specs = plan.param_specs(params, axes)
+        for (path, want), (_, got), (_, spec) in zip(
+                tree_leaves_with_paths(params), tree_leaves_with_paths(moved),
+                tree_leaves_with_paths(specs)):
+            leaves += 1
+            placed += tuple(got.placements) == placements(spec, mesh)
+            equal += bool(torch.equal(got.full_tensor(), want))
+        if not equal == placed == leaves:
+            raise AssertionError(f"reshard: {equal} of {leaves} leaves "
+                                 f"bit-equal, {placed} placed as planned")
+        sharded = sum(len(s) > 0 for _, s in tree_leaves_with_paths(specs))
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t0
+    print(f"phase 20 (c): card_mesh over {backend}, gemma2-2b's {leaves} "
+          f"leaves ({n_elements(params):,} parameters; {sharded} with a "
+          f"Shard placement) placed and re-sharded, all bit-equal, "
+          f"{seconds:.1f} s")
+    del params, moved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(backend=backend, leaves=leaves, bit_equal=equal,
+                sharded_leaves=sharded, seconds=seconds)
+
+
+def phase_planner(dev) -> dict:
+    """Phase 20: (a) the dry run in its own processes while (b) traces
+    against the card and (c) places the planner's state on it."""
+    t0 = time.perf_counter()
+    pool, futures, groups, t_a = start_dryrun()
+    try:
+        out = dict(trace=phase_trace_card(dev),
+                   planner=phase_planner_card(dev))
+        out["dryrun"] = phase_dryrun(futures, groups, t_a)
+    finally:
+        for f in futures:
+            f.cancel()
+        pool.shutdown(wait=True, cancel_futures=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 20: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card_line = card()
     print(card_line)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -5911,6 +6263,7 @@ def main() -> None:
     families = phase_masks_families(dev)
     ssm = phase_ssm(dev)
     train_families = phase_train_families(dev)
+    planner = phase_planner(dev)
 
     # last: a profiler session this large can cost the next session its
     # first kernel records, and kernel_ms counts every launch
@@ -6135,7 +6488,11 @@ def main() -> None:
                          "flash_attention_predicted"])
                  for s in TRAIN_FAMILIES},
              launches_serve_launcher=train_families["serve_launcher"][
-                 "counts"]["flash_attention"]),
+                 "counts"]["flash_attention"],
+             # phase 20 (b): one traced full-width train step of 1 x 4096
+             # (forward and remat recompute), equal to the analyzer's
+             # flash-attention entries
+             launches_phase20=planner["trace"]["train"]["launches"]),
     ]
     ct = cluster["times"]
     kernels.append(dict(
@@ -6231,6 +6588,12 @@ def main() -> None:
         launches_serve_launcher=train_families["serve_launcher"]["counts"][
             "philox_rows"],
         check=philox_check))
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    planner_line = json.dumps({"planner": planner})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "planner.json").write_text(planner_line)
+    print(planner_line)
     train_families_line = json.dumps({"train_families": train_families})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "train_families.json").write_text(

@@ -1,0 +1,415 @@
+"""Dry run: trace every (arch x shape x mesh) cell's step on fake
+tensors; counterpart of `repro.launch.dryrun`.
+
+The reference lowers and compiles each cell on 512 placeholder XLA
+devices and reads per-device FLOPs, HBM bytes and collective bytes from
+the partitioned HLO. The port builds each cell's model and inputs at
+full width under `FakeTensorMode` (shapes and types, nothing allocated)
+on the device the caller gives, and traces its step (train, prefill or
+decode) under `op_analyzer.OpAnalyzer`. A train step traces one
+microbatch's loss and backward, counts it `n_micro` times, and adds one
+optimizer update.
+
+Meshes:
+  * `h100`: one card. The batch is the shape's global batch, n_micro
+    comes from PER_DEVICE_MICRO with a batch divisor of 1; FLOPs and
+    bytes are the trace's, collective bytes 0; `memory.argument_bytes`
+    counts parameters, optimizer state and batch (or cache) exactly, and
+    `fits` says whether they leave room in 80 GiB. `memory.temp_bytes`
+    is null: only a run on the card measures it.
+  * `16x16` and `2x16x16`: the reference's production meshes, planned
+    with `sharding.planner` (no devices). `memory.argument_bytes` per
+    device: each leaf's bytes over the product of the mesh extents its
+    spec uses (parameters, `state_spec_tree`, `batch_spec`,
+    `cache_spec_tree`). FLOPs and bytes per device are the trace's
+    totals over the device count (`"per_device": "even_split"`);
+    collective bytes are null until a sharded step runs on several
+    cards.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k \\
+      --mesh h100 --device cpu
+  python -m repro_torch.launch.dryrun --all --mesh all --out artifacts/dryrun
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import gzip
+import json
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+from ..ckpt.checkpoint import tree_leaves, tree_leaves_with_paths
+from ..configs import ALL_ARCHS, SHAPES, get_config, shape_applicable
+from ..device import resolve_device
+from ..models import model as model_lib
+from ..models.inputs import batch_struct
+from ..models.param import param_axes
+from ..sharding.planner import PlanMesh, check_spec, make_plan, spec_div
+from ..train.optimizer import make_optimizer
+from ..train.train_step import TrainState, make_train_step
+from .op_analyzer import OpAnalyzer, log_of, records_of, summary_of
+
+# tokens per device per microbatch for train_4k (bounds activation memory)
+PER_DEVICE_MICRO = {
+    "deepseek-coder-33b": 1, "arctic-480b": 1,
+    "mistral-nemo-12b": 2, "chatglm3-6b": 2, "zamba2-7b": 2,
+    "gemma2-2b": 4, "olmoe-1b-7b": 2, "paligemma-3b": 4,
+    "mamba2-2.7b": 2, "hubert-xlarge": 4,
+}
+
+MESHES = {
+    "h100": PlanMesh((1, 1), ("data", "model")),
+    "16x16": PlanMesh((16, 16), ("data", "model")),
+    "2x16x16": PlanMesh((2, 16, 16), ("pod", "data", "model")),
+}
+#: one H100 SXM's device memory
+HBM_CAPACITY_BYTES = 80 * 2**30
+NO_COLLECTIVES = "needs a sharded step on several cards (ROADMAP A.4)"
+
+
+def n_microbatches(arch: str, global_batch: int, batch_div: int) -> int:
+    pdm = PER_DEVICE_MICRO.get(arch, 2)
+    n = max(global_batch // (pdm * batch_div), 1)
+    while global_batch % n or (global_batch // n) % batch_div:
+        n -= 1
+    return max(n, 1)
+
+
+def model_flops_analytic(cfg, shape_name: str) -> float:
+    """MODEL_FLOPS: 6·N·D train / 2·N·D inference (N = active parameters
+    less the embedding table), plus the attention core, causal at S/2."""
+    seq, batch, kind = SHAPES[shape_name]
+    from ..models.transformer import padded_vocab
+    n_eff = cfg.active_param_count() - padded_vocab(cfg) * cfg.d_model
+    # attention core flops per token at context S: 4 * H * Dh * S
+    if cfg.family == "hybrid":
+        n_attn_layers = cfg.n_layers // cfg.hybrid.shared_attn_every
+    elif cfg.family == "ssm":
+        n_attn_layers = 0
+    else:
+        n_attn_layers = cfg.n_layers
+    attn_per_tok_ctx = 4 * cfg.n_heads * cfg.head_dim * n_attn_layers
+    if kind == "train":
+        tokens = seq * batch
+        return 6.0 * n_eff * tokens + 3.0 * attn_per_tok_ctx * (seq / 2) \
+            * tokens
+    if kind == "prefill":
+        tokens = seq * batch
+        return 2.0 * n_eff * tokens + attn_per_tok_ctx * (seq / 2) * tokens
+    # decode: one token per sequence against a seq-length cache
+    return 2.0 * n_eff * batch + attn_per_tok_ctx * seq * batch
+
+
+OPTS_HELP = (
+    "comma-separated levers: bf16cast (bf16 parameter storage, f32 "
+    "masters), bf16grads (bf16 gradient accumulation), chunk128 / ssd_bf16 "
+    "(SSD shaping), micro_half / micro_quarter / micro_double (gradient "
+    "accumulation depth), ep_data (experts on the data axis), pod_fsdp "
+    "(ZeRO across pods). Not supported by the port, and refused: "
+    "blockattn, remat_dots, shardgrads")
+
+#: the reference's options with no meaning in the port, and why
+UNSUPPORTED_OPTS = {
+    "blockattn": "the port's attention is its flash kernel on every "
+                 "attn_impl",
+    "remat_dots": "the port checkpoints whole blocks; it has no dots-only "
+                  "policy",
+    "shardgrads": "sharded gradients need a sharded step on several cards",
+}
+OPTS = {"bf16cast", "bf16grads", "chunk128", "ssd_bf16", "micro_half",
+        "micro_quarter", "micro_double", "ep_data", "pod_fsdp"}
+
+
+def _apply_cfg_opts(cfg, opts: set):
+    bad = sorted(set(opts) & set(UNSUPPORTED_OPTS))
+    if bad:
+        raise ValueError("dryrun: option " + ", ".join(
+            f"{o!r} ({UNSUPPORTED_OPTS[o]})" for o in bad))
+    unknown = sorted(set(opts) - OPTS)
+    if unknown:
+        raise ValueError(f"dryrun: unknown options {unknown}")
+    if "bf16cast" in opts:
+        cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    if "chunk128" in opts and cfg.ssm is not None:
+        cfg = dataclasses.replace(
+            cfg, ssm=dataclasses.replace(cfg.ssm, chunk=128))
+    if "ssd_bf16" in opts and cfg.ssm is not None:
+        cfg = dataclasses.replace(
+            cfg, ssm=dataclasses.replace(cfg.ssm, intra_dtype="bfloat16"))
+    return cfg
+
+
+def _nbytes(x) -> int:
+    return 0 if x is None else x.numel() * x.element_size()
+
+
+def per_device_bytes(tree, specs, mesh) -> int:
+    """Bytes a device holds of `tree` under `specs`: each leaf's bytes
+    over the product of the mesh extents its spec uses. Raises on a spec
+    that does not fit its leaf (a mesh axis twice, a dim that does not
+    divide), as the reference's compile would."""
+    spec_of = dict(tree_leaves_with_paths(specs))
+    total = 0
+    for path, x in tree_leaves_with_paths(tree):
+        check_spec(spec_of[path], tuple(x.shape), mesh)
+        total += _nbytes(x) // spec_div(spec_of[path], mesh)
+    return total
+
+
+def micro_count(arch, batch, batch_div, opts) -> int:
+    n_micro = n_microbatches(arch, batch, batch_div)
+    if "micro_half" in opts:
+        n_micro = max(n_micro // 2, 1)
+    if "micro_quarter" in opts:
+        n_micro = max(n_micro // 4, 1)
+    if "micro_double" in opts:
+        n_micro = min(n_micro * 2, batch // batch_div)
+    return n_micro
+
+
+def step_opts(opts) -> frozenset:
+    flags = {"bf16_params": "bf16cast", "bf16_grads": "bf16grads"}
+    return frozenset(o for o, flag in flags.items() if flag in opts)
+
+
+def trace_train(model, optimizer, state, micro_batch, n_micro: int,
+                analyzer: OpAnalyzer, opts=frozenset()):
+    """One train step of `n_micro` microbatches as the analyzer counts
+    it: `micro_batch`'s loss and backward n_micro times, the gradient
+    norm and the update once. Runs on fake or real tensors."""
+    step = make_train_step(model, optimizer, 1, opts=step_opts(opts),
+                           micro_scope=lambda: analyzer.repeat(n_micro))
+    with analyzer:
+        return step(state, micro_batch, [1.0])
+
+
+def trace_decode(model, params, tokens, cache, analyzer: OpAnalyzer):
+    with analyzer, torch.no_grad():
+        return model.decode_step(params, tokens, cache)
+
+
+def trace_prefill(model, params, batch, seq, analyzer: OpAnalyzer):
+    with analyzer, torch.no_grad():
+        return model.prefill(params, batch, seq)
+
+
+_TRACES: dict = {}
+
+
+def cell(arch: str, shape_name: str, mesh_kind: str, device=None,
+         opts=frozenset(), verbose=True, reduced=False):
+    """(record, op log) of one cell, traced on fake tensors at full
+    width (or the arch's `reduced()` config) on `device` (None: cuda). A
+    trace is kept for the other meshes of the same step (prefill and
+    decode trace the global batch on every mesh)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    cfg = get_config(arch)
+    cfg = _apply_cfg_opts(cfg.reduced() if reduced else cfg, opts)
+    seq, batch, kind = SHAPES[shape_name]
+    mesh = MESHES[mesh_kind]
+    plan = make_plan(cfg, mesh, opts=frozenset(opts))
+    n_dev = mesh.size
+    dev = resolve_device(device)
+    model = model_lib.build(cfg)
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+           "n_devices": n_dev, "kind": kind, "seq": seq, "batch": batch,
+           "device": dev.type, "reduced": bool(reduced)}
+    memory = {}
+    with FakeTensorMode():
+        params = model.init(seed=0, device=dev)
+        axes = param_axes(cfg, params)
+        pspecs = plan.param_specs(params, axes)
+        memory["params"] = per_device_bytes(params, pspecs, mesh)
+        rec["n_params"] = sum(p.numel() for p in tree_leaves(params))
+        if kind == "train":
+            optimizer = make_optimizer(cfg)
+            opt_state = optimizer.init(params)
+            ospecs = optimizer.state_spec_tree(pspecs, params) \
+                if cfg.optimizer == "adafactor" \
+                else optimizer.state_spec_tree(pspecs)
+            memory["opt_state"] = per_device_bytes(opt_state, ospecs, mesh)
+            n_micro = micro_count(arch, batch, plan._batch_div(), opts)
+            gbatch = batch_struct(cfg, batch, seq, "train", dev)
+            memory["batch"] = per_device_bytes(
+                gbatch, plan.batch_spec(gbatch), mesh)
+            rec["n_micro"] = n_micro
+            rec["micro_batch"] = batch // n_micro
+            key = (arch, reduced, shape_name, tuple(sorted(opts)),
+                   batch // n_micro, n_micro, str(dev))
+            if key not in _TRACES:
+                an = OpAnalyzer()
+                state = TrainState(params, opt_state, torch.zeros(
+                    (), dtype=torch.int32, device=dev))
+                t0 = time.perf_counter()
+                trace_train(model, optimizer, state, batch_struct(
+                    cfg, batch // n_micro, seq, "train", dev), n_micro, an,
+                    opts)
+                _TRACES[key] = (list(an.records.items()),
+                                time.perf_counter() - t0)
+        else:
+            cache = model.init_cache(batch, seq, device=dev)
+            cspecs = plan.cache_spec_tree(cache, batch)
+            if kind == "prefill":
+                bstruct = batch_struct(cfg, batch, seq, "prefill", dev)
+                memory["batch"] = per_device_bytes(
+                    bstruct, plan.batch_spec(bstruct), mesh)
+                rec["output_cache_bytes"] = per_device_bytes(cache, cspecs,
+                                                             mesh)
+            else:
+                tokens = torch.zeros((batch, 1), dtype=torch.int32,
+                                     device=dev)
+                memory["cache"] = per_device_bytes(cache, cspecs, mesh)
+                memory["tokens"] = per_device_bytes(
+                    tokens, plan.batch_spec(tokens), mesh)
+            key = (arch, reduced, shape_name, tuple(sorted(opts)), batch, 1,
+                   str(dev))
+            if key not in _TRACES:
+                an = OpAnalyzer()
+                t0 = time.perf_counter()
+                if kind == "prefill":
+                    trace_prefill(model, params, bstruct, seq, an)
+                else:
+                    trace_decode(model, params, tokens, cache, an)
+                _TRACES[key] = (list(an.records.items()),
+                                time.perf_counter() - t0)
+    records, trace_s = _TRACES[key]
+    s = summary_of(records)
+    arg = sum(memory.values())
+    rec.update({
+        # per device: the trace's on one card, an even split on a mesh
+        "flops_per_device": s["dot_flops"] / n_dev,
+        "hbm_bytes_per_device": s["hbm_bytes"] / n_dev,
+        "collective_wire_bytes": s["wire_bytes"] if n_dev == 1 else None,
+        "collectives": s["collectives"],
+        "per_device": "trace" if n_dev == 1 else "even_split",
+        "flops_total": s["dot_flops"], "hbm_bytes_total": s["hbm_bytes"],
+        "memory": {"argument_bytes": arg, "argument_breakdown": memory,
+                   "temp_bytes": None},
+        "fits": arg <= HBM_CAPACITY_BYTES,
+        "hbm_capacity_bytes": HBM_CAPACITY_BYTES,
+        "model_flops": model_flops_analytic(cfg, shape_name),
+        "trace_s": trace_s,
+        "n_ops": sum(s["op_counts"].values()),
+        "flash_attention_entries": s["flash_attention_entries"],
+        "plan_notes": plan.notes,
+    })
+    if n_dev > 1:
+        rec["collective_reason"] = NO_COLLECTIVES
+    if verbose:
+        print(f"  {arch} {shape_name} {mesh_kind}: args/dev "
+              f"{arg / 2**30:.2f} GiB (fits {rec['fits']}), flops/dev "
+              f"{rec['flops_per_device']:.3e}, bytes/dev "
+              f"{rec['hbm_bytes_per_device']:.3e}, trace {trace_s:.1f} s")
+    return rec, log_of(records)
+
+
+def _tag(arch, shape_name, mesh_kind, suffix=""):
+    return f"{arch}__{shape_name}__{mesh_kind}{suffix}"
+
+
+def run_cell(arch, shape_name, mesh_kind, out_dir: Path, force=False,
+             tag_suffix="", opts=frozenset(), device=None, reduced=False):
+    """Write one cell's record (and its op log) under `out_dir`; a
+    failure is written as `<tag>.FAILED.json`. Returns (ok, record)."""
+    tag = _tag(arch, shape_name, mesh_kind, tag_suffix)
+    path = out_dir / f"{tag}.json"
+    if path.exists() and not force:
+        print(f"[skip-cached] {tag}")
+        return True, json.loads(path.read_text())
+    ok, reason = shape_applicable(arch, shape_name)
+    if not ok:
+        rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+               "skipped": True, "reason": reason}
+        path.write_text(json.dumps(rec, indent=1))
+        print(f"[skip] {tag}: {reason}")
+        return True, rec
+    print(f"[cell] {tag}")
+    try:
+        rec, log = cell(arch, shape_name, mesh_kind, device=device,
+                        opts=opts, reduced=reduced)
+    except Exception as e:
+        err = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+               "error": repr(e), "traceback": traceback.format_exc()}
+        (out_dir / f"{tag}.FAILED.json").write_text(json.dumps(err, indent=1))
+        print(f"[FAIL] {tag}: {e!r}")
+        return False, err
+    rec["opts"] = sorted(opts)
+    path.write_text(json.dumps(rec, indent=1))
+    with gzip.open(out_dir / f"{tag}.ops.json.gz", "wt") as f:
+        json.dump(log, f)
+    return True, rec
+
+
+def reanalyze(out_dir: Path):
+    """Cost the stored op logs again (no trace) and rewrite the
+    analyzer's fields of each record."""
+    for lp in sorted(out_dir.glob("*.ops.json.gz")):
+        jp = out_dir / (lp.name[: -len(".ops.json.gz")] + ".json")
+        if not jp.exists():
+            continue
+        rec = json.loads(jp.read_text())
+        with gzip.open(lp, "rt") as f:
+            s = summary_of(records_of(json.load(f)))
+        n = rec["n_devices"]
+        rec["flops_per_device"] = s["dot_flops"] / n
+        rec["hbm_bytes_per_device"] = s["hbm_bytes"] / n
+        rec["collective_wire_bytes"] = s["wire_bytes"] if n == 1 else None
+        rec["collectives"] = s["collectives"]
+        rec["flops_total"] = s["dot_flops"]
+        rec["hbm_bytes_total"] = s["hbm_bytes"]
+        rec["flash_attention_entries"] = s["flash_attention_entries"]
+        jp.write_text(json.dumps(rec, indent=1))
+        print(f"[reanalyzed] {jp.name}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="h100",
+                    choices=list(MESHES) + ["all"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--reanalyze", action="store_true",
+                    help="cost the stored op logs again")
+    ap.add_argument("--opt", default="", help=OPTS_HELP)
+    ap.add_argument("--out", default="artifacts/dryrun")
+    ap.add_argument("--device", default=None,
+                    help="the fake tensors' device (default cuda)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="each arch's reduced() config (a quick check)")
+    args = ap.parse_args(argv)
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if args.reanalyze:
+        reanalyze(out_dir)
+        return 0
+    meshes = list(MESHES) if args.mesh == "all" else [args.mesh]
+    archs = ALL_ARCHS if (args.all or not args.arch) else [args.arch]
+    shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
+    opts = set(o for o in args.opt.split(",") if o)
+    _apply_cfg_opts(get_config(archs[0]), opts)   # refuse bad options first
+    suffix = ("__opt-" + "-".join(sorted(opts))) if opts else ""
+    suffix += "__reduced" if args.reduced else ""
+    failures = 0
+    t0 = time.perf_counter()
+    for mesh_kind in meshes:
+        for arch in archs:
+            for shape_name in shapes:
+                ok, _ = run_cell(arch, shape_name, mesh_kind, out_dir,
+                                 force=args.force, tag_suffix=suffix,
+                                 opts=frozenset(opts), device=args.device,
+                                 reduced=args.reduced)
+                failures += not ok
+    print(f"done in {time.perf_counter() - t0:.1f} s; failures={failures}")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -45,3 +45,31 @@ def make_batch(cfg, batch: int, seq: int, kind: str, seed: int = 0,
     if kind == "train":
         out["labels"] = tok((batch, seq))
     return out
+
+
+def batch_struct(cfg, batch: int, seq: int, kind: str, device=None) -> dict:
+    """`make_batch`'s layout as zeros on `device`, with no draws: under
+    `FakeTensorMode` it allocates nothing (the dry run's inputs, as the
+    reference's `batch_struct` gives ShapeDtypeStructs)."""
+    dev = resolve_device(device)
+
+    def z(shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.vision is not None:
+        n_text = seq - cfg.vision.n_patches
+        out = {"patch_embeds": z((batch, cfg.vision.n_patches,
+                                  cfg.vision.embed_dim), torch.bfloat16),
+               "tokens": z((batch, n_text))}
+        if kind == "train":
+            out["labels"] = z((batch, n_text))
+        return out
+    if cfg.audio is not None:
+        out = {"frames": z((batch, seq, cfg.audio.frame_dim), torch.bfloat16)}
+        if kind == "train":
+            out["labels"] = z((batch, seq))
+        return out
+    out = {"tokens": z((batch, seq))}
+    if kind == "train":
+        out["labels"] = z((batch, seq))
+    return out

@@ -1,7 +1,6 @@
 """Runtime substrates of the port: telemetry, the Chronos StepGovernor
-and speculative host tasks; counterpart of `repro.runtime`. Its
-`elastic` (re-sharding a training state over a shrunk mesh) waits for
-the multi-card slice (ROADMAP.md).
+and speculative host tasks; counterpart of `repro.runtime`. `elastic`
+shrinks a mesh of ranks and re-shards a state onto the new plan.
 
 The governor and the runner resolve lazily: `obs.tail` imports this
 package's telemetry while `core` (which the governor needs) is still

@@ -1,0 +1,412 @@
+"""Sharding planner: logical-axis rules -> partition specs, per arch x
+mesh; counterpart of `repro.sharding.planner`.
+
+The rules are the reference's, copied: the production mesh is (16, 16)
+("data", "model") per pod, with a leading "pod" axis multi-pod, and an
+architecture that does not divide it falls back deterministically.
+
+Parameters (storage, ZeRO-3 style):
+  * logical rules: d_model -> data; ffn, experts, vocab, heads,
+    kv_heads, ssm_in, ssm_heads -> model, each only where the dim
+    divides the axis;
+  * greedy FSDP completion: a tensor of >= 2^16 elements with an unused
+    mesh axis gets its largest divisible unsharded dim sharded on it;
+  * tensors below 2^16 elements are replicated.
+  The reference judges size on its stacked leaf, layers included. The
+  port's leaves are one layer each, so size is the leaf's stack depth
+  (`models.param.param_axes`) times its elements; its specs are the
+  reference's less their leading "layers" entries (always None).
+
+Activations: batch -> ("pod", "data") where divisible; heads, ffn,
+experts -> "model" where divisible, else attention falls back to context
+parallelism (seq -> "model"). Decode caches: kv_heads -> "model" where
+divisible, else the cache's seq takes "model"; batch -> ("pod", "data")
+where divisible, else the seq also takes "data".
+
+A spec is a `Spec`: one entry a tensor dim, each a mesh-axis name, a
+tuple of names (one tensor dim over several mesh dims, outer first) or
+None. A mesh is anything with `axis_names` (or a `DeviceMesh`'s
+`mesh_dim_names`) and `shape`: `PlanMesh` plans with no devices, as the
+reference's tests plan on `FakeMesh`. `placements(spec, mesh)` turns a
+spec into DTensor placements over a `torch.distributed.DeviceMesh`.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+from dataclasses import dataclass, field
+from typing import Optional
+
+from ..ckpt.checkpoint import tree_map
+
+_SMALL = 1 << 16
+
+
+class Spec:
+    """A partition spec: `Spec("data", None)`, `Spec(("pod", "data"))`;
+    `Spec()` replicates. Compares equal to the tuple of its entries. Not
+    a tuple, so tree functions keep it whole as a leaf."""
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries):
+        self.entries = tuple(entries)
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return Spec(*self.entries[i])
+        return self.entries[i]
+
+    def __add__(self, other):
+        return Spec(*(self.entries + tuple(other)))
+
+    def __eq__(self, other):
+        if isinstance(other, Spec):
+            return self.entries == other.entries
+        if isinstance(other, tuple):
+            return self.entries == other
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(self.entries)
+
+    def __repr__(self):
+        return f"Spec{self.entries!r}"
+
+
+@dataclass(frozen=True)
+class PlanMesh:
+    """A mesh to plan on, with no devices: its extents and axis names."""
+    shape: tuple
+    axis_names: tuple
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def axis_names(mesh) -> tuple:
+    names = getattr(mesh, "axis_names", None)
+    if names is None:
+        names = mesh.mesh_dim_names
+    return tuple(names)
+
+
+def mesh_sizes(mesh) -> dict:
+    """{axis name: extent} of a `PlanMesh`, a `DeviceMesh` or any mesh
+    with names and a shape."""
+    return dict(zip(axis_names(mesh), tuple(mesh.shape)))
+
+
+def spec_div(spec, mesh) -> int:
+    """The number of pieces `spec` cuts a tensor into on `mesh`: the
+    product of the extents of the mesh axes it uses."""
+    sizes = mesh_sizes(mesh)
+    n = 1
+    for entry in spec:
+        for a in _flat(entry):
+            n *= sizes[a]
+    return n
+
+
+def _flat(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def check_spec(spec, shape, mesh):
+    """Raise unless `spec` fits `shape` on `mesh`: no mesh axis twice,
+    every sharded dim divisible by its mesh extents."""
+    sizes = mesh_sizes(mesh)
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than shape {shape}")
+    used = []
+    for dim, entry in zip(shape, spec):
+        flat = _flat(entry)
+        for a in flat:
+            if a in used:
+                raise ValueError(f"spec {spec}: mesh axis {a!r} twice")
+            used.append(a)
+        div = math.prod(sizes[a] for a in flat)
+        if dim % div:
+            raise ValueError(f"spec {spec}: dim {dim} of shape {shape} does "
+                             f"not divide {div}")
+
+
+def placements(spec, mesh) -> tuple:
+    """DTensor placements for `spec` on a `DeviceMesh`: per mesh dim,
+    `Shard(d)` where tensor dim d's entry names it, else `Replicate()`.
+    A tuple entry shards one dim over several mesh dims in the mesh's
+    order, outer first (as DTensor splits them)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = axis_names(mesh)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        idx = [names.index(a) for a in _flat(entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"placements: {entry} must list mesh axes "
+                             f"outer first, as the mesh {names} orders them")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"placements: mesh axis {names[i]!r} twice "
+                                 f"in {spec}")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+@dataclass
+class Plan:
+    mesh: object
+    cfg: object
+    param_rules: dict
+    act_rules: dict
+    batch_axes: tuple
+    context_parallel_attn: bool
+    notes: list = field(default_factory=list)
+    fsdp_axes: tuple = ("data", "model")
+
+    # ----- parameters -----
+    def spec_for(self, shape, leaf) -> Spec:
+        """The spec of one port leaf of `shape` with `leaf`
+        (`models.param.LeafAxes`): the reference's rule on the stacked
+        leaf, less its "layers" entries."""
+        shape = tuple(shape)
+        axes = leaf.axes
+        assert len(shape) == len(axes), (shape, axes)
+        n = leaf.depth * math.prod(shape) if shape else 0
+        if n < _SMALL:
+            return Spec()
+        sizes = mesh_sizes(self.mesh)
+        used, spec = set(), []
+        for dim, ax in zip(shape, axes):
+            mesh_ax = self.param_rules.get(ax)
+            if mesh_ax is not None and mesh_ax not in used and \
+                    dim % sizes[mesh_ax] == 0:
+                spec.append(mesh_ax)
+                used.add(mesh_ax)
+            else:
+                spec.append(None)
+        # greedy FSDP completion over unused axes, largest dim first
+        for mesh_ax in self.fsdp_axes:
+            if mesh_ax in used or mesh_ax not in sizes:
+                continue
+            order = sorted(range(len(shape)), key=lambda i: -shape[i])
+            for i in order:
+                if spec[i] is None and shape[i] % sizes[mesh_ax] == 0 \
+                        and shape[i] > 1:
+                    spec[i] = mesh_ax
+                    used.add(mesh_ax)
+                    break
+        return Spec(*spec)
+
+    def param_specs(self, params, axes=None):
+        """A `Spec` for every leaf of `params` (the init's layout; any
+        leaves with a shape, fake tensors too); `axes` defaults to
+        `param_axes(cfg, params)`."""
+        if axes is None:
+            from ..models.param import param_axes
+            axes = param_axes(self.cfg, params)
+        return tree_map(lambda p, a: self.spec_for(p.shape, a), params, axes)
+
+    def param_shardings(self, params, axes=None):
+        """DTensor placements for every leaf on the plan's `DeviceMesh`."""
+        return tree_map(lambda p, s: placements(s, self.mesh), params,
+                        self.param_specs(params, axes))
+
+    # ----- activations -----
+    def act_spec(self, logical: tuple) -> Spec:
+        """Resolve logical axes right to left, so that the innermost (TP)
+        dimension wins when two map to the same mesh axis."""
+        used: set = set()
+        resolved = [None] * len(logical)
+        for i in range(len(logical) - 1, -1, -1):
+            ax = self.act_rules.get(logical[i])
+            flat = ax if isinstance(ax, tuple) else (ax,)
+            if ax is not None and not (set(flat) & used):
+                resolved[i] = ax
+                used.update(flat)
+        return Spec(*resolved)
+
+    # ----- batches -----
+    def batch_spec(self, struct_tree):
+        """Shard dim 0 (the global batch) of every leaf over the batch
+        axes where it divides them."""
+        def spec(x):
+            if x.shape and x.shape[0] % self._batch_div() == 0:
+                return Spec(self.batch_axes)
+            return Spec()
+        return tree_map(spec, struct_tree)
+
+    def _batch_div(self):
+        sizes = mesh_sizes(self.mesh)
+        return math.prod(sizes[a] for a in self.batch_axes)
+
+    # ----- decode caches -----
+    def cache_spec_tree(self, cache_struct, batch_size: int):
+        """Specs for a decode cache (`Model.init_cache`'s layout, one
+        leaf a layer). kv caches are (batch, seq, kv_heads, head_dim),
+        ssm and conv states (batch, *state dims); the batch dim is the
+        first equal to `batch_size`, as in the reference, which looks
+        past its stacked leaves' leading layer dims."""
+        sizes = mesh_sizes(self.mesh)
+        batch_ok = batch_size % self._batch_div() == 0
+        kv_ok = (self.cfg.n_kv_heads or 0) % sizes["model"] == 0
+
+        def spec(x):
+            shape = tuple(x.shape)
+            if len(shape) == 1:  # lengths
+                return Spec(self.batch_axes if batch_ok else None)
+            spec_l = [None] * len(shape)
+            try:
+                b_i = next(i for i, d in enumerate(shape) if d == batch_size)
+            except StopIteration:
+                return Spec()
+            if batch_ok:
+                spec_l[b_i] = self.batch_axes
+            is_kv = len(shape) >= b_i + 4 and \
+                shape[b_i + 2] == self.cfg.n_kv_heads and \
+                shape[b_i + 3] == self.cfg.head_dim
+            if is_kv:
+                if kv_ok:
+                    spec_l[b_i + 2] = "model"
+                    if not batch_ok:
+                        spec_l[b_i + 1] = "data"
+                else:
+                    spec_l[b_i + 1] = ("data", "model") if not batch_ok \
+                        else "model"
+            else:
+                # state tensors: shard the largest divisible trailing dim
+                for i in range(len(shape) - 1, b_i, -1):
+                    if shape[i] % sizes["model"] == 0 and \
+                            shape[i] >= sizes["model"]:
+                        spec_l[i] = "model"
+                        break
+            return Spec(*spec_l)
+
+        return tree_map(spec, cache_struct)
+
+
+def make_plan(cfg, mesh, opts: frozenset = frozenset()) -> Plan:
+    sizes = mesh_sizes(mesh)
+    model_n = sizes["model"]
+    batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    notes = []
+
+    def div(n, label):
+        ok = n > 0 and n % model_n == 0
+        if not ok and n > 0:
+            notes.append(f"{label}={n} does not divide model axis {model_n}")
+        return ok
+
+    heads_ok = div(cfg.n_heads, "q_heads")
+    kv_ok = div(cfg.n_kv_heads, "kv_heads")
+    cp_attn = not heads_ok and cfg.family != "ssm" and cfg.n_heads > 0
+    if cp_attn:
+        notes.append("attention falls back to context parallelism "
+                     "(seq->model)")
+
+    d_inner = (cfg.ssm.expand * cfg.d_model) if cfg.ssm else 0
+    ssm_heads = (d_inner // cfg.ssm.head_dim) if cfg.ssm else 0
+
+    param_rules = {
+        "layers": None, "conv": None, "head_dim": None, "patch": None,
+        "ssm_bc": None, "ssm_state": None,
+        "d_model": "data",
+        "ffn": "model",
+        "e_ffn": None,               # experts take "model"; d_model "data"
+        "heads": "model" if heads_ok else None,
+        "kv_heads": "model" if kv_ok else None,
+        "vocab": "model",
+        "experts": "model",
+        "ssm_in": "model" if div(d_inner, "d_inner") else None,
+        "ssm_heads": "model" if div(ssm_heads, "ssm_heads") else None,
+    }
+    ep_data = "ep_data" in opts and cfg.moe is not None
+    if ep_data:
+        # token-moving expert parallelism: experts on the data axis (an
+        # all-to-all routes tokens), the per-expert hidden on model
+        param_rules["experts"] = "data"
+        param_rules["e_ffn"] = "model"
+
+    act_rules = {
+        "batch": batch_axes,
+        "seq": "model" if cp_attn else None,
+        "heads": "model" if heads_ok else None,
+        "kv_heads": "model" if kv_ok else None,
+        "ffn": "model",
+        "experts": "data" if ep_data else "model",
+        "vocab": "model",
+        "d_model": None,
+        "ssm_heads": "model" if div(ssm_heads, "") else None,
+        "ssm_in": "model" if div(d_inner, "") else None,
+        None: None,
+    }
+
+    fsdp_axes = ("data", "model")
+    if "pod_fsdp" in opts and "pod" in sizes:
+        # ZeRO-3 across pods too: halves each card's parameter and
+        # optimizer state, at the price of gathers across pods
+        fsdp_axes = ("pod",) + fsdp_axes
+        notes.append("pod_fsdp: parameter storage sharded across pods")
+    return Plan(mesh=mesh, cfg=cfg, param_rules=param_rules,
+                act_rules=act_rules, batch_axes=batch_axes,
+                context_parallel_attn=cp_attn, notes=notes,
+                fsdp_axes=fsdp_axes)
+
+
+# ---------------------------------------------------------------------------
+# Activation-constraint context (`constrain` by logical axes)
+# ---------------------------------------------------------------------------
+
+_ctx = threading.local()
+
+
+@contextlib.contextmanager
+def plan_context(plan: Plan):
+    """Make `plan` current in this thread (and its `DeviceMesh` the
+    current mesh, where it is one)."""
+    prev = getattr(_ctx, "plan", None)
+    _ctx.plan = plan
+    enter = getattr(plan.mesh, "__enter__", None)
+    try:
+        if enter is None:
+            yield plan
+        else:
+            with plan.mesh:
+                yield plan
+    finally:
+        _ctx.plan = prev
+
+
+def current_plan() -> Optional[Plan]:
+    return getattr(_ctx, "plan", None)
+
+
+def constrain(x, logical: tuple):
+    """Redistribute a DTensor to the current plan's spec for its logical
+    axes; `x` itself outside a plan or when it is not a DTensor. Axes
+    whose dim does not divide the mesh extent are dropped (batch-1
+    decode, seq 1)."""
+    plan = current_plan()
+    if plan is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    sizes = mesh_sizes(plan.mesh)
+    spec = list(plan.act_spec(logical))
+    for i, ax in enumerate(spec):
+        if ax is None:
+            continue
+        div = math.prod(sizes[a] for a in _flat(ax))
+        if x.shape[i] % div:
+            spec[i] = None
+    return x.redistribute(x.device_mesh, placements(Spec(*spec),
+                                                    x.device_mesh))

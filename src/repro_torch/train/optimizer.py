@@ -88,6 +88,15 @@ class AdamW:
         tree_map(leaf, grads, params, state.m, state.v, state.master)
         return params, AdamWState(step, state.m, state.v, state.master)
 
+    def state_spec_tree(self, param_specs):
+        """Partition specs of the state given the parameters' (the
+        reference's: m, v and master take their parameter's spec; an
+        f32 parameter's master is None in the state, and its spec goes
+        unused)."""
+        from ..sharding.planner import Spec
+        return AdamWState(step=Spec(), m=param_specs, v=param_specs,
+                          master=param_specs)
+
 
 class Adafactor:
     """Factored second-moment optimizer (Shazeer & Stern, 2018), no
@@ -180,6 +189,28 @@ class Adafactor:
             p32 = p.to(torch.float32)
             p.copy_(p32 - lr * (u + self.wd * p32))
         return params, AdafactorState(step, state.vr, state.vc, state.v)
+
+    def state_spec_tree(self, param_specs, params_struct):
+        """Partition specs of the state given the parameters' specs and
+        shapes (the reference's rule): a factored leaf's row statistics
+        drop the last dim's entry, its column statistics the
+        second-to-last; the 0-dim placeholders replicate."""
+        from ..sharding.planner import Spec
+
+        def vr_spec(p, spec):
+            return spec[:-1] if self._factored(p) else Spec()
+
+        def vc_spec(p, spec):
+            return spec[:-2] + spec[-1:] if self._factored(p) else Spec()
+
+        def v_spec(p, spec):
+            return Spec() if self._factored(p) else spec
+
+        return AdafactorState(
+            step=Spec(),
+            vr=tree_map(vr_spec, params_struct, param_specs),
+            vc=tree_map(vc_spec, params_struct, param_specs),
+            v=tree_map(v_spec, params_struct, param_specs))
 
 
 def make_optimizer(cfg, lr=1e-3, weight_decay=0.0):

@@ -20,6 +20,7 @@ the compute copies, added into an accumulator of their type.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -36,9 +37,12 @@ class TrainState(NamedTuple):
 
 def make_train_step(model, optimizer, n_micro: int, lr_schedule=None,
                     opts: frozenset = frozenset(), grad_specs=None,
-                    mesh=None):
+                    mesh=None, micro_scope=contextlib.nullcontext):
     """Returns train_step(state, batch, shard_mask) -> (state, metrics);
     the parameters and the optimizer state are updated in place.
+    `micro_scope()` is entered around each microbatch's forward,
+    backward and accumulation (the dry run counts one microbatch as
+    many; `launch/op_analyzer.py`).
 
     opts:
       "bf16_params"  cast f32 parameters of 2 or more dims to bf16 once a
@@ -74,10 +78,11 @@ def make_train_step(model, optimizer, n_micro: int, lr_schedule=None,
             p.grad = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
         for i in range(n_micro):
-            mb = {k: x[i] for k, x in micro.items()}
-            loss, _ = model.loss_fn(params, mb)
-            (mask[i] * loss).backward()
-            loss_sum = loss_sum + mask[i] * loss.detach()
+            with micro_scope():
+                mb = {k: x[i] for k, x in micro.items()}
+                loss, _ = model.loss_fn(params, mb)
+                (mask[i] * loss).backward()
+                loss_sum = loss_sum + mask[i] * loss.detach()
         # a leaf the loss does not use (audio's `embed`) gets no .grad;
         # jax.grad gives it zeros, and so does this
         grads = [torch.zeros_like(p) if p.grad is None else p.grad.div_(denom)
@@ -101,13 +106,14 @@ def make_train_step(model, optimizer, n_micro: int, lr_schedule=None,
                for p in leaves]
         loss_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
         for i in range(n_micro):
-            mb = {k: x[i] for k, x in micro.items()}
-            loss, _ = model.loss_fn(cparams, mb)
-            gs = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                     materialize_grads=True)
-            for a, g in zip(acc, gs):
-                a.add_((mask[i] * g.to(torch.float32)).to(acc_dt))
-            loss_sum = loss_sum + mask[i] * loss.detach()
+            with micro_scope():
+                mb = {k: x[i] for k, x in micro.items()}
+                loss, _ = model.loss_fn(cparams, mb)
+                gs = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                         materialize_grads=True)
+                for a, g in zip(acc, gs):
+                    a.add_((mask[i] * g.to(torch.float32)).to(acc_dt))
+                loss_sum = loss_sum + mask[i] * loss.detach()
         return loss_sum, [a.to(torch.float32) / denom for a in acc]
 
     def train_step(state: TrainState, batch, shard_mask):
