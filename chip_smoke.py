@@ -427,15 +427,38 @@ Phases; each raises on failure, so any failure exits non-zero:
    `card_mesh()` over NCCL: gemma2-2b's full-width parameters placed
    with the (1, 1) plan and re-sharded onto a fresh plan, every leaf
    placed as planned and bit-equal to the original; the process group
-   destroyed. The script's total time is printed before the JSON lines.
+   destroyed.
 
-The last lines are the planner JSON (phase 20), the training-families
+21. the fleet on a mesh of several points (`fleet.fleet_mesh`), each run
+   bit-equal to the same call without a mesh (pocd, mean_cost, job_met,
+   job_completion, job_cost, r*, the theory columns; in (b) also the
+   queue and capacity metrics), its outputs on the mesh's first point,
+   the caller's current device unchanged after it, and each point's
+   launches by kernel counted (PointCounts; every point launches
+   philox_rows, and dispatch_scan in (b); the grid solve only on the
+   first point): (a) `run_all_fleet` over every strategy on phase 10c's
+   100,000 paper-hadoop jobs in chunks of 8,192, reps 3, on (2, 2) and
+   (1, 4) meshes laid on cuda:0; with two cards or more also on (1, k)
+   over k = min(4, cards) distinct cards (one card: printed as not run);
+   (b) `run_cluster_fleet` on the paper trace, 500 slots, FIFO, windows
+   of 675 jobs, reps 3, collect_metrics, on (2, 2); (c) `run_serve` over
+   request-storm's 20,000 requests, window 254 (256 on the mesh), on
+   (1, 4), known tail and online; (d) `run_fleet_strategy[sresume]` on
+   eight points, reps 2, with a device loss of ids (3, 6) at chunk 1
+   and of 2 points at chunk 2 and a crash after chunk 2, then resumed:
+   the records `alive=6` and `alive=4`, an ElasticGovernor(alpha=0)'s
+   history of both, and the fault-free eight-point run's bits. Each
+   run's wall beside its wall without a mesh (one card: no speedup is
+   expected). The script's total time is printed before the JSON lines.
+
+The last lines are the mesh JSON (phase 21), the planner JSON (phase 20),
+the training-families
 JSON (phase 19), the ssm JSON
 (phase 18), the families JSON (phase 17), the training JSON (phase 16),
 the chaos JSON (phases 10e and 10f), the serving JSON (phase 10d), the
 fleet JSON (phase 10c), the cluster JSON (phase 10b), the scenarios JSON
 (phases 6-10), the kernels JSON, the card line and the result JSON; each
-of the first nine and the kernels JSON is also written under
+of the first ten and the kernels JSON is also written under
 `chiprun_out/`.
 The script needs one CUDA card and exits non-zero without one.
 """
@@ -489,6 +512,8 @@ from repro_torch.coupled import (repair_independent,  # noqa: E402
 from repro_torch.fleet import blocks as fleet_blocks  # noqa: E402
 from repro_torch.fleet import runner as fleet_runner  # noqa: E402
 from repro_torch.fleet import run_fleet_strategy  # noqa: E402
+from repro_torch.fleet import (fleet_mesh, run_all_fleet,  # noqa: E402
+                               run_cluster_fleet)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import dispatch_scan as ds  # noqa: E402
 from repro_torch.kernels import grid_solve as gs  # noqa: E402
@@ -513,6 +538,7 @@ from repro_torch.train.trainer import to_host  # noqa: E402
 from repro_torch.serve import (make_requests, run_serve,  # noqa: E402
                                serve_trace)
 from repro_torch.serve import loop as serve_loop  # noqa: E402
+from repro_torch.serve import scheduler as serve_scheduler  # noqa: E402
 from repro_torch.sim.draws import (DRAW_NAMES, FLEET_TAG,  # noqa: E402
                                    SERVE_TAG, WorkloadPhilox)
 from repro_torch.sim.metrics import aggregate, class_summary  # noqa: E402
@@ -6142,6 +6168,323 @@ def phase_planner(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the fleet on a mesh of several points
+# ---------------------------------------------------------------------------
+
+MESH_REPS = 3                      # pads the "rep" axis on (2, 2)
+MESH_FLAT_SHAPES = ((2, 2), (1, 4))
+MESH_CAPACITY_SHAPE = (2, 2)
+MESH_SERVE_SHAPE = (1, 4)
+MESH_SERVE_WINDOW = 254            # padded to 256 on the (1, 4) mesh
+MESH_CHAOS_POINTS, MESH_CHAOS_REPS = 8, 2
+MESH_LOSS_PLAN = FaultPlan(events=(
+    FaultEvent("device_loss", 1, device_ids=(3, 6)),
+    FaultEvent("device_loss", 2, 2),
+    FaultEvent("crash", 2)))
+MESH_LOSS_RECORDS = ["failed=[3, 6] alive=6", "failed=[5, 7] alive=4"]
+
+
+class PointCounts:
+    """The kernel launches of a mesh run by mesh point. A path calls its
+    per-point work in point order (the flat fleet's `_exec_blocks` and
+    serving's `_serve_lanes` once a point a chunk or window, the capacity
+    fleet's `engine._replay` once a point a round), so the k-th such call
+    is point k mod the mesh's size: philox_rows launches count to the
+    point whose call draws them (the capacity fleet draws a group's
+    tables just before its `_replay`), dispatch_scan launches to the
+    point whose replay makes them, grid-solve launches to the first
+    point, where every solve must run (checked by device)."""
+
+    def __init__(self, mesh):
+        self.mesh, self.calls, self.current, self.pending = mesh, 0, 0, 0
+        self.philox = [0] * mesh.size
+        self.dispatch = [0] * mesh.size
+        self.grid = 0
+
+    def _point(self) -> int:
+        k = self.calls % self.mesh.size
+        self.calls += 1
+        return k
+
+    @contextlib.contextmanager
+    def counting(self, path: str):
+        saved = (fleet_runner._exec_blocks, cluster_engine._replay,
+                 serve_scheduler._serve_lanes, ph.philox_rows_cuda,
+                 ds.dispatch_scan_batched_cuda, gs.grid_solve_cuda)
+        exec_blocks, replay_, lanes, philox, dispatch, grid = saved
+
+        def per_point(inner):
+            def call(*a, **k):
+                self.current = self._point()
+                return inner(*a, **k)
+            return call
+
+        def replay_point(*a, **k):
+            self.current = self._point()
+            self.philox[self.current] += self.pending
+            self.pending = 0
+            return replay_(*a, **k)
+
+        def philox_counted(*a, **k):
+            if path == "capacity":
+                self.pending += 1
+            else:
+                self.philox[self.current] += 1
+            return philox(*a, **k)
+
+        def dispatch_counted(*a, **k):
+            self.dispatch[self.current] += 1
+            return dispatch(*a, **k)
+
+        def grid_counted(spec, job, r_max):
+            if job.t_min.device != self.mesh.devices[0]:
+                raise AssertionError(f"mesh: a grid solve on "
+                                     f"{job.t_min.device}, not the first "
+                                     f"point {self.mesh.devices[0]}")
+            self.grid += 1
+            return grid(spec, job, r_max)
+
+        fleet_runner._exec_blocks = per_point(exec_blocks)
+        cluster_engine._replay = replay_point
+        serve_scheduler._serve_lanes = per_point(lanes)
+        ph.philox_rows_cuda = philox_counted
+        ds.dispatch_scan_batched_cuda = dispatch_counted
+        gs.grid_solve_cuda = grid_counted
+        try:
+            yield self
+        finally:
+            (fleet_runner._exec_blocks, cluster_engine._replay,
+             serve_scheduler._serve_lanes, ph.philox_rows_cuda,
+             ds.dispatch_scan_batched_cuda, gs.grid_solve_cuda) = saved
+        if self.pending:
+            raise AssertionError(f"mesh {path}: {self.pending} draws after "
+                                 f"the last replay")
+
+    def by_point(self, kernels) -> list:
+        out = []
+        for k, d in enumerate(self.mesh.devices):
+            row = dict(point=k, id=self.mesh.ids[k], device=str(d),
+                       philox_rows=self.philox[k])
+            if "dispatch_scan" in kernels:
+                row["dispatch_scan"] = self.dispatch[k]
+            row["grid_solve"] = self.grid if k == 0 else 0
+            out.append(row)
+        for row in out:
+            for name in kernels:
+                if name != "grid_solve" and row[name] == 0:
+                    raise AssertionError(f"mesh point {row['point']} "
+                                         f"launched no {name}: {out}")
+        if "grid_solve" in kernels and self.grid == 0:
+            raise AssertionError("mesh: no grid-solve launch")
+        return out
+
+
+def mesh_same_bits(got: dict, want: dict, what: str, queue=False) -> None:
+    """Every strategy's pocd, mean_cost, per-job columns, r* and theory
+    columns (and the queue and capacity metrics) bit for bit."""
+    if list(got) != list(want):
+        raise AssertionError(f"{what}: strategies {list(got)}")
+    for name, o in got.items():
+        w = want[name]
+        pairs = [(f, getattr(o.result, f), getattr(w.result, f))
+                 for f in ("pocd", "mean_cost", "job_met", "job_completion",
+                           "job_cost")]
+        pairs += [(f, getattr(o, f), getattr(w, f)) for f in (
+            "r_opt", "utility", "theory_pocd", "theory_cost")
+            if hasattr(o, f)]
+        if queue:
+            pairs += [(f"queue.{f}", getattr(o.queue, f),
+                       getattr(w.queue, f))
+                      for f in o.queue._fields if f != "slots"]
+            pairs += [(f"metrics.{f}", to_host(getattr(o.metrics, f)),
+                       to_host(getattr(w.metrics, f)))
+                      for f in o.metrics._fields]
+        for f, x, y in pairs:
+            same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                    else np.array_equal(np.asarray(x), np.asarray(y)))
+            if not same:
+                raise AssertionError(f"{what} {name}: {f} differs")
+
+
+def on_first_point(outs: dict, mesh, what: str) -> None:
+    for name, o in outs.items():
+        if o.result.job_met.device != mesh.devices[0]:
+            raise AssertionError(f"{what} {name}: outputs on "
+                                 f"{o.result.job_met.device}, not the first "
+                                 f"point {mesh.devices[0]}")
+    if torch.cuda.current_device() != 0:
+        raise AssertionError(f"{what}: the current device moved to "
+                             f"{torch.cuda.current_device()}")
+
+
+def mesh_run(label: str, mesh, run, want, want_wall: float, path: str,
+             kernels, queue=False) -> dict:
+    """One run on `mesh`, counted by point, held bit for bit against the
+    run without a mesh: its row of the phase's JSON."""
+    pc = PointCounts(mesh)
+    with pc.counting(path):
+        (got, r_min), wall = synced(run)
+    mesh_same_bits(got, want[0], label, queue)
+    if r_min != want[1]:
+        raise AssertionError(f"{label}: r_min {r_min} against {want[1]}")
+    on_first_point(got, mesh, label)
+    points = pc.by_point(kernels)
+    print(f"  {label}: {mesh.rep_extent} x {mesh.job_extent} on "
+          f"{sorted({str(d) for d in mesh.devices})}: wall {wall:.3f} s "
+          f"against {want_wall:.3f} s without a mesh; the same bits; "
+          f"launches by point " + "; ".join(
+              f"{r['point']}: " + ", ".join(f"{k} {r[k]}" for k in kernels)
+              for r in points))
+    return dict(shape=[mesh.rep_extent, mesh.job_extent],
+                devices=[str(d) for d in mesh.devices], wall_s=wall,
+                no_mesh_wall_s=want_wall, launches_by_point=points)
+
+
+def mesh_launches(mesh_out: dict, name: str) -> dict:
+    """{run: [launches of kernel `name` at each point]} over phase 21's
+    counted runs that launch it."""
+    runs = {f"flat {r['shape']} on {len(set(r['devices']))} card(s)": r
+            for r in mesh_out["flat"]["runs"]}
+    runs["capacity"] = mesh_out["capacity"]["run"]
+    for regime in ("known_tail", "online"):
+        runs[f"serving {regime}"] = mesh_out["serving"][regime]
+    return {label: [pt[name] for pt in r["launches_by_point"]]
+            for label, r in runs.items()
+            if name in r["launches_by_point"][0]}
+
+
+def phase_mesh(dev, p: SimParams) -> dict:
+    """The fleet on a mesh (phase 21): (a) the flat fleet, (b) the
+    capacity fleet, (c) serving, (d) a device loss across a crash and a
+    resume; every run bit-equal to its run without a mesh."""
+    t_phase = time.perf_counter()
+    card0 = (torch.device("cuda", torch.cuda.current_device())
+             if dev.type == "cuda" else dev)
+    on_card = lambda n: [card0] * n
+    out = {"cards": torch.cuda.device_count()}
+    flat_k = ("grid_solve", "philox_rows")
+
+    # (a) the flat fleet over phase 10c's trace, in chunks
+    tr = make_trace("paper-hadoop", n_jobs=FLEET_JOBS, device=dev)
+    kw = dict(theta=THETA, reps=MESH_REPS, block_jobs=FLEET_BLOCK,
+              chunk_jobs=FLEET_CHUNK, device=dev)
+    want, wall0 = synced(lambda: run_all_fleet(Philox(0), tr, p, **kw))
+    print(f"phase 21 (a): run_all_fleet on {FLEET_JOBS} paper-hadoop jobs "
+          f"in chunks of {FLEET_CHUNK}, reps {MESH_REPS}, every strategy")
+    flat = []
+    for shape in MESH_FLAT_SHAPES:
+        mesh = fleet_mesh(shape=shape, device=on_card(4))
+        flat.append(mesh_run(
+            f"flat {shape}", mesh,
+            lambda: run_all_fleet(Philox(0), tr, p, mesh=mesh, **kw), want,
+            wall0, "flat", flat_k))
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        k = min(4, n_cards)
+        mesh = fleet_mesh(shape=(1, k))
+        flat.append(mesh_run(
+            f"flat (1, {k}) on distinct cards", mesh,
+            lambda: run_all_fleet(Philox(0), tr, p, mesh=mesh, **kw), want,
+            wall0, "flat", flat_k))
+    else:
+        print("  one card is visible: the flat fleet over distinct cards "
+              "was not run")
+    out["flat"] = dict(jobs=FLEET_JOBS, chunk_jobs=FLEET_CHUNK,
+                       reps=MESH_REPS, runs=flat,
+                       distinct_cards_run=n_cards >= 2)
+
+    # (b) the capacity fleet, windowed, on the paper trace
+    jobs = generate(2700, seed=0, device=dev)
+    ckw = dict(theta=THETA, slots=CLUSTER_SLOTS, discipline="fifo",
+               reps=MESH_REPS, chunk_jobs=FLEET_WINDOW, collect_metrics=True,
+               device=dev)
+    cwant, cwall0 = synced(lambda: run_cluster_fleet(Philox(0), jobs, p,
+                                                     **ckw))
+    print(f"phase 21 (b): run_cluster_fleet on {jobs.n_jobs} jobs, "
+          f"{CLUSTER_SLOTS} slots, FIFO, windows of {FLEET_WINDOW}, reps "
+          f"{MESH_REPS}, collect_metrics")
+    mesh = fleet_mesh(shape=MESH_CAPACITY_SHAPE, device=on_card(4))
+    out["capacity"] = dict(
+        jobs=jobs.n_jobs, slots=CLUSTER_SLOTS, window_jobs=FLEET_WINDOW,
+        reps=MESH_REPS, run=mesh_run(
+            f"capacity {MESH_CAPACITY_SHAPE}", mesh,
+            lambda: run_cluster_fleet(Philox(0), jobs, p, mesh=mesh, **ckw),
+            cwant, cwall0, "capacity",
+            ("grid_solve", "philox_rows", "dispatch_scan"), queue=True))
+
+    # (c) serving, the window padded to the "job" extent on the mesh
+    reqs = make_requests(SERVING["scenario"], device=dev)
+    print(f"phase 21 (c): run_serve on {reqs.n_requests} "
+          f"{SERVING['scenario']} requests, window {MESH_SERVE_WINDOW}")
+    out["serving"] = {"requests": reqs.n_requests,
+                      "window": MESH_SERVE_WINDOW}
+    mesh = fleet_mesh(shape=MESH_SERVE_SHAPE, device=on_card(4))
+    for regime, rkw in (("known_tail", {}),
+                        ("online", dict(
+                            refit_every=SERVING["refit_every"],
+                            probe_every=SERVING["probe_every"]))):
+        skw = dict(window=MESH_SERVE_WINDOW, device=dev, **rkw)
+        swant, swall0 = synced(lambda: run_serve(Philox(0), reqs, p, **skw))
+        got = mesh_run(
+            f"serving {regime} {MESH_SERVE_SHAPE}", mesh,
+            lambda: run_serve(Philox(0), reqs, p, mesh=mesh, **skw), swant,
+            swall0, "serving", flat_k)
+        out["serving"][regime] = got
+
+    # (d) a device loss on eight points across a crash and a resume
+    mesh = fleet_mesh(devices=MESH_CHAOS_POINTS, reps=MESH_CHAOS_REPS,
+                      device=on_card(MESH_CHAOS_POINTS))
+    dkw = dict(theta=THETA, r_min=want[1], reps=MESH_CHAOS_REPS,
+               block_jobs=FLEET_BLOCK, chunk_jobs=FLEET_CHUNK, device=dev)
+    one = lambda m, **x: run_fleet_strategy(Philox(0), tr, "sresume", p,
+                                            mesh=m, **dkw, **x)
+    no_mesh, dwall0 = synced(lambda: one(None))
+    base, dwall = synced(lambda: one(mesh))
+    mesh_same_bits({"sresume": base}, {"sresume": no_mesh}, "chaos base")
+    gov = ElasticGovernor(alpha=0.0)     # its history; the price stays
+    ctx = ChaosContext(MESH_LOSS_PLAN, governor=gov)
+    gs.launches = ph.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        try:
+            one(mesh, chaos=ctx, checkpoint=d)
+            raise AssertionError("mesh chaos: the run did not crash")
+        except SimulatedCrash as err:
+            if err.chunk != 2:
+                raise AssertionError(f"mesh chaos: crashed after chunk "
+                                     f"{err.chunk}") from err
+        losses = [x for _, k, x in ctx.records if k == "device_loss"]
+        if losses != MESH_LOSS_RECORDS:
+            raise AssertionError(f"mesh chaos: records {ctx.records}")
+        if gov.history != [(1, 6, 1.0), (2, 4, 1.0)]:
+            raise AssertionError(f"mesh chaos: governor history "
+                                 f"{gov.history}")
+        resumed = one(mesh, chaos=ChaosContext(MESH_LOSS_PLAN),
+                      checkpoint=d, resume=True)
+        torch.cuda.synchronize()
+        crash_resume_s = time.perf_counter() - t0
+    mesh_same_bits({"sresume": resumed}, {"sresume": base},
+                   "chaos resumed vs fault-free")
+    on_first_point({"sresume": resumed}, mesh, "chaos resumed")
+    print(f"phase 21 (d): run_fleet_strategy[sresume] on {mesh.size} points "
+          f"{mesh.rep_extent} x {mesh.job_extent}, reps {MESH_CHAOS_REPS}: "
+          f"{'; '.join(losses)}, crash after chunk 2, resumed: the bits of "
+          f"the eight-point run without faults (wall {dwall:.3f} s; without "
+          f"a mesh {dwall0:.3f} s, the same bits); governor history "
+          f"{gov.history}; crash and resume {crash_resume_s:.3f} s, "
+          f"{gs.launches} grid-solve and {ph.launches} philox_rows "
+          f"launches")
+    out["chaos"] = dict(
+        points=mesh.size, reps=MESH_CHAOS_REPS, records=ctx.records,
+        governor_history=gov.history, wall_s=dwall, no_mesh_wall_s=dwall0,
+        crash_and_resume_s=crash_resume_s,
+        launches=dict(grid_solve=gs.launches, philox_rows=ph.launches))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 21: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -6264,6 +6607,7 @@ def main() -> None:
     ssm = phase_ssm(dev)
     train_families = phase_train_families(dev)
     planner = phase_planner(dev)
+    mesh = phase_mesh(dev, p)
 
     # last: a profiler session this large can cost the next session its
     # first kernel records, and kernel_ms counts every launch
@@ -6588,8 +6932,16 @@ def main() -> None:
         launches_serve_launcher=train_families["serve_launcher"]["counts"][
             "philox_rows"],
         check=philox_check))
+    # phase 21: each mesh run's launches by point, counted from 0
+    for k in kernels:
+        if k["name"] in ("grid_solve", "philox_rows", "dispatch_scan"):
+            k["launches_mesh"] = mesh_launches(mesh, k["name"])
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
+    mesh_line = json.dumps({"mesh": mesh})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "mesh.json").write_text(mesh_line)
+    print(mesh_line)
     planner_line = json.dumps({"planner": planner})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "planner.json").write_text(planner_line)

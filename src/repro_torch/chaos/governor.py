@@ -19,10 +19,10 @@ precomputed for every chunk boundary when the context binds, so a
 resumed run rebuilds the same trajectory without replaying events.
 
 `ElasticGovernor` may compose an `obs.tail.TailGovernor`: on a capacity
-event it re-prices the tail governor and re-solves, so `decision`
-carries the (strategy, r*) switch. On the port's one card no capacity
-event reaches it (`ChaosContext.begin_chunk` records `device_loss` as
-ignored); the schedule still re-prices the chunks.
+event (`ChaosContext.begin_chunk` shrinking a fleet mesh) it re-prices
+the tail governor and re-solves, so `decision` carries the (strategy, r*)
+switch. A run without a mesh records `device_loss` as ignored and fires
+no event; the schedule still re-prices its chunks.
 """
 from __future__ import annotations
 
@@ -43,8 +43,8 @@ class ElasticGovernor:
                   re-solve on every capacity event.
     min_alive:    the fewest devices a loss can leave.
     base_devices: the logical base capacity; None prices against the
-                  run's own mesh. Setting it lets one card price losses
-                  against the cluster the plan models.
+                  run's own mesh. Setting it lets a small host price
+                  losses against the cluster the plan models.
     """
     alpha: float = 1.0
     tail: Optional[object] = None

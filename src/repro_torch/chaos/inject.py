@@ -4,8 +4,8 @@ counterpart of `repro.chaos.inject`.
 The fleet chunk loops (`fleet/runner.py`, `fleet/cluster.py`) consult one
 `ChaosContext` a run at three points, all on the host:
 
-    begin_chunk(ci, mesh)  -> the mesh to run chunk ci on (device_loss,
-                              recorded as ignored on one card)
+    begin_chunk(ci, mesh)  -> the mesh to run chunk ci on (device_loss
+                              shrinks it)
     execute(ci, thunk)     -> retry and backoff around the chunk's launches
                               (chunk_fail injection, corruption detection)
     maybe_crash(ci)        -> raises SimulatedCrash after chunk ci's
@@ -102,6 +102,14 @@ def _has_nan(tree) -> bool:
     return bool(torch.stack(flags).any()) if flags else False
 
 
+def _failed_ids(event, mesh) -> tuple:
+    """The point ids a device_loss event fails: its explicit ids, or else
+    the trailing `count` points of the current grid."""
+    if event.device_ids:
+        return tuple(event.device_ids)
+    return tuple(mesh.ids[-event.count:])
+
+
 class ChaosContext:
     """One run's fault-injection state machine (see the module doc).
 
@@ -173,14 +181,32 @@ class ChaosContext:
 
     def begin_chunk(self, ci: int, mesh, reps: int):
         """Apply this boundary's device-loss events; returns the mesh to
-        run chunk ci on. The port runs on one card (`fleet.mesh.
-        check_mesh`), so nothing shrinks: each event is recorded as
-        ignored (the plan stays portable across hosts), no governor hook
-        fires, and the governor's precomputed schedule still re-prices.
-        Shrinking waits for the fleet over several cards (ROADMAP A
-        item 11)."""
-        for _ in self.plan.at(ci, "device_loss"):
-            self._record(ci, "device_loss", "ignored: single-device run")
+        run chunk ci on: the mesh shrunk over the surviving points
+        (`fleet.mesh.shrink_fleet_mesh`; None when one survives), or the
+        mesh itself when the boundary has none."""
+        events = self.plan.at(ci, "device_loss")
+        if not events:
+            return mesh
+        from ..fleet.mesh import shrink_fleet_mesh
+        for e in events:
+            if mesh is None or mesh.size <= 1:
+                # nothing to shrink on a single-device run: the event is
+                # recorded (the plan stays portable across hosts) and the
+                # governor's schedule still re-prices the chunks
+                self._record(ci, "device_loss",
+                             "ignored: single-device run")
+                continue
+            failed = _failed_ids(e, mesh)
+            mesh = shrink_fleet_mesh(mesh, failed, reps=reps)
+            alive = mesh.size if mesh is not None else 1
+            self._record(ci, "device_loss",
+                         f"failed={list(failed)} alive={alive}")
+            with obs_trace.span("chaos.device_loss", chunk=ci,
+                                failed=list(failed), alive=alive,
+                                cost_scale=self.cost_scale(ci)):
+                if self.governor is not None:
+                    self.governor.on_capacity(ci, alive, self.base_devices,
+                                              self.cost_scale(ci))
         return mesh
 
     def execute(self, ci: int, thunk):
@@ -237,8 +263,17 @@ class ChaosContext:
             raise SimulatedCrash(ci)
 
     def mesh_through(self, start_chunk: int, mesh, reps: int):
-        """The mesh a resumed run continues on: `mesh` itself, since on
-        one card no device loss shrank it (see `begin_chunk`)."""
+        """The mesh a resumed run continues on: the device-loss shrinks of
+        chunks [0, start_chunk) replayed silently, with no audit record
+        and no governor hook (the mesh is never checkpointed: it is pure
+        in the plan)."""
+        from ..fleet.mesh import shrink_fleet_mesh
+        for ci in range(start_chunk):
+            for e in self.plan.at(ci, "device_loss"):
+                if mesh is None or mesh.size <= 1:
+                    continue
+                mesh = shrink_fleet_mesh(mesh, _failed_ids(e, mesh),
+                                         reps=reps)
         return mesh
 
     def catch_up(self, start_chunk: int) -> None:

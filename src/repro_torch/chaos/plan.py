@@ -12,8 +12,9 @@ logs, bit for bit.
 Event kinds (`FaultEvent.kind`):
 
 * ``device_loss``: `count` devices fail at the boundary before chunk k
-  (or the explicit `device_ids`). On the port's one card there is nothing
-  to shrink: the event is recorded as ignored, and an
+  (or the explicit `device_ids`, fleet mesh point ids): the fleet mesh
+  shrinks over the survivors. A run without a mesh has nothing to
+  shrink: the event is recorded as ignored, and an
   `ElasticGovernor(base_devices=...)` still re-prices the chunks.
 * ``chunk_fail``: the next `count` execution attempts of chunk k raise
   (an injected launch failure); the runner retries with exponential

@@ -372,7 +372,8 @@ def run_cluster(source, jobs, p: SimParams, slots: Optional[int] = None,
     (`repro_torch.fleet.run_cluster_fleet`): windows of `chunk_jobs`
     consecutive jobs, each on its own pool, admission and the governor
     per window, every (window, replication) a segment of one dispatch
-    launch. `devices` above 1 or a mesh above 1 x 1 raises (one card).
+    launch. `devices=N` above 1 splits the replications over
+    `fleet.fleet_mesh(devices=N, reps=reps, device=device)`.
     `chaos=`, `checkpoint=` and `resume=` route there too: fault
     injection with window-boundary checkpoint and resume
     (`repro_torch.chaos`).
@@ -380,8 +381,8 @@ def run_cluster(source, jobs, p: SimParams, slots: Optional[int] = None,
     if (devices is not None or mesh is not None or chunk_jobs is not None
             or chaos is not None or checkpoint is not None or resume):
         from ..fleet import fleet_mesh, run_cluster_fleet
-        if mesh is None and devices is not None:
-            fleet_mesh(devices=devices, reps=reps, device=device)
+        if mesh is None and devices is not None and int(devices) > 1:
+            mesh = fleet_mesh(devices=devices, reps=reps, device=device)
         return run_cluster_fleet(
             source, jobs, p, slots=slots, theta=theta,
             strategies=strategies, r_min_from_ns=r_min_from_ns,

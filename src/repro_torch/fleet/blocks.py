@@ -179,22 +179,25 @@ def block_layout(jobs, block_jobs: int, pad_blocks_to: int = 1,
         job_tasks=n_tasks)
 
 
-def _job_leaves(jobs, layout: BlockLayout, block_offset: int, dev):
-    """The (G_pad, Jb) per-job leaves and the (G_pad,) block ids, as
-    tensors on `dev`, and the rows' true task counts (host int64, the
-    dummy row's the block's padding to Tb)."""
+def _job_leaves(jobs, layout: BlockLayout, block_offset: int, dev,
+                blocks=None):
+    """The per-job leaves of blocks [g0, g1) (`blocks`; None: all G_pad)
+    as (g1 - g0, Jb) tensors on `dev`, their (g1 - g0,) global block ids,
+    and the rows' true task counts (host int64, the dummy row's the
+    block's padding to Tb)."""
     B, G, G_pad = layout.block_jobs, layout.n_blocks, layout.n_blocks_padded
-    stack = layout.stack_jobs
+    g0, g1 = (0, G_pad) if blocks is None else blocks
+    stack = lambda x, fill, dt: layout.stack_jobs(x, fill, dt)[g0:g1]
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     true_nt = stack(layout.job_tasks, 0, np.int64)
     true_nt[:, B] = layout.tasks_per_block - np.pad(layout.counts,
-                                                    (0, G_pad - G))
+                                                    (0, G_pad - G))[g0:g1]
     # the reference's n_tasks: the dummy row claims max(padding, 1)
     nt = true_nt.astype(np.int32)
     nt[:, B] = np.maximum(true_nt[:, B], 1)
     cols = {f: to_host(getattr(jobs, f)) for f in _JOB_LEAVES[1:]}
     leaves = dict(
-        block_id=t((block_offset + np.arange(G_pad)).astype(np.int32)),
+        block_id=t((block_offset + np.arange(g0, g1)).astype(np.int32)),
         job_valid=t(stack(np.ones(int(layout.g_j.shape[0]), bool), False,
                           bool)),
         n_tasks=t(nt),
@@ -246,32 +249,35 @@ def make_blocks(jobs, block_jobs: int, pad_blocks_to: int = 1,
 
 class BlockView(NamedTuple):
     """A chunk's blocks as one flat JobSet (`block_view`)."""
-    jobs: JobSet              # G_pad * Jb job rows; the blocks' tasks
+    jobs: JobSet              # G * Jb job rows; the blocks' tasks
     task_valid: torch.Tensor  # (T_view,) bool, real tasks
-    block_ids: tuple          # (G_pad,) global block index
-    starts: np.ndarray        # (G_pad,) each block's first task row
-    counts: np.ndarray        # (G_pad,) each block's real tasks
+    block_ids: tuple          # (G,) global block index
+    starts: np.ndarray        # (G,) each block's first task row
+    counts: np.ndarray        # (G,) each block's real tasks
 
 
 def block_view(jobs, layout: BlockLayout, block_offset: int = 0, *,
-               device=None) -> BlockView:
-    """The blocks of `layout` as ONE flat JobSet on `device` (default the
-    card): G_pad * Jb job rows (row g * Jb + j) holding their real tasks
-    only, each block's rows starting at a multiple of `ALIGN` (the gap
-    goes to its dummy row) and `n_tasks` the rows' true counts. Task i of
-    block g is task i of the reference's (Tb,)-row block, so a sim whose
-    draws are task-major computes on this view what it computes per block
-    on the padded layout, and every per-job segment stays in its block."""
+               blocks=None, device=None) -> BlockView:
+    """The blocks [g0, g1) of `layout` (`blocks`; None: all G_pad, as a
+    mesh point's share or the whole chunk) as ONE flat JobSet on `device`
+    (default the card): (g1 - g0) * Jb job rows (row g * Jb + j) holding
+    their real tasks only, each block's rows starting at a multiple of
+    `ALIGN` (the gap goes to its dummy row) and `n_tasks` the rows' true
+    counts. Task i of block g is task i of the reference's (Tb,)-row
+    block, so a sim whose draws are task-major computes on this view what
+    it computes per block on the padded layout, and every per-job segment
+    stays in its block."""
     dev = resolve_device(device)
     B, G, G_pad = layout.block_jobs, layout.n_blocks, layout.n_blocks_padded
-    leaves, true_nt = _job_leaves(jobs, layout, block_offset, dev)
-    counts = np.pad(layout.counts, (0, G_pad - G)).astype(np.int64)
+    g0, g1 = (0, G_pad) if blocks is None else blocks
+    leaves, true_nt = _job_leaves(jobs, layout, block_offset, dev, (g0, g1))
+    counts = np.pad(layout.counts, (0, G_pad - G)).astype(np.int64)[g0:g1]
     width = -(-counts // ALIGN) * ALIGN
     true_nt[:, B] = width - counts
     rows = _task_rows(true_nt, dev)
     flat = lambda x: x.reshape(-1)
     view = JobSet(
-        n_jobs=G_pad * (B + 1),
+        n_jobs=(g1 - g0) * (B + 1),
         n_tasks=torch.from_numpy(true_nt.reshape(-1).astype(np.int32)).to(
             dev),
         t_min=flat(leaves["t_min"]), beta=flat(leaves["beta"]),
@@ -283,7 +289,7 @@ def block_view(jobs, layout: BlockLayout, block_offset: int = 0, *,
         task_D=flat(leaves["D"])[rows])
     return BlockView(
         jobs=view, task_valid=(rows % (B + 1)) != B,
-        block_ids=tuple(block_offset + g for g in range(G_pad)),
+        block_ids=tuple(block_offset + g for g in range(g0, g1)),
         starts=np.concatenate([[0], np.cumsum(width)[:-1]]), counts=counts)
 
 

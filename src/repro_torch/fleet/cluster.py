@@ -24,6 +24,12 @@ units. Per-replication means and the window combination run on the host
 in numpy in one fixed order (`_rep_mean`, `obs.metrics`), never as a
 reduction over the stacked segments.
 
+On a fleet mesh the replications are padded to the mesh's size and split
+over every point, "rep" and "job" flattened (`rep_shares`, the
+reference's P(("rep", "job"))): each point builds and replays its own
+segments in its own launches, one group on every point a round, and the
+outcomes meet on the first point, which solves the windows.
+
 `chaos=` and `checkpoint=` act at window boundaries, as in the flat
 fleet (`runner.py`). A launch takes one pool size, so under a chaos
 context each window's replications are launched on their own (in groups
@@ -34,6 +40,7 @@ chaos-free one, with a checkpoint or without.
 """
 from __future__ import annotations
 
+from itertools import zip_longest
 from typing import Optional
 
 import numpy as np
@@ -44,6 +51,7 @@ from ..cluster.admission import (AdmissionConfig, GovernorConfig,
                                  admit_jobs, apply_governor)
 from ..cluster.engine import ClusterOutput, QueueMetrics, _narrow_table
 from ..cluster.slots import DISCIPLINES
+from ..ckpt.checkpoint import tree_leaves, tree_rebuild
 from ..coupled.solver import solve_jobs_coupled, warn_infeasible
 from ..device import resolve_device, to_host
 from ..obs import trace as obs_trace
@@ -51,8 +59,9 @@ from ..obs.metrics import reduce_reps_host
 from ..sim.draws import uniform_cell
 from ..sim.metrics import net_utility
 from ..sim.runner import jobspecs_of
+from ..sim.trace import jobset_to
 from ..strategies import get, names, solve_jobs
-from .mesh import check_mesh, pad_count
+from .mesh import mesh_device, pad_count, split_range
 from .runner import (_warn_saturated, chunk_hooks, chunk_jobset,
                      end_of_chunk, job_columns, resume_point, scale_cost,
                      scenario_plan, strategy_hooks)
@@ -66,6 +75,24 @@ def _rep_mean(tree, reps: int):
     if reps == 1:
         return tuple(x[0] for x in host)
     return tuple(np.mean(x.astype(np.float32), axis=0) for x in host)
+
+
+def rep_shares(mesh, dev, reps_pad: int) -> list:
+    """[(device, (r0, r1))]: each point's contiguous replications of
+    `reps_pad`, over the mesh's "rep" and "job" axes flattened (the
+    reference's P(("rep", "job"))); without a mesh, all of them on
+    `dev`."""
+    if mesh is None:
+        return [(dev, (0, reps_pad))]
+    return [(d, split_range(reps_pad, mesh.size, k))
+            for k, d in enumerate(mesh.devices)]
+
+
+def _to(tree, dev):
+    """A segment outcome's tensors moved to `dev` (a no-op there)."""
+    return tree_rebuild(tree, iter([
+        x.to(dev) if isinstance(x, torch.Tensor) else x
+        for x in tree_leaves(tree)]))
 
 
 def _window_specs(cjobs, p, theta, r_min, slots, governor,
@@ -113,6 +140,13 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
     its own pool. `pad_to` (int) pads the replication count to a multiple
     for the pad+mask tests (mesh=None only).
 
+    mesh: a `FleetMesh` or None. Replications are padded to the mesh's
+    size and split over every point ("rep" and "job" flattened); each
+    point builds and replays its (window, replication) segments in its
+    own dispatch launches, and the outcomes meet on the first point,
+    which solves each window and holds the outputs. The bits equal the
+    run without a mesh.
+
     fused=True (default) solves each window when it is first replayed and
     gives an optimized strategy the static width max_r + 2; fused=False
     solves every window first and narrows to the largest solved r* + 2.
@@ -139,8 +173,7 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
                          "with an explicit mesh")
     if resume and checkpoint is None:
         raise ValueError("resume=True requires a checkpoint config")
-    check_mesh(mesh)
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, resolve_device(device))
     spec = get(strategy)
     if not spec.detectable:
         oracle = True
@@ -151,7 +184,10 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
             "budget= requires a chaos-free run: the shared multiplier is "
             "solved once over the whole trace, and chaos re-pricing or "
             "slot/mesh loss mid-run would invalidate that global solve")
-    reps_pad = pad_count(reps, pad_to if pad_to is not None else 1)
+    # the replication padding for mesh m; derived again when chaos
+    # shrinks it
+    reps_of = lambda m: pad_count(reps, pad_to if pad_to is not None
+                                  else (m.size if m is not None else 1))
 
     cols = job_columns(jobs)
     J = cols.n_jobs
@@ -217,15 +253,30 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
         else:
             solved = solves[ci]
         r_j, choice_j = solved[0], solved[1]
+        home = dict(jobs=cjobs, admitted=admitted, r_task=r_j[cjobs.job_id],
+                    c_task=choice_j[cjobs.job_id])
         return dict(jobs=cjobs, slots=slots_w, admitted=admitted,
-                    solved=solved, r_task=r_j[cjobs.job_id],
-                    c_task=choice_j[cjobs.job_id], out=[])
+                    solved=solved, at={dev: home}, out={})
 
-    def table_of(ci, rep):
-        w = windows[ci]
+    def window_at(ci, pdev):
+        """Window ci's replay inputs on point device `pdev`: copies of
+        the first point's."""
+        at = windows[ci]["at"]
+        if pdev not in at:
+            home = at[dev]
+            at[pdev] = dict(
+                jobs=jobset_to(home["jobs"], pdev),
+                admitted=(None if home["admitted"] is None
+                          else home["admitted"].to(pdev)),
+                r_task=home["r_task"].to(pdev),
+                c_task=home["c_task"].to(pdev))
+        return at[pdev]
+
+    def table_of(ci, rep, pdev):
+        w = window_at(ci, pdev)
         cjobs = w["jobs"]
         draw = lambda name, shape: uniform_cell(
-            source, strategy, rep, None, name, shape, dev)
+            source, strategy, rep, None, name, shape, pdev)
         table = spec.build_table(draw, cjobs, w["r_task"], w["c_task"], p,
                                  max_r=max_r, oracle=oracle)
         if w["admitted"] is not None:
@@ -233,13 +284,15 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
                 active=table.active & w["admitted"][table.job_id])
         return _narrow_table(table, cjobs.total_tasks, width)
 
-    start, acc, (r_parts, thp_parts, thc_parts) = resume_point(
-        saver if resume else None, fp, ctx)
+    start, acc, (r_parts, thp_parts, thc_parts), mesh = resume_point(
+        saver if resume else None, fp, ctx, mesh, reps)
+    reps_pad = reps_of(mesh)
     n_sat = 0
 
     def close_window(ci):
         w = windows.pop(ci)
-        cjobs, out = w["jobs"], w["out"]
+        cjobs = w["jobs"]
+        out = [w["out"][rep] for rep in sorted(w["out"])]
         with obs_trace.span("fleet.cluster.reduce", window=ci):
             res = _rep_mean(zip(*[o[0] for o in out]), reps)
             q = _rep_mean(zip(*[o[1] for o in out]), reps)
@@ -266,46 +319,66 @@ def run_cluster_fleet_strategy(source, jobs, strategy: str, p, *,
                      (r_parts, thp_parts, thc_parts))
         return n
 
-    def replay_group(group):
+    def replay_group(group, pdev):
         """The outcomes of (window, replication) segments that share one
-        pool size, in one dispatch launch a pass."""
+        pool size, in one dispatch launch a pass on point device `pdev`,
+        moved to the first point."""
         with obs_trace.span("fleet.cluster.build", strategy=strategy,
                             segments=len(group)):
             for ci, _ in group:
                 if ci not in windows:
                     windows[ci] = open_window(ci)
-            tables = [table_of(ci, rep) for ci, rep in group]
+            tables = [table_of(ci, rep, pdev) for ci, rep in group]
         slots_g = windows[group[0][0]]["slots"]
+        jobs_of = lambda ci: window_at(ci, pdev)["jobs"]
         replayed = obs_trace.fenced(
             f"fleet.cluster.replay[{strategy}]", engine._replay,
-            [(t, windows[ci]["jobs"]) for t, (ci, _) in zip(tables, group)],
+            [(t, jobs_of(ci)) for t, (ci, _) in zip(tables, group)],
             spec.race, slots_g, discipline, passes)
-        return [engine.segment_outcome(windows[ci]["jobs"], table, rp,
-                                       slots_g, collect_metrics)
+        return [_to(engine.segment_outcome(jobs_of(ci), table, rp, slots_g,
+                                           collect_metrics), dev)
                 for (ci, _), table, rp in zip(group, tables, replayed)]
 
-    cap = engine.MAX_SEGMENTS
+    def point_groups(windows_of, reps_pad):
+        """Each point's segments of windows `windows_of`, in order, cut
+        into launch groups of at most MAX_SEGMENTS: [[(pdev, group)]]."""
+        cap = engine.MAX_SEGMENTS
+        out = []
+        for pdev, (r0, r1) in rep_shares(mesh, dev, reps_pad):
+            segs = [(ci, rep) for ci in windows_of for rep in range(r0, r1)]
+            out.append([(pdev, segs[g0:g0 + cap])
+                        for g0 in range(0, len(segs), cap)])
+        return out
+
     try:
         if ctx is None:
-            # every (window, replication) in order, MAX_SEGMENTS a launch
-            segments = [(ci, rep) for ci in range(start, n_chunks)
-                        for rep in range(reps_pad)]
-            for g0 in range(0, len(segments), cap):
-                group = segments[g0:g0 + cap]
-                for (ci, _), o in zip(group, replay_group(group)):
-                    w = windows[ci]
-                    w["out"].append(o)
-                    if len(w["out"]) == reps_pad:
-                        n_sat += close_window(ci)
+            # every point's (window, replication) segments in order,
+            # MAX_SEGMENTS a launch; each round launches one group on
+            # every point, then the windows it completed close in order
+            next_ci = start
+            for rnd in zip_longest(*point_groups(range(start, n_chunks),
+                                                 reps_pad)):
+                for pdev, group in filter(None, rnd):
+                    for (ci, rep), o in zip(group,
+                                            replay_group(group, pdev)):
+                        windows[ci]["out"][rep] = o
+                while (next_ci in windows
+                       and len(windows[next_ci]["out"]) == reps_pad):
+                    n_sat += close_window(next_ci)
+                    next_ci += 1
         else:
             for ci in range(start, n_chunks):
-                # one card: a device loss shrinks nothing (recorded)
-                ctx.begin_chunk(ci, mesh, reps)
+                new_mesh = ctx.begin_chunk(ci, mesh, reps)
+                if new_mesh is not mesh:
+                    mesh = new_mesh
+                    reps_pad = reps_of(mesh)
                 windows[ci] = open_window(ci)
-                segs = [(ci, rep) for rep in range(reps_pad)]
-                windows[ci]["out"] = ctx.execute(ci, lambda: [
-                    o for g0 in range(0, reps_pad, cap)
-                    for o in replay_group(segs[g0:g0 + cap])])
+                groups = [g for per in point_groups([ci], reps_pad)
+                          for g in per]
+                outs = ctx.execute(ci, lambda: [
+                    o for pdev, group in groups
+                    for o in replay_group(group, pdev)])
+                windows[ci]["out"] = dict(enumerate(outs))
                 n_sat += close_window(ci)
     finally:
         if saver is not None:

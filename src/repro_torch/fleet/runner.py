@@ -33,6 +33,15 @@ concatenated per-job columns (`sim.metrics.StreamCombiner`). On the card
 the Algorithm-1 solve of each chunk is the grid-solve kernel
 (`kernels/csrc/grid_solve.cu`).
 
+On a fleet mesh (`mesh=`, `mesh.FleetMesh`) the chunk's layout pads the
+replications to the "rep" extent and the blocks to the "job" extent, and
+point (r, j) draws, simulates and segment-reduces its replications x
+blocks on its own device (`point_shares`, `_exec_mesh`), the reference's
+`shard_map` cell. The solve runs once, on the first point; every point
+is launched before the first copy to the host, and the raw (replication,
+block) cells are then put at their global places and reduced as without
+a mesh, so the metrics do not depend on the mesh's shape.
+
 The fleet's streams are statistically equivalent to the flat path's, not
 equal to them: `run_all` without `devices=`, `mesh=`, `chunk_jobs=`,
 `chaos=`, `checkpoint=` or `resume=` stays the flat path, bit for bit.
@@ -63,7 +72,7 @@ from ..sim.trace import build_jobset
 from ..strategies import get, names, solve_jobs
 from .blocks import (block_layout, block_task_counts, block_view,
                      gather_index)
-from .mesh import check_mesh, mesh_extents, pad_count
+from .mesh import mesh_device, mesh_extents, pad_count, split_range
 
 #: the uniform that the view's alignment rows (the dummy job's) draw
 _ALIGN_FILL = 0.5
@@ -121,18 +130,25 @@ def _warn_saturated(strategy: str, n_sat: int, max_r: int):
 
 def _exec_blocks(source, strategy: str, rep_ids, bv, r_task, choice_task,
                  p, max_r: int, oracle: bool):
-    """(reps_pad, G_pad, Jb) per-job completion and machine time of every
+    """(len(rep_ids), G, Jb) per-job completion and machine time of every
     (replication, block) cell of a `blocks.BlockView`, on its device.
 
     Each draw is ONE `uniform_rows` over the view: a task row's cell is
     its block's global index and its row the task's index in the block;
-    the alignment rows (the dummy job's) are set to `_ALIGN_FILL`."""
+    the alignment rows (the dummy job's) are set to `_ALIGN_FILL`. A view
+    of padding blocks only (a mesh point past the chunk's last real
+    block) has no task: its rows are empty segments, max -inf and sum 0,
+    and are dropped with the padding."""
     spec = get(strategy)
     view = bv.jobs
     dev = view.t_min.device
     G = len(bv.block_ids)
     Jb = view.n_jobs // G
     T = view.total_tasks
+    if T == 0:
+        shape = (len(rep_ids), G, Jb)
+        return (torch.full(shape, -torch.inf, device=dev),
+                torch.zeros(shape, device=dev))
     g_row = view.job_id // Jb
     cells = g_row + bv.block_ids[0]
     rows = torch.arange(T, device=dev) - torch.from_numpy(
@@ -159,6 +175,49 @@ def _exec_blocks(source, strategy: str, rep_ids, bv, r_task, choice_task,
         jcs.append(jc.view(G, Jb))
         jms.append(jm.view(G, Jb))
     return torch.stack(jcs), torch.stack(jms)
+
+
+class PointShare(NamedTuple):
+    """One mesh point's share of a chunk: its device, its replications
+    [r0, r1) and its blocks [g0, g1) of the chunk's padded layout."""
+    device: torch.device
+    reps: tuple
+    blocks: tuple
+
+
+def point_shares(mesh, dev, reps_pad: int, n_blocks: int) -> list:
+    """The PointShares of a chunk of `reps_pad` replications and
+    `n_blocks` blocks: point (r, j) takes the r-th of the mesh's equal
+    replication ranges and the j-th of its block ranges, as the
+    reference's shard_map places P("rep") and P("job"); without a mesh,
+    one share of everything on `dev`."""
+    if mesh is None:
+        return [PointShare(dev, (0, reps_pad), (0, n_blocks))]
+    return [PointShare(mesh.point(r, j),
+                       split_range(reps_pad, mesh.rep_extent, r),
+                       split_range(n_blocks, mesh.job_extent, j))
+            for r in range(mesh.rep_extent) for j in range(mesh.job_extent)]
+
+
+def _exec_mesh(source, strategy: str, parts, p, max_r: int, oracle: bool):
+    """(reps_pad, G_pad, Jb) per-job completion and machine time of a
+    chunk from its points' `parts`, (PointShare, rep_ids, BlockView,
+    r_task, choice_task) each. One part (no mesh): `_exec_blocks`'s
+    tensors on its device. Several: every point is launched on its own
+    device first, then the raw cells are copied to the host and put at
+    their global (replication, block) places, numpy f32."""
+    runs = [_exec_blocks(source, strategy, rep_ids, bv, r_task, c_task, p,
+                         max_r, oracle)
+            for _, rep_ids, bv, r_task, c_task in parts]
+    if len(parts) == 1:
+        return runs[0]
+    shape = (max(sh.reps[1] for sh, *_ in parts),
+             max(sh.blocks[1] for sh, *_ in parts), runs[0][0].shape[2])
+    out = tuple(np.empty(shape, np.float32) for _ in range(2))
+    for (sh, *_), run in zip(parts, runs):
+        for whole, cells in zip(out, run):
+            whole[slice(*sh.reps), slice(*sh.blocks)] = to_host(cells)
+    return out
 
 
 def _chunk_result(jc, jm, D, C, reps: int, n_jobs: int,
@@ -211,12 +270,14 @@ def chunk_hooks(chaos, checkpoint, source, n_chunks: int, mesh, pool=None,
     return ctx, saver, fp
 
 
-def resume_point(saver, fp, ctx):
+def resume_point(saver, fp, ctx, mesh, reps: int):
     """(first chunk to run, StreamCombiner, (r, theory PoCD, theory cost)
-    parts) from `saver`'s latest committed step, its fingerprint checked
-    against `fp`, and `ctx` fast-forwarded past it; a fresh start when
-    `saver` is None or holds no committed step."""
-    fresh = (0, StreamCombiner(), ([], [], []))
+    parts, mesh) from `saver`'s latest committed step, its fingerprint
+    checked against `fp`, the mesh shrunk by the device losses of the
+    chunks before it (`ChaosContext.mesh_through`) and `ctx`
+    fast-forwarded past it; a fresh start on `mesh` when `saver` is None
+    or holds no committed step."""
+    fresh = (0, StreamCombiner(), ([], [], []), mesh)
     if saver is None:
         return fresh
     step = saver.latest()
@@ -227,9 +288,9 @@ def resume_point(saver, fp, ctx):
     recovery.check_fingerprint(header["fingerprint"], fp)
     start = int(header["next_chunk"])
     if ctx is not None:
-        # the port's mesh has nothing to shrink (mesh_through is a no-op)
+        mesh = ctx.mesh_through(start, mesh, reps)
         ctx.catch_up(start)
-    return start, acc, solves
+    return start, acc, solves, mesh
 
 
 def end_of_chunk(ci: int, n_chunks: int, ctx, saver, fp, acc,
@@ -273,7 +334,11 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
     card); `source` hands out the uniforms (`sim.draws`, `uniform_rows`).
 
     jobs: a JobSet or a WorkloadTrace (chunked column-wise).
-    mesh: None or the 1 x 1 mesh of `fleet_mesh`.
+    mesh: a ("rep", "job") `FleetMesh` from `fleet_mesh`, or None. Point
+        (r, j) draws, simulates and segment-reduces its replications x
+        blocks on its own device; the solve runs once, on the first
+        point, which also holds the outputs. Metrics equal the run
+        without a mesh bit for bit.
     chunk_jobs: stream the trace in job-contiguous chunks of at most this
         many jobs, rounded down to a block multiple; a chunk_jobs below
         block_jobs shrinks the blocks (and so changes the draws). None =
@@ -283,11 +348,11 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
     block_jobs: jobs per block, the draws' granularity (changing it
         changes the draws).
     chaos: a `chaos.FaultPlan` or `chaos.ChaosContext` consulted at chunk
-        boundaries: device loss is recorded (one card: nothing to shrink),
-        injected chunk failures and corruption retry, a crash raises
-        SimulatedCrash after the chunk's checkpoint commits, and an
-        `ElasticGovernor` re-prices each chunk's solve. None keeps the
-        chaos-free path.
+        boundaries: a device loss shrinks the mesh (and the layout is
+        padded again for it), injected chunk failures and corruption
+        retry, a crash raises SimulatedCrash after the chunk's
+        checkpoint commits, and an `ElasticGovernor` re-prices each
+        chunk's solve. None keeps the chaos-free path.
     checkpoint: a `chaos.CheckpointConfig` or a directory: save the
         resumable chunk state after chunks; with `resume=True`, first
         restore the latest committed step (its fingerprint must match this
@@ -303,8 +368,7 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
         Incompatible with `chaos=` (re-pricing mid-run would invalidate
         that one solve).
     """
-    dev = resolve_device(device)
-    check_mesh(mesh)
+    dev = mesh_device(mesh, resolve_device(device))
     spec = get(strategy)
     if not spec.detectable:
         oracle = True
@@ -332,9 +396,14 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
     blocks_per_chunk = -(-chunk // B)
     # one global task width: every block of every chunk draws (Tb, ...)
     Tb = int(block_task_counts(cols.n_tasks, B).max())
-    r_ext, j_ext = pad_to if pad_to is not None else mesh_extents(mesh)
-    rep_ids = range(pad_count(reps, r_ext))
-    min_blocks = pad_count(blocks_per_chunk, j_ext)
+
+    def layout_of(m):
+        # the padding for mesh m; derived again when chaos shrinks it
+        r_ext, j_ext = pad_to if pad_to is not None else mesh_extents(m)
+        return (j_ext, range(pad_count(reps, r_ext)),
+                pad_count(blocks_per_chunk, j_ext))
+
+    j_ext, rep_ids, min_blocks = layout_of(mesh)
     ctx, saver, fp = chunk_hooks(
         chaos, checkpoint, source, n_chunks, mesh, path="flat",
         strategy=strategy, n_jobs=J, block_jobs=B, chunk=chunk, reps=reps,
@@ -354,15 +423,17 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
                                 (g_r, g_ch, g_p, g_c * gspecs.C, g_sat))
         warn_infeasible(strategy, info)
 
-    start, acc, (r_parts, thp_parts, thc_parts) = resume_point(
-        saver if resume else None, fp, ctx)
+    start, acc, (r_parts, thp_parts, thc_parts), mesh = resume_point(
+        saver if resume else None, fp, ctx, mesh, reps)
+    j_ext, rep_ids, min_blocks = layout_of(mesh)
     n_sat = 0
     try:
         for ci in range(start, n_chunks):
             if ctx is not None:
-                # the mesh is None or 1 x 1 (check_mesh): a device loss
-                # shrinks nothing, and the layout stays
-                ctx.begin_chunk(ci, mesh, reps)
+                new_mesh = ctx.begin_chunk(ci, mesh, reps)
+                if new_mesh is not mesh:
+                    mesh = new_mesh
+                    j_ext, rep_ids, min_blocks = layout_of(mesh)
             lo, hi = ci * chunk, min((ci + 1) * chunk, J)
             ccols = cols.slice(lo, hi)
             Jc = ccols.n_jobs
@@ -387,24 +458,30 @@ def run_fleet_strategy(source, jobs, strategy: str, p, *, mesh=None,
             with obs_trace.span("fleet.blocks", chunk=ci, block_jobs=B):
                 layout = block_layout(ccols, B, pad_blocks_to=j_ext,
                                       tasks_pad=Tb, min_blocks=min_blocks)
-                bv = block_view(ccols, layout,
-                                block_offset=ci * blocks_per_chunk,
-                                device=dev)
-                view = bv.jobs
-                rows = lambda x, fill, dt: torch.from_numpy(
-                    layout.stack_jobs(x, fill, dt)).to(dev).reshape(-1)[
-                        view.job_id]
-                if use_fused:
-                    # the task -> chunk-job column (pure geometry);
-                    # padding tasks point at Jc, the appended zero row
-                    tj = rows(np.arange(Jc), Jc, np.int64)
-                    r_task, c_task = _pad0(r_j)[tj], _pad0(choice_j)[tj]
-                else:
-                    r_task = rows(r_j, 0, np.int32)
-                    c_task = rows(choice_j, 0, np.int32)
+                parts = []
+                for sh in point_shares(mesh, dev, len(rep_ids),
+                                       layout.n_blocks_padded):
+                    (g0, g1), pdev = sh.blocks, sh.device
+                    bv = block_view(ccols, layout,
+                                    block_offset=ci * blocks_per_chunk,
+                                    blocks=(g0, g1), device=pdev)
+                    rows = lambda x, fill, dt: torch.from_numpy(
+                        layout.stack_jobs(x, fill, dt)[g0:g1]).to(
+                            pdev).reshape(-1)[bv.jobs.job_id]
+                    if use_fused:
+                        # the task -> chunk-job column (pure geometry);
+                        # padding tasks point at Jc, the appended zero row
+                        tj = rows(np.arange(Jc), Jc, np.int64)
+                        r_task = _pad0(r_j).to(pdev)[tj]
+                        c_task = _pad0(choice_j).to(pdev)[tj]
+                    else:
+                        r_task = rows(r_j, 0, np.int32)
+                        c_task = rows(choice_j, 0, np.int32)
+                    parts.append((sh, rep_ids[slice(*sh.reps)], bv, r_task,
+                                  c_task))
             exec_chunk = lambda: obs_trace.fenced(
-                f"fleet.exec[{strategy}]", _exec_blocks, source, strategy,
-                rep_ids, bv, r_task, c_task, p, max_r, oracle)
+                f"fleet.exec[{strategy}]", _exec_mesh, source, strategy,
+                parts, p, max_r, oracle)
             jc, jm = (exec_chunk() if ctx is None
                       else ctx.execute(ci, exec_chunk))
             with obs_trace.span("fleet.reduce", chunk=ci, n_jobs=Jc):

@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use into `build/<name>-<hash>.so` beside this module; the hash covers the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is reused. Nothing here runs at import time: a host without nvcc can
-import the package and use the plain PyTorch versions.
+source, the shared headers (`csrc/*.h`) and the flags, so an edited
+source is rebuilt and an unchanged one is reused. Nothing here runs at
+import time: a host without nvcc can import the package and use the
+plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -41,7 +42,8 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.h")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"{name}-{digest[:16]}.so"
 

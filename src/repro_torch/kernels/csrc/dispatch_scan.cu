@@ -69,6 +69,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_scope.h"
+
 namespace {
 
 typedef unsigned long long u64;
@@ -605,8 +607,8 @@ extern "C" int dispatch_scan_launch_as(int design, int device,
                                        const float* hold, const int* count,
                                        int P, int n, float* pool, int K,
                                        float* start, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return int(scope.err);
   const long bytes = design_bytes(design, K);
   if (bytes < 0 || P < 1) return int(cudaErrorInvalidValue);
   if (n <= 0) return 0;

@@ -59,6 +59,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_scope.h"
+
 namespace {
 
 constexpr int kBQ = 64;        // query rows per block
@@ -323,8 +325,8 @@ extern "C" int flash_attention_launch(int device, int dtype, const void* q,
                                       int D, const long long* strides,
                                       int causal, int window, int prefix,
                                       float scale, float cap, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return int(scope.err);
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
   if (K <= 0 || H % K != 0 || window < 0 || prefix < 0)
     return int(cudaErrorInvalidValue);

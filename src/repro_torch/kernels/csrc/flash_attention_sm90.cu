@@ -79,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_scope.h"
+
 namespace {
 
 constexpr int kBM = 64;                      // query rows per consumer
@@ -776,8 +778,8 @@ extern "C" int flash_attention_sm90_launch(int device, int dtype,
                                            int causal, int window, int prefix,
                                            float scale, float cap,
                                            void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return int(scope.err);
   if (dtype != 1) return int(cudaErrorInvalidValue);
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
   if (K <= 0 || H % K != 0 || window < 0 || prefix < 0)

@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "device_scope.h"
+
 namespace {
 
 constexpr int kWarps = 4;        // jobs per block of the warp kernel
@@ -381,8 +383,8 @@ extern "C" int grid_solve_launch(
     const float* R_min, const float* gl_u, const float* gl_w, int n_jobs,
     int r_max, int forms, int* r_out, int* choice_out, float* u_out,
     float* pocd_out, float* cost_out, int* sat_out, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return int(scope.err);
   if (n_jobs <= 0) return 0;
   const Cols cols{t_min, beta, D, N, tau_est, tau_kill, phi_est, C, theta, R_min};
   const Outs outs{r_out, choice_out, u_out, pocd_out, cost_out, sat_out};

@@ -32,6 +32,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_scope.h"
+
 namespace {
 
 constexpr uint32_t kM0 = 0xD2511F53u;
@@ -106,8 +108,8 @@ extern "C" int philox_rows_launch(int device, const long long* cells,
                                   int cols, unsigned int k0, unsigned int k1,
                                   float span, float minval, float* out,
                                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return int(scope.err);
   if (n_rows <= 0 || cols <= 0) return 0;
   const long long work = n_rows * ((cols + 3) / 4);
   const long long blocks = (work + kThreads - 1) / kThreads;
@@ -122,8 +124,8 @@ extern "C" int philox_rows_launch(int device, const long long* cells,
 extern "C" int philox_raw_launch(int device, const unsigned int* ctr,
                                  const unsigned int* key, int n,
                                  unsigned int* out, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return int(scope.err);
   if (n <= 0) return 0;
   philox_raw_kernel<<<(n + 127) / 128, 128, 0,
                       static_cast<cudaStream_t>(stream)>>>(ctr, key, n, out);

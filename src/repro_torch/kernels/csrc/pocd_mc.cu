@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "device_scope.h"
+
 namespace {
 
 constexpr int kWarps = 4;  // jobs per block
@@ -307,8 +309,8 @@ extern "C" int pocd_mc_launch(int device, int modes, const float* u,
                               int n_jobs, int n_tasks, int n_slots,
                               float tau_est_frac, float tau_kill_gap_frac,
                               float one_minus_phi, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return int(scope.err);
   if (n_jobs <= 0) return 0;
   const Rows rows{{r_clone, r_srestart, r_sresume},
                   {met_clone, met_srestart, met_sresume},
@@ -333,8 +335,9 @@ extern "C" int pocd_mc_launch(int device, int modes, const float* u,
 extern "C" int pocd_mc_monotone_violations(int device,
                                            unsigned long long* out,
                                            void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return int(scope.err);
+  cudaError_t err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // logf: u from the smallest subnormal up to the float below 1.0
   monotone_kernel<<<1024, 256, 0, s>>>(0x00000001u, 0x3f800000u, 0, out);

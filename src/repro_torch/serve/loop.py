@@ -28,6 +28,10 @@ epochs so that a streamed run reproduces a monolithic one.
 Per epoch the request columns stay on the device; its met, completion,
 cost and r* columns come back to the host in ONE transfer (the combiner's
 columns and the governor's probe completions).
+
+On a fleet mesh (`mesh=`) the window is padded to a multiple of the
+mesh's "job" extent and each window's lanes split over the "job" points
+(`scheduler.serve_window`); solves and outputs stay on the first point.
 """
 from __future__ import annotations
 
@@ -103,7 +107,7 @@ def _solve_epoch(strategy: str, t_min_fit, beta_fit, reqs: RequestTrace,
 
 
 def _serve_chunk(source, stream: str, reqs: RequestTrace, r, choice, *,
-                 strategy, p, max_r, oracle, window):
+                 strategy, p, max_r, oracle, window, mesh=None):
     """Serve device request columns through fixed-width windows; stream
     order. (completion, machine) f32 (n,) on the device."""
     n = reqs.n_requests
@@ -113,7 +117,8 @@ def _serve_chunk(source, stream: str, reqs: RequestTrace, r, choice, *,
         parts.append(serve_window(
             source, reqs.rid[lo:hi], reqs.t_min[lo:hi], reqs.beta[lo:hi],
             reqs.D[lo:hi], r[lo:hi], choice[lo:hi], strategy=strategy,
-            p=p, stream=stream, max_r=max_r, oracle=oracle, width=window))
+            p=p, stream=stream, max_r=max_r, oracle=oracle, width=window,
+            mesh=mesh))
     return (torch.cat([c for c, _ in parts]),
             torch.cat([m for _, m in parts]))
 
@@ -153,15 +158,17 @@ def serve_trace(source, reqs, p: Optional[SimParams] = None, *,
     reqs: a RequestTrace, a workloads WorkloadTrace, or a scenario name.
     stream: the registry slot that keys the stream's draws (default the
         strategy; "auto" takes adaptive's).
-    mesh: None or the 1 x 1 `fleet.fleet_mesh` (one card; larger raises).
+    mesh: a `fleet.FleetMesh` or None: windows split over its "job"
+        axis, the window padded to a multiple of its extent; the bits
+        equal the run without a mesh.
     r_override: fixed replication level (the fixed-r baseline): skips the
         per-request solve and the governor's fit.
     combiner: accumulate into an existing StreamCombiner (streamed
         serving); a fresh one is created when None.
     """
-    from ..fleet.mesh import check_mesh
-    check_mesh(mesh)
-    dev = resolve_device(device)
+    from ..fleet.mesh import mesh_device, mesh_extents, pad_count
+    dev = mesh_device(mesh, resolve_device(device))
+    window = pad_count(window, mesh_extents(mesh)[1])
     reqs = _as_requests(reqs, dev)
     if p is None:
         p = SimParams()
@@ -175,7 +182,7 @@ def serve_trace(source, reqs, p: Optional[SimParams] = None, *,
     if stream is None:
         stream = "adaptive" if requested == "auto" else requested
     optimized = strategy == "auto" or get(strategy).optimized
-    kw = dict(p=p, max_r=max_r, oracle=oracle, window=window)
+    kw = dict(p=p, max_r=max_r, oracle=oracle, window=window, mesh=mesh)
 
     n = reqs.n_requests
     dreqs = reqs.to(dev)
@@ -310,15 +317,16 @@ def run_serve(source, reqs, p: Optional[SimParams] = None, *,
     Each strategy's stream is keyed by its own registry slot ("auto"
     borrows adaptive's), so subsetting the strategy list never perturbs
     another strategy's draws; r_min for utilities is the no-hedge PoCD
-    less 1e-3 (the paper's R_min protocol). One card: `devices` above 1
-    or a mesh above 1 x 1 raises. Returns (outs, r_min), outs mapping
-    strategy -> ServeOutput.
+    less 1e-3 (the paper's R_min protocol). `devices=N` above 1 serves
+    on `fleet.fleet_mesh(devices=N, device=device)`, a mesh of N points
+    (more than the visible cards raises). Returns (outs, r_min), outs
+    mapping strategy -> ServeOutput.
     """
-    from ..fleet.mesh import check_mesh, fleet_mesh
+    from ..fleet.mesh import fleet_mesh, mesh_device
     dev = resolve_device(device)
-    check_mesh(mesh)
-    if mesh is None and devices is not None:
-        mesh = fleet_mesh(devices=devices, device=dev)
+    if mesh is None and devices is not None and int(devices) > 1:
+        mesh = fleet_mesh(devices=devices, device=device)
+    dev = mesh_device(mesh, dev)
     reqs = _as_requests(reqs, dev)
     if p is None:
         p = SimParams()

@@ -18,6 +18,11 @@ coordinates. So outcomes do not depend on window size, slicing or the
 order of a stream. A window is padded at its edge to its full width (the
 last request repeated, its lanes dropped), so on the CPU no request falls
 in an elementwise kernel's scalar remainder whatever window it lies in.
+
+On a fleet mesh (`mesh=`) the window's lanes split over its "job" axis
+(`fleet.mesh.job_split`, the reference's P("job")): point (0, j) serves
+lane range j on its own device, and the lanes meet on the window's
+device. Lanes are independent, so the split changes no bit.
 """
 from __future__ import annotations
 
@@ -56,10 +61,29 @@ def _edge_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     return x if pad == 0 else torch.cat([x, x[-1:].expand(pad)])
 
 
+def _serve_lanes(source, name_of: str, spec, cols, p: SimParams,
+                 max_r: int, oracle: bool):
+    """(completion, machine) of W full lanes, the (rid, t_min, beta, D, r,
+    choice) columns `cols` on one device."""
+    rid, tm, b, d, rr, cc = cols
+    w = int(rid.shape[0])
+
+    def draw(name, shape):
+        if shape[0] != w:
+            raise ValueError(f"serve draw {name!r}: {tuple(shape)} is not "
+                             f"request-major over {w} requests")
+        return source.uniform_rows(name_of, 0, name, rid, 0,
+                                   tuple(shape[1:]), rid.device,
+                                   tag=SERVE_TAG)
+
+    return spec.draw(draw, _window_jobset(tm, b, d), rr, cc, p,
+                     max_r=max_r, oracle=oracle)
+
+
 def serve_window(source, rids, t_min, beta, D, r, choice, *, strategy: str,
                  p: SimParams, stream: Optional[str] = None, max_r: int = 8,
                  oracle: bool = True, width: Optional[int] = None,
-                 device=None):
+                 mesh=None, device=None):
     """(completion, machine) f32 (n,) of one window of n requests, on the
     columns' device (numpy columns go to `device`, default the card).
 
@@ -67,6 +91,8 @@ def serve_window(source, rids, t_min, beta, D, r, choice, *, strategy: str,
         slot whose key the draws take (default `strategy`).
     width: the window's width (>= n); the window is padded to it at its
         edge. None = n.
+    mesh: a `fleet.FleetMesh` whose "job" extent divides the width: each
+        point (0, j) serves its lane range on its own device.
     """
     if isinstance(rids, torch.Tensor):
         dev = rids.device
@@ -87,16 +113,19 @@ def serve_window(source, rids, t_min, beta, D, r, choice, *, strategy: str,
             (beta, torch.float32), (D, torch.float32), (r, torch.int32),
             (choice, torch.int32)))
     name_of = strategy if stream is None else stream
-
-    def draw(name, shape):
-        if shape[0] != w:
-            raise ValueError(f"serve draw {name!r}: {tuple(shape)} is not "
-                             f"request-major over {w} requests")
-        return source.uniform_rows(name_of, 0, name, rid, 0,
-                                   tuple(shape[1:]), dev, tag=SERVE_TAG)
-
-    completion, machine = spec.draw(draw, _window_jobset(tm, b, d), rr, cc,
-                                    p, max_r=max_r, oracle=oracle)
+    cols = (rid, tm, b, d, rr, cc)
+    if mesh is None:
+        completion, machine = _serve_lanes(source, name_of, spec, cols, p,
+                                           max_r, oracle)
+    else:
+        from ..fleet.mesh import job_split
+        # every point is launched before the lanes meet
+        parts = [_serve_lanes(source, name_of, spec,
+                              tuple(x[lo:hi].to(mesh.point(0, j))
+                                    for x in cols), p, max_r, oracle)
+                 for j, (lo, hi) in enumerate(job_split(mesh, w))]
+        completion, machine = (torch.cat([x[k].to(dev) for x in parts])
+                               for k in range(2))
     return completion[:n], machine[:n]
 
 

@@ -156,9 +156,11 @@ def run_all(source, jobs, p: SimParams, theta=1e-4, strategies=None,
     `devices=`, `mesh=` or `chunk_jobs=` route to the fleet layer
     (`repro_torch.fleet.run_all_fleet`): draws keyed by (replication,
     global block of `block_jobs` jobs) through `source.uniform_rows`, the
-    trace streamed in chunks, a scenario name kept column-wise. The port
-    runs on one card: `devices` above 1 or a mesh above 1 x 1 raises.
-    Without them this path is unchanged.
+    trace streamed in chunks, a scenario name kept column-wise.
+    `devices=N` above 1 runs on `fleet.fleet_mesh(devices=N, reps=reps,
+    device=device)` (more points than visible cards raises); the metrics
+    equal `devices=1`'s bit for bit. Without them this path is
+    unchanged.
 
     `chaos=` (a `repro_torch.chaos.FaultPlan`), `checkpoint=` and
     `resume=` also route to the fleet: fault injection with
@@ -167,8 +169,8 @@ def run_all(source, jobs, p: SimParams, theta=1e-4, strategies=None,
     if (devices is not None or mesh is not None or chunk_jobs is not None
             or chaos is not None or checkpoint is not None or resume):
         from ..fleet import fleet_mesh, run_all_fleet
-        if mesh is None and devices is not None:
-            fleet_mesh(devices=devices, reps=reps, device=device)
+        if mesh is None and devices is not None and int(devices) > 1:
+            mesh = fleet_mesh(devices=devices, reps=reps, device=device)
         return run_all_fleet(source, jobs, p, theta=theta,
                              strategies=strategies,
                              r_min_from_ns=r_min_from_ns, max_r=max_r,

@@ -718,16 +718,18 @@ def test_run_all_picks_up_a_scenarios_plan(monkeypatch):
 
 def test_shrink_fleet_mesh_on_one_card():
     """No failure returns the mesh (an id outside it is no failure of
-    it); losing the one device raises; a larger mesh is refused, as
-    everywhere on one card."""
+    it); losing the one device raises; a (2, 4) mesh laid on one device
+    shrinks over its surviving point ids."""
     mesh = fleet_mesh(device="cpu")
     assert shrink_fleet_mesh(mesh, failed=[]) is mesh
     assert shrink_fleet_mesh(mesh, failed=[3], reps=2) is mesh
     with pytest.raises(RuntimeError, match="no devices survive"):
         shrink_fleet_mesh(mesh, failed=[0])
-    eight = FleetMesh(2, 4, tuple(f"d{i}" for i in range(8)))
-    with pytest.raises(ValueError):
-        shrink_fleet_mesh(eight, failed=[2, 5], reps=2)
+    cpu = torch.device("cpu")
+    eight = FleetMesh(2, 4, (cpu,) * 8, tuple(range(8)))
+    assert fleet_mesh(devices=8, reps=2, device=["cpu"] * 8) == eight
+    six = shrink_fleet_mesh(eight, failed=[2, 5], reps=2)
+    assert six == FleetMesh(2, 3, (cpu,) * 6, (0, 1, 3, 4, 6, 7))
 
 
 def test_governor_resolves_tail_at_new_price():

@@ -252,7 +252,9 @@ def test_flat_view_counts_true_tasks(B):
     assert int(one.n_tasks.sum()) == one.total_tasks
 
 
-def test_pad_count_and_mesh():
+def test_pad_count_and_mesh(monkeypatch):
+    """pad_count as the reference's; on the CPU a mesh of N points is N
+    logical host points, on the card it needs N visible cards."""
     for n, e in ((0, 1), (5, 1), (5, 2), (8, 4), (9, 4)):
         assert pad_count(n, e) == ref_mesh.pad_count(n, e)
     with pytest.raises(ValueError):
@@ -261,11 +263,18 @@ def test_pad_count_and_mesh():
     assert (mesh.rep_extent, mesh.job_extent) == (1, 1)
     assert fleet_mesh(devices=1, device="cpu") == mesh
     assert fleet_mesh(shape=(1, 1), device="cpu") == mesh
-    for kw in (dict(devices=2), dict(shape=(2, 1)), dict(shape=(1, 4))):
-        with pytest.raises(ValueError, match="one card"):
-            fleet_mesh(device="cpu", **kw)
+    for kw, ext in ((dict(devices=2), (1, 2)), (dict(shape=(2, 1)), (2, 1)),
+                    (dict(shape=(1, 4)), (1, 4))):
+        m = fleet_mesh(device="cpu", **kw)
+        assert (m.rep_extent, m.job_extent) == ext
+        assert m.devices == (torch.device("cpu"),) * m.size
     with pytest.raises(ValueError):
         fleet_mesh(devices=0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for kw in (dict(devices=2), dict(shape=(2, 1)), dict(shape=(1, 4))):
+        with pytest.raises(ValueError, match="only 1 are visible"):
+            fleet_mesh(**kw)
 
 
 # ---------------------------------------------------------------------------
@@ -467,24 +476,28 @@ def test_chunked_equals_monolithic_at_a_scenario_scale():
     assert_same_result(got, want)
 
 
-def test_run_all_routes_to_the_fleet(small_jobs, mono, tmp_path):
-    """run_all(devices=1) and run_all(chunk_jobs=) are run_all_fleet; a
-    run without them is the flat path; devices=2 and a chaos= that is no
+def test_run_all_routes_to_the_fleet(small_jobs, mono, tmp_path,
+                                     monkeypatch):
+    """run_all(devices=1), run_all(devices=2) on two host points and
+    run_all(chunk_jobs=) are run_all_fleet; a run without them is the
+    flat path; devices=2 with one visible card and a chaos= that is no
     FaultPlan raise; run_cluster(checkpoint=) routes to the windowed
     fleet and equals the plain windowed run."""
     want, r_want = mono
-    for kw in (dict(devices=1), dict(chunk_jobs=16),
+    for kw in (dict(devices=1), dict(devices=2), dict(chunk_jobs=16),
                dict(mesh=fleet_mesh(device="cpu"))):
         got, r_got = run_all(Philox(0), small_jobs, P, reps=2,
                              block_jobs=4, device="cpu", **kw)
         assert r_got == r_want
         for name in want:
             assert_same_result(got[name], want[name], name)
-    with pytest.raises(ValueError, match="one card"):
-        run_all(Philox(0), small_jobs, P, devices=2, device="cpu")
-    with pytest.raises(ValueError, match="one card"):
-        run_cluster(Philox(0), small_jobs, P, slots=50, devices=2,
-                    device="cpu")
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="only 1 are visible"):
+            run_all(Philox(0), small_jobs, P, devices=2)
+        with pytest.raises(ValueError, match="only 1 are visible"):
+            run_cluster(Philox(0), small_jobs, P, slots=50, devices=2)
     with pytest.raises(TypeError):
         run_all(Philox(0), small_jobs, P, chaos=object(), device="cpu")
     kw = dict(slots=50, chunk_jobs=10, strategies=("hadoop_ns", "sresume"),

@@ -380,12 +380,18 @@ def test_scheduler_execute_consistent_with_stream():
     assert res["output"].result.job_met.shape == (2,)
 
 
-def test_one_card_mesh_only(reqs):
+def test_one_card_mesh_only(reqs, monkeypatch):
+    """A one-point mesh and a two-point host mesh serve the bits of no
+    mesh; two points with one visible card raise."""
     _, port_reqs = reqs
     sub = port_reqs.slice(0, 64)
     a = serve(sub, strategy="sresume", window=64,
               mesh=fleet_mesh(devices=1, device="cpu"))
     assert same(a, serve(sub, strategy="sresume", window=64))
-    with pytest.raises(ValueError, match="one card"):
-        run_serve(Philox(0), sub, strategies=("hadoop_ns",), devices=2,
-                  device="cpu")
+    b = serve(sub, strategy="sresume", window=64,
+              mesh=fleet_mesh(devices=2, device="cpu"))
+    assert same(a, b)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="only 1 are visible"):
+        run_serve(Philox(0), sub, strategies=("hadoop_ns",), devices=2)
