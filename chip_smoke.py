@@ -378,8 +378,9 @@ Phases; each raises on failure, so any failure exits non-zero:
    forward moves its route's count by one, dq, dk and dv within phase
    16 (a)'s limits of autograd through the plain version on the card.
    (b) Each family cut in depth at full width, f32 compute
-   (CHECK_TRAIN_FAMILIES: 2 layers; zamba2 3, one group of one Mamba2
-   layer and the shared block, then one tail layer): one make_train_step
+   (CHECK_TRAIN_FAMILIES: olmoe and paligemma 1 layer, hubert and mamba2
+   2; zamba2 3, one group of one Mamba2 layer and the shared block, then
+   one tail layer): one make_train_step
    on 1 x 128 tokens (paligemma 256 patches + 64 text tokens, hubert 128
    frames) on the card (SIMT route, 2 launches an attention layer) and
    on the CPU from the same seeded weights; hubert on both gradient
@@ -390,16 +391,18 @@ Phases; each raises on failure, so any failure exits non-zero:
    AdamW on the card's gradients; the CPU's work under
    host_heap_reuse, as phase 16 (b)'s. (c) Each family at
    full width, f32 parameters and AdamW, bf16 compute, remat per block,
-   4 steps of 4 microbatches of 1 x 2048 tokens (paligemma 256 + 1792;
+   3 steps of 4 microbatches of 1 x 2048 tokens (paligemma 256 + 1792;
    hubert 2 x 1024 frames) on one repeated batch: olmoe-1b-7b,
    mamba2-2.7b and zamba2-7b through the Trainer (pipeline and governor
    on), paligemma-3b and hubert-xlarge (at lr 3e-4) through
    make_train_step; olmoe-1b-7b and zamba2-7b cut in depth to the most
    layers (groups) whose 16 bytes a parameter leave 10 GiB (zamba2 16
-   GiB) of the card. Every count set to 0 just before and read after
-   step 4: flash attention 2 per attention layer, microbatch and step,
-   all sm90; grid solve 5 per warm governor decision (Trainer) or none;
-   losses finite and lower at step 4 than at step 1; first and warm step
+   GiB) of the card, and for time mamba2-2.7b to 32 of 64 layers and
+   zamba2-7b to 5 groups (phase 22 took its seconds from here). Every
+   count set to 0 just before and read after the last step: flash
+   attention 2 per attention layer, microbatch and step, all sm90; grid
+   solve 5 per warm governor decision (Trainer) or none; losses finite
+   and lower at the last step than at the first; first and warm step
    s, tokens (frames) a second, peak memory, MFU (phase 16's formula,
    olmoe's experts at top-8 of 64); one microbatch's warm step profiled
    (the device's activity: idle share against its own wall, top ops) and
@@ -449,16 +452,38 @@ Phases; each raises on failure, so any failure exits non-zero:
    the records `alive=6` and `alive=4`, an ElasticGovernor(alpha=0)'s
    history of both, and the fault-free eight-point run's bits. Each
    run's wall beside its wall without a mesh (one card: no speedup is
-   expected). The script's total time is printed before the JSON lines.
+   expected).
 
-The last lines are the mesh JSON (phase 21), the planner JSON (phase 20),
+22. the sharded train step (DTensor eager SPMD). (a) On `card_mesh()`
+   (NCCL, (1, 1)): gemma2-2b at full width and olmoe-1b-7b cut in depth
+   as phase 19 cuts it, 2 steps each of 4 microbatches of 1 x 2048
+   tokens from seed 0, unsharded, then with the state and batch placed
+   by the plan (`place_train_state`), "shard_grads" and the parameters'
+   specs as grad_specs, under `plan_context`: losses, gradient norms and
+   every parameter against the unsharded step (bit-equal, or the first
+   differing leaf and its largest difference printed), flash-attention
+   launches counted from 0 (2 a layer, microbatch and step, all sm90,
+   each through the operator's DTensor rule), the first such launch's
+   local inputs through the plain version (FA_TOL and the bf16 relative
+   limits), step times, peak memory beside phase 16's. (b) Only where
+   two cards or more are visible: olmoe-1b-7b at full width cut to 2
+   layers on a (1, n) mesh of NCCL ranks, one a card, its losses against
+   one card's; on one card a line says that (b) did not run and why.
+   (c) The 16x16 dry run of gemma2-2b's (phase 20 (a)'s record) and
+   olmoe-1b-7b's train_4k (traced in a spawned process beside (a)) at
+   full width, sharded: per-device FLOPs and bytes from rank 0's trace,
+   wire bytes by collective, the roofline row with its collective term.
+   The script's total time is printed before the JSON lines.
+
+The last lines are the sharded-train JSON (phase 22), the mesh JSON
+(phase 21), the planner JSON (phase 20),
 the training-families
 JSON (phase 19), the ssm JSON
 (phase 18), the families JSON (phase 17), the training JSON (phase 16),
 the chaos JSON (phases 10e and 10f), the serving JSON (phase 10d), the
 fleet JSON (phase 10c), the cluster JSON (phase 10b), the scenarios JSON
 (phases 6-10), the kernels JSON, the card line and the result JSON; each
-of the first ten and the kernels JSON is also written under
+of the first eleven and the kernels JSON is also written under
 `chiprun_out/`.
 The script needs one CUDA card and exits non-zero without one.
 """
@@ -774,12 +799,12 @@ FA_GRAD_HOT = FA_D112_HOT + (
 CHECK_TRAIN_FAMILIES = dict(
     batch=1, seq=128, text=64, lr=3e-3, loss_rtol=1e-5, tol=1e-4,
     grad_tol=1e-3, bf16_tol=2.0 ** -7,
-    cuts={"olmoe-1b-7b": dict(n_layers=2), "paligemma-3b": dict(n_layers=2),
+    cuts={"olmoe-1b-7b": dict(n_layers=1), "paligemma-3b": dict(n_layers=1),
           "hubert-xlarge": dict(n_layers=2), "mamba2-2.7b": dict(n_layers=2),
           "zamba2-7b": dict(n_layers=3, shared_attn_every=2)},
     paths={"hubert-xlarge": ((), ("bf16_grads",))})
 # (c): each family at full width, f32 parameters and AdamW, bf16 compute,
-# remat each block (zamba2: each group), TRAIN's 4 steps of 4
+# remat each block (zamba2: each group), FAMILY_STEPS steps of TRAIN's 4
 # microbatches on one repeated batch: 1 x 2048 tokens (paligemma 256
 # patches + 1792 text tokens; hubert 2 x 1024 frames). olmoe, mamba2 and
 # zamba2 through the Trainer, the speculative pipeline and governor on;
@@ -792,17 +817,22 @@ CHECK_TRAIN_FAMILIES = dict(
 # for activations: 10 GiB for olmoe; 16 GiB for zamba2, whose backward
 # of a group holds five Mamba2 layers' recomputed activations and the
 # plain attention backward's (1, 32, 2048, 2048) f32 tensors (10 GiB ran
-# out of memory at 10 groups). hubert-xlarge trains at lr 3e-4, not the
-# Trainer's 3e-3, at which its 48 layers' loss rose over the 4 steps on
-# this batch of random frame labels
+# out of memory at 10 groups). `units` caps a cut further, for time: the
+# sharded step of phase 22 took its seconds back from here (mamba2-2.7b
+# 32 of 64 layers, zamba2-7b 5 groups, 3 steps where 4 were; the first
+# step moves no weight: the schedule's warm-up starts at 0). hubert-xlarge
+# trains at lr 3e-4, not the Trainer's 3e-3, at which its 48 layers'
+# loss rose over 4 steps on this batch of random frame labels
+FAMILY_STEPS = 3
 TRAIN_FAMILIES = (
     dict(arch="olmoe-1b-7b", via="trainer", cut="layers",
          headroom=10 * 2 ** 30),
     dict(arch="paligemma-3b", via="step", batch=4, seq=2048, lr=3e-3),
     dict(arch="hubert-xlarge", via="step", batch=8, seq=1024, lr=3e-4),
-    dict(arch="mamba2-2.7b", via="trainer"),
+    dict(arch="mamba2-2.7b", via="trainer", cut="layers",
+         headroom=10 * 2 ** 30, units=32),
     dict(arch="zamba2-7b", via="trainer", cut="groups",
-         headroom=16 * 2 ** 30))
+         headroom=16 * 2 ** 30, units=5))
 # (d): the serving launcher on the card, as a user runs it
 SERVE_LAUNCHER = ["--arch", "gemma2-2b", "--full-config", "--tokens", "16",
                   "--batch", "2"]
@@ -5583,7 +5613,7 @@ def depth_cut(spec, dev):
     `cut` spec the most layers (or hybrid groups, the tail kept) whose
     f32 parameters, gradients and AdamW moments (16 bytes a parameter,
     counted from models built on the card at depths 1 and 2) leave the
-    spec's `headroom` bytes of the card."""
+    spec's `headroom` bytes of the card, and at most its `units`."""
     cfg = get_config(spec["arch"])
     if "cut" not in spec:
         return cfg, None
@@ -5604,7 +5634,8 @@ def depth_cut(spec, dev):
     torch.cuda.empty_cache()
     unit, base = two - one, 2 * one - two
     total = torch.cuda.get_device_properties(dev).total_memory
-    n = min(full, (total - spec["headroom"] - 16 * base) // (16 * unit))
+    n = min(full, spec.get("units", full),
+            (total - spec["headroom"] - 16 * base) // (16 * unit))
     cut = dataclasses.replace(cfg, n_layers=layers_of(n))
     return cut, dict(unit=spec["cut"], kept=int(n), full=full,
                      layers=cut.n_layers, full_layers=cfg.n_layers,
@@ -5614,12 +5645,14 @@ def depth_cut(spec, dev):
 
 
 def train_family(spec, dev) -> dict:
-    """(c) for one family: TRAIN's 4 steps at full width (depth cut where
-    `spec` says), every count set to 0 just before (the Trainer's producer
-    thread decides as soon as it exists) and read after step 4:
+    """(c) for one family: FAMILY_STEPS steps at full width (depth cut
+    where `spec` says), every count set to 0 just before (the Trainer's
+    producer thread decides as soon as it exists) and read after the
+    last:
     flash-attention launches 2 a layer, microbatch and step, all sm90;
     grid solve 5 a warm governor decision (Trainer) or none; losses
-    finite and lower at step 4 than at step 1. First and warm step s,
+    finite and lower at the last step than at the first. First and warm
+    step s,
     tokens (frames) a second, peak memory, MFU; one microbatch's warm
     step profiled (the device's activity only: idle share against its
     own unprofiled wall, top ops), and the attention gradient's call
@@ -5628,7 +5661,7 @@ def train_family(spec, dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     cfg, cut = depth_cut(spec, dev)
-    n_steps, n_micro = TRAIN["n_steps"], TRAIN["n_micro"]
+    n_steps, n_micro = FAMILY_STEPS, TRAIN["n_micro"]
     decide_ms, governor_err = [], None
     if spec["via"] == "trainer":
         seqs, seq = TRAIN["global_batch"], TRAIN["seq_len"]
@@ -5866,15 +5899,75 @@ TRACE_DECODE = dict(batch=8, seq=32768, cut_from=(128, 32768))
 
 def dryrun_group(cells) -> list:
     """The records of one worker's cells (a mesh of None: every mesh of
-    DRYRUN_MESHES), traced on fake CUDA tensors."""
+    DRYRUN_MESHES), traced on fake CUDA tensors; a sharded trace's
+    record also gets its largest collectives (`top_collectives`)."""
     from repro_torch.launch import dryrun
     out = []
     for arch, shape, mesh in cells:
         for m in (DRYRUN_MESHES if mesh is None else (mesh,)):
             with contextlib.redirect_stdout(io.StringIO()):
-                rec, _ = dryrun.cell(arch, shape, m, device="cuda")
+                rec, log = dryrun.cell(arch, shape, m, device="cuda")
+            if rec["per_device"] == "trace" and rec["n_devices"] > 1:
+                rec["top_collectives"] = top_collectives(log)
             out.append(rec)
     return out
+
+
+def top_collectives(log, n: int = 8) -> list:
+    """The `n` collectives of an op log that move the most wire bytes,
+    by signature: kind, count, wire bytes, operand and result shapes and
+    type, group size."""
+    from repro_torch.launch.op_analyzer import cost, records_of
+    rows = []
+    for sig, count in records_of(log):
+        c = cost(sig)
+        if c["collective"]:
+            shapes = lambda ds: [list(d[1]) for d in ds if d[0] == "t"]
+            rows.append(dict(kind=c["collective"], count=count,
+                             wire_bytes=count * c["wire"],
+                             operands=shapes(sig[2]), results=shapes(sig[3]),
+                             dtype=next(d[3] for d in sig[2] if d[0] == "t"),
+                             group=sig[4]))
+    return sorted(rows, key=lambda r: -r["wire_bytes"])[:n]
+
+
+#: the logical axes `models.layers.weight` keeps sharded when it gathers
+#: a weight before its product (its tensor-parallel dims)
+TP_AXES = ("heads", "kv_heads", "ffn", "experts", "e_ffn", "vocab")
+
+
+def fsdp_reckoning(arch, mesh_kind="16x16", shape="train_4k") -> dict:
+    """A card's parameter all-gathers and gradient reduce-scatters of one
+    step, by hand from the plan: each leaf's bf16 shard gathered over the
+    mesh extents of its dims outside TP_AXES (a ring: its local bytes
+    times extents - 1), twice a microbatch in the blocks (the forward and
+    remat's recompute) and once outside them; its gradient
+    reduce-scattered back once a microbatch."""
+    from repro_torch.ckpt.checkpoint import tree_leaves_with_paths
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.models.param import abstract_params, param_axes
+    from repro_torch.sharding import make_plan, mesh_sizes, spec_div
+    cfg = get_config(arch)
+    mesh = dryrun.MESHES[mesh_kind]
+    plan = make_plan(cfg, mesh)
+    sizes = mesh_sizes(mesh)
+    params = abstract_params(cfg)
+    axes = dict(tree_leaves_with_paths(param_axes(cfg, params)))
+    seq, batch, _ = SHAPES[shape]
+    n_micro = dryrun.micro_count(arch, batch, plan._batch_div(), ())
+    gathers = scatters = 0.0
+    for path, p in tree_leaves_with_paths(params):
+        leaf = axes[path]
+        spec = plan.spec_for(p.shape, leaf)
+        g = math.prod(sizes[a] for ax, e in zip(leaf.axes, spec)
+                      if ax not in TP_AXES and e is not None
+                      for a in (e if isinstance(e, tuple) else (e,)))
+        wire = 2 * p.numel() / spec_div(spec, mesh) * (g - 1)
+        gathers += n_micro * (2 if path[0] == "blocks" else 1) * wire
+        scatters += n_micro * wire
+    return dict(all_gather_bytes=gathers, reduce_scatter_bytes=scatters,
+                total_bytes=gathers + scatters, n_micro=n_micro)
 
 
 def start_dryrun():
@@ -5895,29 +5988,17 @@ def phase_dryrun(futures, groups, t0) -> dict:
     arctic-480b's train_4k on `h100` and `16x16` (every spec checked
     against its leaf's shape in the cell: no mesh axis twice, every
     sharded dim divisible), each record's roofline row."""
-    from repro_torch.launch import roofline
     recs = [r for f in futures for r in f.result()]
     seconds = time.perf_counter() - t0
     rows = {}
     for rec in recs:
-        row = roofline.roofline_row(rec)
         key = f"{rec['arch']}/{rec['shape']}/{rec['mesh']}"
-        rows[key] = dict(
-            flops_per_device=rec["flops_per_device"],
-            hbm_bytes_per_device=rec["hbm_bytes_per_device"],
-            argument_bytes_per_device=rec["memory"]["argument_bytes"],
-            fits=rec["fits"], dominant=row["dominant"],
-            compute_s=row["compute_s"], memory_s=row["memory_s"],
-            collective_s=row["collective_s"], ideal_s=row["ideal_s"],
-            roofline_fraction=row["roofline_fraction"],
-            model_flops=rec["model_flops"], trace_s=rec["trace_s"],
-            n_micro=rec.get("n_micro"), plan_notes=rec["plan_notes"],
-            flash_attention_entries=rec["flash_attention_entries"])
+        row = rows[key] = dryrun_row(rec)
         print(f"  {key}: flops/dev {rec['flops_per_device']:.4e}, bytes/dev "
               f"{rec['hbm_bytes_per_device']:.4e}, args/dev "
               f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB, fits "
-              f"{rec['fits']}, dominant {row['dominant']} (trace "
-              f"{rec['trace_s']:.1f} s)")
+              f"{rec['fits']}, dominant {row['dominant']}, per device "
+              f"{rec['per_device']} (trace {rec['trace_s']:.1f} s)")
     want = {f"{a}/{s}/{m}" for g in groups for a, s, mesh in g
             for m in (DRYRUN_MESHES if mesh is None else (mesh,))}
     if set(rows) != want:
@@ -6485,6 +6566,411 @@ def phase_mesh(dev, p: SimParams) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the sharded train step
+# ---------------------------------------------------------------------------
+
+# (a) on card_mesh() (NCCL, (1, 1)): gemma2-2b at full width and
+# olmoe-1b-7b cut in depth as phase 19 cuts it, 2 steps of 4
+# microbatches of 1 x 2048 tokens each, with "shard_grads" and the
+# parameters' specs as grad_specs, against the unsharded step from the
+# same seed
+SHARDED = dict(archs=("gemma2-2b", "olmoe-1b-7b"), steps=2, batch=4,
+               seq=2048, n_micro=4)
+# (b) only with two cards or more: olmoe-1b-7b at full width cut to 2
+# layers on a (1, n) mesh of NCCL ranks, one a card, against one card;
+# bf16 compute summed in other orders, so the losses and gradient norms
+# are held within loss_rtol, and each parameter's difference from the
+# one card's, on average over its elements, within param_rtol of the
+# one card's update to it (no machine with two cards has run this yet:
+# both limits are provisional)
+SHARDED_CARDS = dict(arch="olmoe-1b-7b", layers=2, steps=2, batch=4,
+                     seq=1024, n_micro=2, loss_rtol=1e-2, param_rtol=0.1)
+# (c) the 16x16 dry run of the dense and moe train_4k cells, traced
+# sharded: gemma2-2b's is phase 20 (a)'s record, olmoe-1b-7b's is traced
+# here in a spawned process while (a) uses the card
+SHARDED_DRYRUN = ("gemma2-2b", "olmoe-1b-7b")
+
+
+def sharded_config(arch, dev):
+    """(config, depth record) as phase 22 trains `arch`: phase 19's depth
+    cut where it has one, else the full config."""
+    spec = next((s for s in TRAIN_FAMILIES if s["arch"] == arch), {})
+    if "cut" not in spec:
+        return get_config(arch), None
+    return depth_cut(spec, dev)
+
+
+def metric(x) -> float:
+    """A step's metric as a float: a replicated DTensor's local value."""
+    return float(x.to_local() if hasattr(x, "to_local") else x)
+
+
+def sharded_train_run(cfg, dev, mesh=None, capture=None) -> tuple:
+    """SHARDED's steps of `cfg` from seed 0: unsharded, or on `mesh` with
+    the state and batch placed by the plan and "shard_grads". The counts
+    are set to 0 just before the first step. `capture`, a dict, gets the
+    first flash-attention launch's local inputs and output. Returns
+    (state, record)."""
+    from repro_torch.models.param import param_axes
+    from repro_torch.sharding import make_plan, plan_context
+    from repro_torch.sharding.planner import place_train_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = model_lib.build(cfg)
+    opt = make_optimizer(cfg)
+    params = model.init(seed=0, device=dev)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    batch = make_batch(cfg, SHARDED["batch"], SHARDED["seq"], "train",
+                       seed=0, device=dev)
+    mask = torch.ones((SHARDED["n_micro"],), device=dev)
+    ctx, kw = contextlib.nullcontext(), {}
+    if mesh is not None:
+        plan = make_plan(cfg, mesh)
+        axes = param_axes(cfg, params)
+        kw = dict(opts=frozenset({"shard_grads"}), mesh=mesh,
+                  grad_specs=plan.param_specs(params, axes))
+        state, batch = place_train_state(plan, state, opt, batch, axes)
+        ctx = plan_context(plan)
+    del params
+    step = make_train_step(model, opt, SHARDED["n_micro"], **kw)
+    launch = fa._launch
+
+    def captured(route, q, k, v, causal, softcap, window=None, prefix_len=0):
+        out = launch(route, q, k, v, causal, softcap, window, prefix_len)
+        if capture is not None and not capture:
+            capture.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                           out=out.clone(), mask=dict(
+                               causal=causal, softcap=softcap, window=window,
+                               prefix_len=prefix_len))
+        return out
+
+    losses, norms, times = [], [], []
+    reset_counts()
+    fa._launch = captured
+    try:
+        with ctx:
+            for _ in range(SHARDED["steps"]):
+                (state, m), dt = synced(lambda: step(state, batch, mask))
+                losses.append(metric(m["loss"]))
+                norms.append(metric(m["grad_norm"]))
+                times.append(dt)
+    finally:
+        fa._launch = launch
+    return state, dict(losses=losses, grad_norms=norms, step_s=times,
+                       counts=fa_counts(),
+                       peak_memory_bytes=torch.cuda.max_memory_allocated(
+                           dev))
+
+
+def sharded_against_plain(arch, dev, mesh) -> dict:
+    """(a) for one arch: the unsharded steps, their parameters copied to
+    the host; then the sharded steps, their losses, gradient norms and
+    parameters against those (bit-equal, or the first differing leaf and
+    its largest difference), the flash launches counted, and the first
+    DTensor-path launch against the plain version on its own inputs."""
+    from repro_torch.ckpt.checkpoint import tree_leaves_with_paths
+    t0 = time.perf_counter()
+    cfg, cut = sharded_config(arch, dev)
+    state, plain = sharded_train_run(cfg, dev)
+    want = [(path, p.detach().cpu())
+            for path, p in tree_leaves_with_paths(state.params)]
+    n_leaves = len(want)
+    del state
+    capture = {}
+    state, sharded = sharded_train_run(cfg, dev, mesh, capture)
+    first_diff, equal = None, 0
+    for (path, w), (_, got) in zip(want, tree_leaves_with_paths(
+            state.params)):
+        g = got.to_local()
+        w = w.to(dev)
+        if torch.equal(g, w):
+            equal += 1
+        elif first_diff is None:
+            first_diff = dict(leaf=str(path), max_abs_diff=float(
+                (g.float() - w.float()).abs().max()))
+        del w
+    del state, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_fa = (2 * attention_layers(cfg) * SHARDED["n_micro"]
+               * SHARDED["steps"])
+    counts = sharded["counts"]
+    if (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_simt"]) != (want_fa, want_fa, 0):
+        raise AssertionError(f"phase 22 (a) {arch}: flash launches {counts}"
+                             f", expected {want_fa} sm90 (forward and "
+                             f"recompute of {attention_layers(cfg)} layers x "
+                             f"{SHARDED['n_micro']} microbatches x "
+                             f"{SHARDED['steps']} steps)")
+    if not all(math.isfinite(x) for x in sharded["losses"]
+               + sharded["grad_norms"]):
+        raise AssertionError(f"phase 22 (a) {arch}: {sharded}")
+    e, mean_rel, max_rel = fa_compare(
+        f"phase 22 {arch}'s first DTensor-path launch", capture["out"],
+        fa.attention_plain(capture["q"], capture["k"], capture["v"],
+                           **capture["mask"]), "bfloat16")
+    same = (sharded["losses"] == plain["losses"]
+            and sharded["grad_norms"] == plain["grad_norms"]
+            and first_diff is None)
+    out = dict(arch=arch, layers=cfg.n_layers, depth_cut=cut,
+               plain=plain, sharded=sharded, bit_equal=same,
+               leaves=n_leaves, leaves_equal=equal, first_differing_leaf=first_diff,
+               flash_attention_predicted=want_fa,
+               captured_launch=dict(
+                   shape=list(capture["q"].shape), mask=capture["mask"],
+                   max_abs_err=e, mean_rel=mean_rel, max_rel=max_rel),
+               seconds=time.perf_counter() - t0)
+    print(f"phase 22 (a) {arch} ({cfg.n_layers} layers, full width; "
+          f"{SHARDED['steps']} steps of {SHARDED['n_micro']} x "
+          f"{SHARDED['batch'] // SHARDED['n_micro']} x {SHARDED['seq']}) on "
+          f"card_mesh with shard_grads: losses {sharded['losses']} (plain "
+          f"{plain['losses']}), grad norms {sharded['grad_norms']} (plain "
+          f"{plain['grad_norms']}); parameters {equal} of {out['leaves']} "
+          f"leaves bit-equal"
+          + ("" if first_diff is None else f", first differing {first_diff}")
+          + f"; bit-equal {same}; flash launches {counts} (predicted "
+          f"{want_fa}); step s {sharded['step_s']} (plain {plain['step_s']});"
+          f" peak {sharded['peak_memory_bytes'] / 2**30:.2f} GiB (plain "
+          f"{plain['peak_memory_bytes'] / 2**30:.2f}); first DTensor-path "
+          f"launch {out['captured_launch']['shape']} against the plain "
+          f"version: max |err| {e:.3g}, mean rel {mean_rel:.3g}, max rel "
+          f"{max_rel:.3g}; {out['seconds']:.1f} s")
+    if not same:
+        # on (1, 1) every redistribution is a no-op: the kernels and the
+        # order of every sum are the unsharded step's
+        raise AssertionError(
+            f"phase 22 (a) {arch}: the sharded step on card_mesh is not "
+            f"bit-equal to the unsharded one: losses {sharded['losses']} "
+            f"against {plain['losses']}, grad norms "
+            f"{sharded['grad_norms']} against {plain['grad_norms']}, "
+            f"{equal} of {n_leaves} leaves equal, first differing leaf "
+            f"{first_diff}")
+    return out
+
+
+def sharded_cards_rank(rank, n, store_path, out_path):
+    """(b)'s rank `rank` of `n`, on cuda:`rank`: SHARDED_CARDS's steps on
+    the (1, n) mesh with "shard_grads"; rank 0 writes the losses and
+    gradient norms to `out_path` and the whole parameters, gathered, to
+    `out_path`.pt."""
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import tree_leaves
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.param import param_axes
+    from repro_torch.sharding import make_plan, plan_context
+    from repro_torch.sharding.planner import place_train_state
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(store_path, n),
+                            rank=rank, world_size=n, device_id=dev)
+    try:
+        c = SHARDED_CARDS
+        cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["layers"])
+        mesh = make_debug_mesh(1, n)
+        model = model_lib.build(cfg)
+        opt = make_optimizer(cfg)
+        params = model.init(seed=0, device=dev)
+        axes = param_axes(cfg, params)
+        plan = make_plan(cfg, mesh)
+        specs = plan.param_specs(params, axes)
+        state, batch = place_train_state(
+            plan, TrainState(params, opt.init(params), torch.zeros(
+                (), dtype=torch.int32, device=dev)), opt,
+            make_batch(cfg, c["batch"], c["seq"], "train", seed=0,
+                       device=dev), axes)
+        del params
+        step = make_train_step(model, opt, c["n_micro"],
+                               opts=frozenset({"shard_grads"}),
+                               grad_specs=specs, mesh=mesh)
+        mask = torch.ones((c["n_micro"],), device=dev)
+        losses, norms, times = [], [], []
+        with plan_context(plan):
+            for _ in range(c["steps"]):
+                (state, m), dt = synced(lambda: step(state, batch, mask))
+                losses.append(metric(m["loss"]))
+                norms.append(metric(m["grad_norm"]))
+                times.append(dt)
+        whole = [p.full_tensor().detach().cpu()
+                 for p in tree_leaves(state.params)]
+        if rank == 0:
+            torch.save(whole, f"{out_path}.pt")
+            Path(out_path).write_text(json.dumps(dict(
+                losses=losses, grad_norms=norms, step_s=times,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(dev))))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_cards(dev) -> dict:
+    """(b): only where the machine has two cards or more; on one card a
+    line says that it did not run and why."""
+    n = torch.cuda.device_count()
+    c = SHARDED_CARDS
+    if n < 2:
+        reason = (f"{n} card visible: the (1, n) mesh of NCCL ranks needs "
+                  f"two or more, one a card")
+        print(f"phase 22 (b): did not run: {reason}")
+        return dict(ran=False, cards=n, reason=reason)
+    import torch.multiprocessing as tmp
+    from repro_torch.ckpt.checkpoint import (tree_leaves,
+                                             tree_leaves_with_paths)
+    cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["layers"])
+    model = model_lib.build(cfg)
+    opt = make_optimizer(cfg)
+    params = model.init(seed=0, device=dev)
+    before = [p.detach().to("cpu", copy=True) for p in tree_leaves(params)]
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    batch = make_batch(cfg, c["batch"], c["seq"], "train", seed=0,
+                       device=dev)
+    step = make_train_step(model, opt, c["n_micro"])
+    mask = torch.ones((c["n_micro"],), device=dev)
+    one, one_norms = [], []
+    for _ in range(c["steps"]):
+        state, m = step(state, batch, mask)
+        one.append(float(m["loss"]))
+        one_norms.append(float(m["grad_norm"]))
+    paths = [str(path) for path, _ in tree_leaves_with_paths(state.params)]
+    after = [p.detach().cpu() for p in tree_leaves(state.params)]
+    del params, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        tmp.spawn(sharded_cards_rank, args=(n, f"{d}/store", f"{d}/out.json"),
+                  nprocs=n, join=True)
+        got = json.loads(Path(f"{d}/out.json").read_text())
+        whole = torch.load(f"{d}/out.json.pt")
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(got["losses"] + got["grad_norms"], one + one_norms))
+    def leaf_rel_of(g, a, b):
+        """A leaf's mean |difference| from the one card's over the mean
+        |update| the one card's steps made to it."""
+        d = float((g.float() - a.float()).abs().mean())
+        u = float((a.float() - b.float()).abs().mean())
+        return d / u if u > 0 else (0.0 if d == 0 else math.inf)
+
+    leaf_rel = {path: leaf_rel_of(g, a, b)
+                for path, g, a, b in zip(paths, whole, after, before)}
+    worst = max(leaf_rel, key=leaf_rel.get)
+    print(f"phase 22 (b): {c['arch']} at full width cut to {c['layers']} "
+          f"layers on a (1, {n}) mesh of NCCL ranks: losses {got['losses']} "
+          f"against one card's {one}, grad norms {got['grad_norms']} against "
+          f"{one_norms} (largest relative difference {rel:.3g}, limit "
+          f"{c['loss_rtol']}); parameters: the largest mean |difference| "
+          f"over the mean |update| {leaf_rel[worst]:.3g} at {worst} (limit "
+          f"{c['param_rtol']}); step s {got['step_s']}")
+    if rel > c["loss_rtol"] or leaf_rel[worst] > c["param_rtol"]:
+        raise AssertionError(
+            f"phase 22 (b): losses {got['losses']} against {one}, grad "
+            f"norms {got['grad_norms']} against {one_norms}, {worst}: "
+            f"{leaf_rel[worst]:.3g} of its update")
+    return dict(ran=True, cards=n, losses=got["losses"], one_card=one,
+                grad_norms=got["grad_norms"], one_card_grad_norms=one_norms,
+                max_rel_diff=rel, worst_leaf=worst,
+                worst_leaf_rel=leaf_rel[worst], step_s=got["step_s"],
+                peak_memory_bytes=got["peak_memory_bytes"])
+
+
+def dryrun_row(rec) -> dict:
+    """A dry-run record's figures and roofline row, as phases 20 and 22
+    print them."""
+    from repro_torch.launch import roofline
+    row = roofline.roofline_row(rec)
+    return dict(
+        flops_per_device=rec["flops_per_device"],
+        hbm_bytes_per_device=rec["hbm_bytes_per_device"],
+        argument_bytes_per_device=rec["memory"]["argument_bytes"],
+        fits=rec["fits"], dominant=row["dominant"],
+        compute_s=row["compute_s"], memory_s=row["memory_s"],
+        collective_s=row["collective_s"], ideal_s=row["ideal_s"],
+        roofline_fraction=row["roofline_fraction"],
+        model_flops=rec["model_flops"], trace_s=rec["trace_s"],
+        n_micro=rec.get("n_micro"), plan_notes=rec["plan_notes"],
+        flash_attention_entries=rec["flash_attention_entries"],
+        per_device=rec["per_device"],
+        collective_wire_bytes=rec["collective_wire_bytes"],
+        collectives=rec["collectives"],
+        top_collectives=rec.get("top_collectives"))
+
+
+def phase_sharded_dryrun(futures, planner) -> dict:
+    """(c): the 16x16 train_4k records of SHARDED_DRYRUN, traced sharded
+    (per-device figures from rank 0's trace, wire bytes by collective),
+    with their roofline rows and collective terms."""
+    recs = {r["arch"]: dryrun_row(r) for f in futures for r in f.result()}
+    key = "gemma2-2b/train_4k/16x16"
+    recs["gemma2-2b"] = planner["dryrun"]["cells"][key]
+    out = {}
+    for arch in SHARDED_DRYRUN:
+        r = recs[arch]
+        if r["per_device"] != "trace" or not r["collective_wire_bytes"] or \
+                not {"all-gather", "reduce-scatter"} <= set(r["collectives"]) \
+                or r["collective_s"] is None:
+            raise AssertionError(f"phase 22 (c) {arch}: {r}")
+        hand = r["fsdp_reckoning"] = fsdp_reckoning(arch)
+        out[arch] = r
+        print(f"phase 22 (c) {arch}/train_4k/16x16, sharded trace: flops/dev "
+              f"{r['flops_per_device']:.4e}, bytes/dev "
+              f"{r['hbm_bytes_per_device']:.4e}, wire bytes/dev "
+              f"{r['collective_wire_bytes']:.4e} ("
+              + ", ".join(f"{k} {v['count']:.0f} x, {v['wire_bytes']:.4e} B"
+                          for k, v in r["collectives"].items())
+              + f"); roofline compute {r['compute_s']:.4f} s, memory "
+              f"{r['memory_s']:.4f} s, collective {r['collective_s']:.4f} s, "
+              f"dominant {r['dominant']}, fraction "
+              f"{r['roofline_fraction']:.4f} (trace {r['trace_s']:.1f} s); "
+              f"by hand, the parameters' all-gathers "
+              f"{hand['all_gather_bytes']:.4e} B and their gradients' "
+              f"reduce-scatters {hand['reduce_scatter_bytes']:.4e} B, the "
+              f"traced wire {r['collective_wire_bytes'] / hand['total_bytes']:.2f}"
+              f"x that; largest: " + "; ".join(
+                  f"{c['kind']} {c['count']:.0f} x {c['operands']} -> "
+              f"{c['results']} {c['dtype']} {c['wire_bytes']:.4e} B"
+                  for c in r["top_collectives"][:6]))
+    return out
+
+
+def phase_sharded_train(dev, planner, phase16_peak) -> dict:
+    """Phase 22: the sharded train step. (c)'s olmoe trace starts in its
+    own process, (a) runs on card_mesh, (b) only on several cards."""
+    import concurrent.futures
+    import multiprocessing
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import card_mesh
+    t0 = time.perf_counter()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    futures = [pool.submit(dryrun_group, [
+        (a, "train_4k", "16x16") for a in SHARDED_DRYRUN
+        if a != "gemma2-2b"])]
+    try:
+        mesh = card_mesh()
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"card_mesh: backend "
+                                     f"{dist.get_backend()}, not nccl")
+            out = {arch: sharded_against_plain(arch, dev, mesh)
+                   for arch in SHARDED["archs"]}
+        finally:
+            dist.destroy_process_group()
+        peak = max(out[a]["sharded"]["peak_memory_bytes"]
+                   for a in SHARDED["archs"])
+        print(f"phase 22 (a): peak device memory of the sharded steps "
+              f"{peak / 2**30:.2f} GiB, beside phase 16's "
+              f"{phase16_peak / 2**30:.2f} GiB")
+        out["phase16_peak_memory_bytes"] = phase16_peak
+        out["cards"] = phase_sharded_cards(dev)
+        out["dryrun"] = phase_sharded_dryrun(futures, planner)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 22: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -6608,6 +7094,8 @@ def main() -> None:
     train_families = phase_train_families(dev)
     planner = phase_planner(dev)
     mesh = phase_mesh(dev, p)
+    sharded = phase_sharded_train(
+        dev, planner, train["full_width"]["peak_memory_bytes"])
 
     # last: a profiler session this large can cost the next session its
     # first kernel records, and kernel_ms counts every launch
@@ -6685,7 +7173,7 @@ def main() -> None:
         "train_warm_decisions": train["full_width"]["counts"][
             "warm_decisions"],
         "max_abs_err_train": train["full_width"]["governor_grid_max_abs_err"],
-        # phase 19 (c): each Trainer family's 4 steps, counted from 0; (d)
+        # phase 19 (c): each Trainer family's 3 steps, counted from 0; (d)
         # the serving launcher's hedged run
         "launches_train_families": {
             k: train_families[k]["counts"]["grid_solve"]
@@ -6836,7 +7324,13 @@ def main() -> None:
              # phase 20 (b): one traced full-width train step of 1 x 4096
              # (forward and remat recompute), equal to the analyzer's
              # flash-attention entries
-             launches_phase20=planner["trace"]["train"]["launches"]),
+             launches_phase20=planner["trace"]["train"]["launches"],
+             # phase 22 (a): the sharded steps on card_mesh, counted from 0
+             # (each launch on the local shards of the DTensor rule)
+             launches_phase22={
+                 a: dict(counts=sharded[a]["sharded"]["counts"],
+                         predicted=sharded[a]["flash_attention_predicted"])
+                 for a in SHARDED["archs"]}),
     ]
     ct = cluster["times"]
     kernels.append(dict(
@@ -6938,6 +7432,10 @@ def main() -> None:
             k["launches_mesh"] = mesh_launches(mesh, k["name"])
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
+    sharded_line = json.dumps({"sharded_train": sharded})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "sharded_train.json").write_text(sharded_line)
+    print(sharded_line)
     mesh_line = json.dumps({"mesh": mesh})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "mesh.json").write_text(mesh_line)

@@ -6,6 +6,8 @@ never silently measure the CPU in place of the device.
 """
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
@@ -18,6 +20,14 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is visible; pass device='cpu' to run the plain "
             "PyTorch path on the host")
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """Whether `x` is a `torch.distributed.tensor.DTensor` (a sharded
+    step's tensor). Imports nothing: with DTensor's module not loaded, no
+    DTensor exists."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def to_host(x) -> np.ndarray:

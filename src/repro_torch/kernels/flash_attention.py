@@ -46,6 +46,17 @@ Head dims 64, 80 (hubert-xlarge), 112 (zamba2-7b's shared attention),
 and the TMA unit zero-fills its 128-column shared tiles past them: Q K^T
 runs over K = D, and O += P V over N = D.
 
+On DTensors (a sharded train step) the operator has a sharding rule
+(`register_dtensor_rule`): on each mesh dim, q, k, v and the output are
+all replicated, all sharded on the batch (dim 0), or all sharded on the
+heads (dim 1) where the mesh extents divide both H and K, so that each
+rank's query heads meet their own kv group. DTensor moves the inputs to
+the cheapest of these, and the kernel (or on the CPU the plain version)
+runs on each rank's local shard. A sequence-sharded q (the plan's
+context-parallel fallback) has no strategy of its own: DTensor gathers
+the sequence first. The backward runs `attention_backward` on the same
+local shards.
+
 What bounds it on the card: operations (4 B H D for each (query, key)
 pair the mask allows: about half of Sq Sk under causal, S W - W^2 / 2
 with a window W) against q, k, v and out read or written once; at the
@@ -60,6 +71,7 @@ from typing import Optional
 
 import torch
 
+from ..device import is_dtensor
 from . import build
 
 #: launches of either CUDA kernel since the count was last set to 0
@@ -308,6 +320,48 @@ def _forward_fake(q, k, v, causal, softcap, window, prefix_len):
     raise ValueError(f"attention: no kernel for device {q.device}")
 
 
+def _shards_divide(shapes, input_specs) -> bool:
+    """A strategy of the operator is valid where every sharded dim of q,
+    k and v (of `shapes`) divides its mesh extents: a head-sharded q and
+    k then give each rank H/n query heads and their K/n kv heads."""
+    for shape, spec in zip(shapes, input_specs):
+        cuts = [1] * len(shape)
+        for mdim, plc in enumerate(spec.placements):
+            if plc.is_shard():
+                cuts[plc.dim] *= spec.mesh.size(mdim)
+        if any(n % c for n, c in zip(shape, cuts)):
+            return False
+    return True
+
+
+@functools.lru_cache(maxsize=None)
+def register_dtensor_rule() -> None:
+    """Register the DTensor sharding rule of `repro_torch::flash_attention`
+    (once; `attention_forward` calls it when it is given DTensors). On
+    each mesh dim: all replicated, all sharded on the batch, or all
+    sharded on the heads; `_shards_divide` drops a combination whose
+    shards would be uneven."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    from torch.distributed.tensor._ops.utils import \
+        expand_to_full_mesh_op_strategy
+
+    one_dim = [[Replicate()] * 4, [Shard(0)] * 4, [Shard(1)] * 4]
+
+    def strategy(op_schema):
+        args = op_schema.args_schema[:3]
+        out = expand_to_full_mesh_op_strategy(args[0].mesh, op_schema,
+                                              one_dim, input_index=1)
+        shapes = [a.shape for a in args]
+        out.strategies = [s for s in out.strategies
+                          if _shards_divide(shapes, s.input_specs)]
+        return out
+
+    DTensor._op_dispatcher.sharding_propagator.register_op_strategy(
+        torch.ops.repro_torch.flash_attention.default, strategy,
+        RuntimeSchemaInfo(static_argnum=3))
+
+
 def attention_forward(q, k, v, causal=True, softcap=None, window=None,
                       prefix_len=0):
     """Flash attention forward with no autograd record: q (B, H, Sq, D),
@@ -317,7 +371,10 @@ def attention_forward(q, k, v, causal=True, softcap=None, window=None,
     It is one operator, `torch.ops.repro_torch.flash_attention`, so that
     a dispatch mode (`launch/op_analyzer.py`) sees one entry a call on
     either route, fake tensors included, and costs the kernel's own work
-    rather than the plain version's (B, H, Sq, Sk) scores."""
+    rather than the plain version's (B, H, Sq, Sk) scores. On DTensors it
+    runs on each rank's local shards under `register_dtensor_rule`."""
+    if is_dtensor(q):
+        register_dtensor_rule()
     return _forward_op(q, k, v, bool(causal),
                        None if softcap is None else float(softcap),
                        None if window is None else int(window),
@@ -370,6 +427,21 @@ def attention_backward(q, k, v, dout, causal=True, softcap=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _backward_local(q, k, v, dout, plc, mask):
+    """`attention_backward` on DTensors: q, k, v and dout moved to the
+    placements `plc` the forward ran under (one of the rule's
+    strategies), the gradient of each rank's local shard, and each
+    gradient given back in its input's placements."""
+    from torch.distributed.tensor import DTensor
+    mesh = q.device_mesh
+    local = [x.redistribute(mesh, plc).to_local() for x in (q, k, v, dout)]
+    grads = attention_backward(*local, **mask)
+    return tuple(
+        DTensor.from_local(g, mesh, plc, run_check=False).redistribute(
+            mesh, x.placements)
+        for g, x in zip(grads, (q, k, v)))
+
+
 class _Attention(torch.autograd.Function):
     """`attention_forward` with `attention_backward` as its gradient;
     saves q, k and v (the backward recomputes the scores)."""
@@ -379,13 +451,18 @@ class _Attention(torch.autograd.Function):
         ctx.mask = dict(causal=causal, softcap=softcap, window=window,
                         prefix_len=prefix_len)
         out = attention_forward(q, k, v, **ctx.mask)
+        ctx.placements = tuple(out.placements) if is_dtensor(out) else None
         ctx.save_for_backward(q, k, v)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = attention_backward(q, k, v, dout, **ctx.mask)
+        if ctx.placements is not None:
+            dq, dk, dv = _backward_local(q, k, v, dout, ctx.placements,
+                                         ctx.mask)
+        else:
+            dq, dk, dv = attention_backward(q, k, v, dout, **ctx.mask)
         return dq, dk, dv, None, None, None, None
 
 

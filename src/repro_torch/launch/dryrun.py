@@ -18,13 +18,21 @@ Meshes:
     `fits` says whether they leave room in 80 GiB. `memory.temp_bytes`
     is null: only a run on the card measures it.
   * `16x16` and `2x16x16`: the reference's production meshes, planned
-    with `sharding.planner` (no devices). `memory.argument_bytes` per
-    device: each leaf's bytes over the product of the mesh extents its
-    spec uses (parameters, `state_spec_tree`, `batch_spec`,
-    `cache_spec_tree`). FLOPs and bytes per device are the trace's
-    totals over the device count (`"per_device": "even_split"`);
-    collective bytes are null until a sharded step runs on several
-    cards.
+    with `sharding.planner`. `memory.argument_bytes` per device: each
+    leaf's bytes over the product of the mesh extents its spec uses
+    (parameters, `state_spec_tree`, `batch_spec`, `cache_spec_tree`).
+    A dense or moe train cell is traced sharded (`trace_train_sharded`):
+    as rank 0 of a fake process group of 256 or 512 ranks, its state
+    and batch DTensors of fake tensors placed by the plan, the step run
+    as eager SPMD. FLOPs and bytes per device are then rank 0's local
+    ops, and the collectives of its redistributions give the wire bytes
+    (`"per_device": "trace"`). On CUDA fake tensors DTensor moves a
+    shard to another dim by an all-to-all; on CPU ones (`--device cpu`)
+    it all-gathers and chunks instead (gloo has no all-to-all), so such
+    a trace counts those moves n times over. The other cells split the
+    one-card trace's totals evenly (`"per_device": "even_split"`), with
+    null collective bytes and a `collective_reason` that says what
+    waits.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k \\
@@ -49,9 +57,10 @@ from ..device import resolve_device
 from ..models import model as model_lib
 from ..models.inputs import batch_struct
 from ..models.param import param_axes
-from ..sharding.planner import PlanMesh, check_spec, make_plan, spec_div
+from ..sharding.planner import (PlanMesh, check_spec, make_plan, place,
+                                place_train_state, plan_context, spec_div)
 from ..train.optimizer import make_optimizer
-from ..train.train_step import TrainState, make_train_step
+from ..train.train_step import TrainState, make_train_step, micro_rows
 from .op_analyzer import OpAnalyzer, log_of, records_of, summary_of
 
 # tokens per device per microbatch for train_4k (bounds activation memory)
@@ -69,7 +78,18 @@ MESHES = {
 }
 #: one H100 SXM's device memory
 HBM_CAPACITY_BYTES = 80 * 2**30
-NO_COLLECTIVES = "needs a sharded step on several cards (ROADMAP A.4)"
+#: the families whose train step runs sharded (DTensor parameters)
+SHARDED_FAMILIES = ("dense", "moe")
+
+
+def collective_reason(cfg, kind) -> str:
+    """Why a mesh cell's collective bytes are null."""
+    if kind != "train":
+        return (f"sharded {kind} steps wait (ROADMAP A.4); FLOPs and bytes "
+                f"are the one-card trace split evenly")
+    return (f"the sharded train step of the {cfg.family} family waits "
+            f"(ROADMAP A.4); FLOPs and bytes are the one-card trace split "
+            f"evenly")
 
 
 def n_microbatches(arch: str, global_batch: int, batch_div: int) -> int:
@@ -110,8 +130,9 @@ OPTS_HELP = (
     "masters), bf16grads (bf16 gradient accumulation), chunk128 / ssd_bf16 "
     "(SSD shaping), micro_half / micro_quarter / micro_double (gradient "
     "accumulation depth), ep_data (experts on the data axis), pod_fsdp "
-    "(ZeRO across pods). Not supported by the port, and refused: "
-    "blockattn, remat_dots, shardgrads")
+    "(ZeRO across pods), shardgrads (each microbatch's gradient "
+    "reduce-scattered to the parameters' specs; sharded cells only). Not "
+    "supported by the port, and refused: blockattn, remat_dots")
 
 #: the reference's options with no meaning in the port, and why
 UNSUPPORTED_OPTS = {
@@ -119,10 +140,10 @@ UNSUPPORTED_OPTS = {
                  "attn_impl",
     "remat_dots": "the port checkpoints whole blocks; it has no dots-only "
                   "policy",
-    "shardgrads": "sharded gradients need a sharded step on several cards",
 }
 OPTS = {"bf16cast", "bf16grads", "chunk128", "ssd_bf16", "micro_half",
-        "micro_quarter", "micro_double", "ep_data", "pod_fsdp"}
+        "micro_quarter", "micro_double", "ep_data", "pod_fsdp",
+        "shardgrads"}
 
 
 def _apply_cfg_opts(cfg, opts: set):
@@ -173,19 +194,77 @@ def micro_count(arch, batch, batch_div, opts) -> int:
 
 
 def step_opts(opts) -> frozenset:
-    flags = {"bf16_params": "bf16cast", "bf16_grads": "bf16grads"}
+    flags = {"bf16_params": "bf16cast", "bf16_grads": "bf16grads",
+             "shard_grads": "shardgrads"}
     return frozenset(o for o, flag in flags.items() if flag in opts)
 
 
 def trace_train(model, optimizer, state, micro_batch, n_micro: int,
-                analyzer: OpAnalyzer, opts=frozenset()):
+                analyzer: OpAnalyzer, opts=frozenset(), batch=None,
+                grad_specs=None, mesh=None):
     """One train step of `n_micro` microbatches as the analyzer counts
     it: `micro_batch`'s loss and backward n_micro times, the gradient
-    norm and the update once. Runs on fake or real tensors."""
+    norm and the update once. Runs on fake or real tensors. A sharded
+    step (DTensor state) also gives the global `batch`, which the step
+    lays out as microbatches once (`train_step.micro_rows`), and with
+    "shardgrads" the gradients' `grad_specs` on `mesh`."""
     step = make_train_step(model, optimizer, 1, opts=step_opts(opts),
+                           grad_specs=grad_specs, mesh=mesh,
                            micro_scope=lambda: analyzer.repeat(n_micro))
     with analyzer:
+        if batch is not None and n_micro > 1:
+            for x in batch.values():
+                micro_rows(x, n_micro)
         return step(state, micro_batch, [1.0])
+
+
+def trace_train_sharded(cfg, mesh, batch: int, seq: int, n_micro: int,
+                        opts=frozenset(), device=None):
+    """(op records, seconds) of one sharded train step of `cfg` on the
+    plan mesh `mesh`, traced as rank 0 of a fake process group of
+    `mesh.size` ranks (no communication, nothing allocated): the seeded
+    state and a zero `batch` x `seq` batch placed by the plan
+    (`place_train_state`) as DTensors of fake tensors, the step run
+    under `plan_context` as `trace_train` runs it. Starts and destroys
+    its own process group, so none may be started."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("trace_train_sharded: a process group is already "
+                           "started; the trace starts its own fake one")
+    dev = resolve_device(device)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        dmesh = init_device_mesh(dev.type, tuple(mesh.shape),
+                                 mesh_dim_names=tuple(mesh.axis_names))
+        plan = make_plan(cfg, dmesh, opts=frozenset(opts))
+        model = model_lib.build(cfg)
+        optimizer = make_optimizer(cfg)
+        an = OpAnalyzer()
+        with FakeTensorMode():
+            t0 = time.perf_counter()
+            params = model.init(seed=0, device=dev)
+            axes = param_axes(cfg, params)
+            state = TrainState(params, optimizer.init(params), torch.zeros(
+                (), dtype=torch.int32, device=dev))
+            gbatch = batch_struct(cfg, batch, seq, "train", dev)
+            micro = {k: x[: batch // n_micro] for k, x in gbatch.items()}
+            state, gbatch = place_train_state(plan, state, optimizer,
+                                              gbatch, axes)
+            micro = place(micro, plan.batch_spec(micro), dmesh)
+            shard = "shardgrads" in opts
+            with plan_context(plan):
+                trace_train(model, optimizer, state, micro, n_micro, an,
+                            opts, batch=gbatch,
+                            grad_specs=plan.param_specs(params, axes)
+                            if shard else None,
+                            mesh=dmesh if shard else None)
+            return list(an.records.items()), time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
 
 
 def trace_decode(model, params, tokens, cache, analyzer: OpAnalyzer):
@@ -215,6 +294,8 @@ def cell(arch: str, shape_name: str, mesh_kind: str, device=None,
     plan = make_plan(cfg, mesh, opts=frozenset(opts))
     n_dev = mesh.size
     dev = resolve_device(device)
+    sharded = n_dev > 1 and kind == "train" and \
+        cfg.family in SHARDED_FAMILIES
     model = model_lib.build(cfg)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
            "n_devices": n_dev, "kind": kind, "seq": seq, "batch": batch,
@@ -229,9 +310,7 @@ def cell(arch: str, shape_name: str, mesh_kind: str, device=None,
         if kind == "train":
             optimizer = make_optimizer(cfg)
             opt_state = optimizer.init(params)
-            ospecs = optimizer.state_spec_tree(pspecs, params) \
-                if cfg.optimizer == "adafactor" \
-                else optimizer.state_spec_tree(pspecs)
+            ospecs = optimizer.state_spec_tree(pspecs, params)
             memory["opt_state"] = per_device_bytes(opt_state, ospecs, mesh)
             n_micro = micro_count(arch, batch, plan._batch_div(), opts)
             gbatch = batch_struct(cfg, batch, seq, "train", dev)
@@ -241,7 +320,9 @@ def cell(arch: str, shape_name: str, mesh_kind: str, device=None,
             rec["micro_batch"] = batch // n_micro
             key = (arch, reduced, shape_name, tuple(sorted(opts)),
                    batch // n_micro, n_micro, str(dev))
-            if key not in _TRACES:
+            if sharded:
+                key += (mesh_kind,)   # traced below, out of this mode
+            elif key not in _TRACES:
                 an = OpAnalyzer()
                 state = TrainState(params, opt_state, torch.zeros(
                     (), dtype=torch.int32, device=dev))
@@ -277,35 +358,52 @@ def cell(arch: str, shape_name: str, mesh_kind: str, device=None,
                     trace_decode(model, params, tokens, cache, an)
                 _TRACES[key] = (list(an.records.items()),
                                 time.perf_counter() - t0)
+    if key not in _TRACES:
+        _TRACES[key] = trace_train_sharded(cfg, mesh, batch, seq, n_micro,
+                                           opts, device=dev)
     records, trace_s = _TRACES[key]
-    s = summary_of(records)
     arg = sum(memory.values())
+    rec["per_device"] = "trace" if n_dev == 1 or sharded else "even_split"
+    rec.update(_costs(summary_of(records), rec))
     rec.update({
-        # per device: the trace's on one card, an even split on a mesh
-        "flops_per_device": s["dot_flops"] / n_dev,
-        "hbm_bytes_per_device": s["hbm_bytes"] / n_dev,
-        "collective_wire_bytes": s["wire_bytes"] if n_dev == 1 else None,
-        "collectives": s["collectives"],
-        "per_device": "trace" if n_dev == 1 else "even_split",
-        "flops_total": s["dot_flops"], "hbm_bytes_total": s["hbm_bytes"],
         "memory": {"argument_bytes": arg, "argument_breakdown": memory,
                    "temp_bytes": None},
         "fits": arg <= HBM_CAPACITY_BYTES,
         "hbm_capacity_bytes": HBM_CAPACITY_BYTES,
         "model_flops": model_flops_analytic(cfg, shape_name),
         "trace_s": trace_s,
-        "n_ops": sum(s["op_counts"].values()),
-        "flash_attention_entries": s["flash_attention_entries"],
         "plan_notes": plan.notes,
     })
-    if n_dev > 1:
-        rec["collective_reason"] = NO_COLLECTIVES
+    if rec["per_device"] == "even_split":
+        rec["collective_reason"] = collective_reason(cfg, kind)
     if verbose:
         print(f"  {arch} {shape_name} {mesh_kind}: args/dev "
               f"{arg / 2**30:.2f} GiB (fits {rec['fits']}), flops/dev "
               f"{rec['flops_per_device']:.3e}, bytes/dev "
               f"{rec['hbm_bytes_per_device']:.3e}, trace {trace_s:.1f} s")
     return rec, log_of(records)
+
+
+def _costs(s, rec) -> dict:
+    """A record's fields from its trace's `summary_of`: per device, the
+    trace's own where it was one device's (one card, or rank 0 of a
+    sharded step: `rec["per_device"] == "trace"`), else the totals split
+    evenly over the devices, with no collective bytes."""
+    n = 1 if rec["per_device"] == "trace" else rec["n_devices"]
+    traced = rec["per_device"] == "trace"
+    return {
+        "flops_per_device": s["dot_flops"] / n,
+        "hbm_bytes_per_device": s["hbm_bytes"] / n,
+        "collective_wire_bytes": s["wire_bytes"] if traced else None,
+        "collectives": s["collectives"],
+        # a sharded trace's totals are rank 0's, times the ranks
+        "flops_total": s["dot_flops"] * rec["n_devices"] if traced
+        else s["dot_flops"],
+        "hbm_bytes_total": s["hbm_bytes"] * rec["n_devices"] if traced
+        else s["hbm_bytes"],
+        "flash_attention_entries": s["flash_attention_entries"],
+        "n_ops": sum(s["op_counts"].values()),
+    }
 
 
 def _tag(arch, shape_name, mesh_kind, suffix=""):
@@ -355,14 +453,7 @@ def reanalyze(out_dir: Path):
         rec = json.loads(jp.read_text())
         with gzip.open(lp, "rt") as f:
             s = summary_of(records_of(json.load(f)))
-        n = rec["n_devices"]
-        rec["flops_per_device"] = s["dot_flops"] / n
-        rec["hbm_bytes_per_device"] = s["hbm_bytes"] / n
-        rec["collective_wire_bytes"] = s["wire_bytes"] if n == 1 else None
-        rec["collectives"] = s["collectives"]
-        rec["flops_total"] = s["dot_flops"]
-        rec["hbm_bytes_total"] = s["hbm_bytes"]
-        rec["flash_attention_entries"] = s["flash_attention_entries"]
+        rec.update(_costs(s, rec))
         jp.write_text(json.dumps(rec, indent=1))
         print(f"[reanalyzed] {jp.name}")
 

@@ -21,8 +21,9 @@ tensors, with nothing allocated, or on the card) and costs each:
     `scatter_`, ...) moves its other operands twice (read, then written
     into place), as the reference costs its dynamic-update-slice; any
     other in-place op reads and writes it;
-  * wire_bytes: the functional collectives (`_c10d_functional`) with
-    the reference's ring factors over a group of n: all-gather
+  * wire_bytes: the functional collectives (`_c10d_functional`, and
+    DTensor's `_dtensor.shard_dim_alltoall`) with the reference's ring
+    factors over a group of n: all-gather
     |result|(n-1)/n, reduce-scatter and all-to-all |operand|(n-1)/n,
     all-reduce 2|operand|(n-1)/n;
   * op counts by name.
@@ -43,6 +44,17 @@ Ops are kept as signatures (name, operand and result shapes, the scalar
 arguments) with their counts, so `log_of` can store them and
 `summary_of` cost them again after a rule changes (`dryrun.reanalyze`).
 
+DTensor programs (a sharded step, `launch/dryrun.py`'s mesh cells):
+the mode steps aside for every op on DTensors, so that DTensor runs it
+as each rank's local ops and the collectives of its redistributions,
+which the mode then records at the local shapes of this rank. DTensor's
+bookkeeping is not work and is not recorded: the global-shape ops its
+sharding propagation runs on fake tensors to learn an output's shape,
+and the index arithmetic that sizes a strided shard (a flatten of two
+sharded dims), which runs on real CPU tensors even under
+`FakeTensorMode` (it reads no data of the step, and a fake tensor cannot
+give its `.tolist()`).
+
 Data-dependent sizes: under fake tensors, indexing by a boolean mask
 (moe's kept (token, slot) rows) takes its upper bound, every element
 kept; on real tensors the op runs as it is.
@@ -51,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import sys
 from collections import Counter
 
 import numpy as np
@@ -63,7 +76,8 @@ FLASH_OP = "repro_torch.flash_attention.default"
 #: annotation, or move no data
 _VIEWS = {"aten._unsafe_view.default", "aten.lift_fresh.default",
           "aten.set_.source_Storage_storage_offset", "aten.resize_.default",
-          "_c10d_functional.wait_tensor.default"}
+          "_c10d_functional.wait_tensor.default",
+          "_c10d_functional._wrap_tensor_autograd.default"}
 _ALLOCATIONS = ("aten.empty", "aten.new_empty", "aten.empty_like",
                 "aten.empty_strided", "aten.new_empty_strided")
 #: in-place ops that overwrite their destination without reading it
@@ -164,7 +178,11 @@ _CONTRACTIONS = {"mm", "bmm", "addmm", "baddbmm", "mv", "dot",
 _COLLECTIVES = {"all_gather_into_tensor": "all-gather",
                 "reduce_scatter_tensor": "reduce-scatter",
                 "all_reduce": "all-reduce",
-                "all_to_all_single": "all-to-all"}
+                "all_to_all_single": "all-to-all",
+                # DTensor's Shard(i) -> Shard(j) on one mesh dim (a CUDA
+                # mesh; on a CPU mesh DTensor all-gathers and chunks)
+                "shard_dim_alltoall": "all-to-all"}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional.", "_dtensor.")
 
 
 def cost(sig) -> dict:
@@ -195,7 +213,7 @@ def cost(sig) -> dict:
     else:
         out["bytes"] = sum(_nbytes(d) for d in operands) + \
             sum(_nbytes(d) for d in results)
-    if name.startswith("_c10d_functional.") and base in _COLLECTIVES:
+    if name.startswith(_COLLECTIVE_NAMESPACES) and base in _COLLECTIVES:
         n = max(int(n or 1), 1)
         frac = (n - 1) / n
         ob = sum(_nbytes(d) for d in read)
@@ -235,7 +253,7 @@ def summary_of(records) -> dict:
 
 def _group_size(func, args) -> int | None:
     base = func._schema.name.split("::")[-1]
-    if not str(func).startswith("_c10d_functional.") or \
+    if not str(func).startswith(_COLLECTIVE_NAMESPACES) or \
             base not in _COLLECTIVES:
         return None
     if base in ("all_gather_into_tensor", "reduce_scatter_tensor"):
@@ -285,6 +303,61 @@ class OpAnalyzer(TorchDispatchMode):
         super().__init__()
         self.mult = 1
         self.records: Counter = Counter()
+        self._dtensor = None     # the DTensor type, where it is loaded
+        self._shadow = 0         # depth inside DTensor's shape propagation
+        self._unpatch = None
+
+    def __enter__(self):
+        if "torch.distributed.tensor" in sys.modules:
+            self._skip_dtensor_bookkeeping()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        if self._unpatch is not None:
+            self._unpatch()
+            self._unpatch = None
+        return super().__exit__(*exc)
+
+    def _skip_dtensor_bookkeeping(self):
+        """While this mode is active, mark the ops of DTensor's shape
+        propagation (`_propagate_tensor_meta_non_cached`) and of its
+        strided-shard sizing (`_StridedShard.local_shard_size_and_offset`,
+        run outside any fake mode), so that they are not recorded."""
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator
+        from torch.distributed.tensor.placement_types import _StridedShard
+        self._dtensor = DTensor
+        mode, saved = self, []
+        for owner, name, real in (
+                (ShardingPropagator, "_propagate_tensor_meta_non_cached",
+                 False),
+                (_StridedShard, "local_shard_size_and_offset", True)):
+            orig = getattr(owner, name, None)
+            if orig is None:
+                # left unmarked, its ops would count as the step's work
+                raise RuntimeError(
+                    f"OpAnalyzer: torch {torch.__version__} has no "
+                    f"{owner.__name__}.{name}, whose ops the analyzer must "
+                    f"leave out of a DTensor trace")
+
+            def shadow(*args, _orig=orig, _real=real, **kwargs):
+                mode._shadow += 1
+                try:
+                    with (unset_fake_temporarily() if _real
+                          else contextlib.nullcontext()):
+                        return _orig(*args, **kwargs)
+                finally:
+                    mode._shadow -= 1
+
+            setattr(owner, name, shadow)
+            saved.append((owner, name, orig))
+
+        def unpatch():
+            for owner, name, orig in saved:
+                setattr(owner, name, orig)
+        self._unpatch = unpatch
 
     @contextlib.contextmanager
     def repeat(self, n: int):
@@ -298,8 +371,11 @@ class OpAnalyzer(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._dtensor is not None and any(
+                issubclass(t, self._dtensor) for t in types):
+            return NotImplemented   # DTensor runs it as local ops
         name = str(func)
-        if name.startswith("prim."):
+        if name.startswith("prim.") or self._shadow:
             return func(*args, **kwargs)
         if name == "aten.index.Tensor" and _fake(args[0]) and any(
                 t is not None and t.dtype in (torch.bool, torch.uint8)

@@ -7,8 +7,10 @@ Three terms per (arch x shape x mesh), in seconds a step:
   memory     = HBM_bytes_per_device / HBM_BW   (HBM3)
   collective = wire_bytes_per_device / NVLINK_BW  (one direction)
 
-A null collective term (a mesh of several cards, before a sharded step
-has run on them) is left out of the max and shown as "—". The bound is
+A mesh cell traced sharded (a dense or moe train cell: its record's
+`"per_device": "trace"`) has its wire bytes, so its collective term;
+a null one (a cell that still splits a one-card trace evenly) is left
+out of the max and shown as "—". The bound is
 the largest term. `ideal` = MODEL_FLOPS / (devices x PEAK_FLOPS), the
 time a perfect implementation would take; roofline_fraction = ideal /
 bound; flops_ratio = MODEL_FLOPS / traced FLOPs (remat and padding

@@ -18,7 +18,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels import ops
-from .layers import apply_rope, softcap
+from ..sharding.planner import constrain, replicate_like
+from .layers import apply_rope, softcap, weight
 from .param import normal
 
 
@@ -38,21 +39,23 @@ def init_attention(d_model, n_heads, n_kv_heads, head_dim, dtype,
 
 
 def _mask_bias(q_pos, k_pos, spec: MaskSpec, k_valid=None):
-    """Additive mask bias (..., Sq, Sk) from position grids."""
+    """Additive mask bias (..., Sq, Sk) from position grids (a grid
+    made here beside a DTensor one is replicated on its mesh)."""
     i = q_pos[..., :, None]
-    j = k_pos[..., None, :]
+    j = replicate_like(k_pos, q_pos)[..., None, :]
     if spec.causal:
         allowed = j <= i
         if spec.prefix_len:
             allowed = allowed | ((i < spec.prefix_len)
                                  & (j < spec.prefix_len))
     else:
-        allowed = torch.ones(torch.broadcast_shapes(i.shape, j.shape),
-                             dtype=torch.bool, device=i.device)
+        allowed = replicate_like(torch.ones(
+            torch.broadcast_shapes(i.shape, j.shape), dtype=torch.bool,
+            device=i.device), i)
     if spec.window is not None:
         allowed = allowed & (j > i - spec.window)
     if k_valid is not None:
-        allowed = allowed & k_valid[..., None, :]
+        allowed = allowed & replicate_like(k_valid, i)[..., None, :]
     zero = torch.zeros((), dtype=torch.float32, device=allowed.device)
     return torch.where(allowed, zero, torch.full_like(zero, -1e30))
 
@@ -72,8 +75,16 @@ def _attend(q, k, v, bias, n_kv, q_per_kv, cap):
 
 
 def _project(x, w):
-    """x (B, S, d) @ w (d, heads, Dh) -> (B, S, heads, Dh)."""
-    return (x @ w.to(x.dtype).flatten(1)).unflatten(-1, w.shape[1:])
+    """x (B, S, d) @ w (d, heads, Dh) -> (B, S, heads, Dh). A DTensor w
+    keeps only its heads shard (`weight`; a flatten of (heads, Dh)
+    sharded within a head would have no DTensor layout)."""
+    w = weight(w, x, (1,))
+    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+
+
+def _out_project(out, w):
+    """out (B, S, heads, Dh) @ w (heads, Dh, d) -> (B, S, d)."""
+    return out.flatten(2) @ weight(w, out, (0,)).flatten(0, 1)
 
 
 def attention_full(p, x, positions, cfg, spec: MaskSpec):
@@ -83,10 +94,19 @@ def attention_full(p, x, positions, cfg, spec: MaskSpec):
     Attention goes through `ops.attention` with the spec's mask
     (causal, window, prefix), whatever `cfg.attn_impl` says: the kernel
     forward under autograd on a CUDA tensor, the plain version on a CPU
-    one, with `attention_backward` as the gradient on both."""
-    xq = _project(x, p["wq"])
-    xk = _project(x, p["wk"])
-    xv = _project(x, p["wv"])
+    one, with `attention_backward` as the gradient on both.
+
+    Under a plan q, k and v are constrained as the reference's are, on
+    batch and heads, and the kernel runs on each rank's shard. Their
+    sequence is not: the kernel's DTensor rule has no context-parallel
+    strategy, so where the plan shards the sequence (heads that do not
+    divide the model axis) it is gathered once, before the projections
+    (DTensor also cannot flatten a batch- and sequence-sharded x into
+    the product's rows on every torch version)."""
+    x = constrain(x, ("batch", None, None))
+    xq = constrain(_project(x, p["wq"]), ("batch", None, "heads", None))
+    xk = constrain(_project(x, p["wk"]), ("batch", None, "kv_heads", None))
+    xv = constrain(_project(x, p["wv"]), ("batch", None, "kv_heads", None))
     if cfg.rope_fraction > 0 and cfg.head_dim:
         xq = apply_rope(xq, positions, cfg.head_dim, cfg.rope_fraction,
                         cfg.rope_theta)
@@ -96,7 +116,7 @@ def attention_full(p, x, positions, cfg, spec: MaskSpec):
                         xv.transpose(1, 2), causal=spec.causal,
                         softcap=cfg.attn_softcap, window=spec.window,
                         prefix_len=spec.prefix_len).transpose(1, 2)
-    out = out.flatten(2) @ p["wo"].to(x.dtype).flatten(0, 1)
+    out = constrain(_out_project(out, p["wo"]), ("batch", "seq", None))
     return out, (xk, xv)
 
 
@@ -111,7 +131,7 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg, spec: MaskSpec):
     back in x's type, as in the reference."""
     B = x.shape[0]
     Smax = cache_k.shape[1]
-    xq = _project(x, p["wq"])
+    xq = constrain(_project(x, p["wq"]), ("batch", None, "heads", None))
     xk = _project(x, p["wk"])
     xv = _project(x, p["wv"])
     if cfg.rope_fraction > 0 and cfg.head_dim:
@@ -129,5 +149,5 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg, spec: MaskSpec):
                       k_valid=(k_pos <= pos_l[:, None]))
     out = _attend(xq, cache_k.to(x.dtype), cache_v.to(x.dtype), bias,
                   cfg.n_kv_heads, cfg.q_per_kv, cfg.attn_softcap)
-    out = out.flatten(2) @ p["wo"].to(x.dtype).flatten(0, 1)
+    out = _out_project(out, p["wo"])
     return out, (cache_k, cache_v)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding.planner import constrain
 from .layers import rms_norm
 from .param import normal
 
@@ -239,6 +240,7 @@ def apply_mamba_full(p, x, cfg):
     dt = F.softplus(dtr.to(torch.float32) + p["dt_bias"].to(torch.float32))
     A = -torch.exp(p["A_log"].to(torch.float32))
     xh = xin.reshape(*xin.shape[:2], H, Pd)
+    xh = constrain(xh, ("batch", None, "ssm_heads", None))
     y, h_final = ssd_chunked(xh, dt, A, Bc, Cc, s.chunk,
                              intra_dtype=getattr(torch, s.intra_dtype))
     y = y + xh * p["D"].to(dtype)[:, None]

@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from . import attention as A
 from . import layers as L
 from . import moe as MOE
+from ..sharding.planner import constrain, replicate_like
 from .param import normal
 
 
@@ -201,19 +202,24 @@ def forward(params, batch, cfg, remat=True):
     whole block here: the same values, more work."""
     x, prefix_len = _embed_inputs(params, batch, cfg)
     B, S, _ = x.shape
-    positions = _positions(B, S, x.device)
+    positions = replicate_like(_positions(B, S, x.device), x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat and cfg.remat != "none" and torch.is_grad_enabled()
     for p, spec in zip(params["blocks"], layer_specs(cfg, prefix_len),
                        strict=True):
+        x = constrain(x, ("batch", "seq", None))
         if remat:
             x, a = checkpoint(_block_train, p, x, positions, cfg, spec,
                               use_reentrant=False)
         else:
             x, a = _block_train(p, x, positions, cfg, spec)
         aux = aux + a
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.logits_head(params["lm_head"], x, cfg.final_softcap), aux
+    # the head's vocabulary takes the model axis: a sequence sharded on
+    # it is gathered first
+    x = L.rms_norm(constrain(x, ("batch", None, None)), params["final_norm"],
+                   cfg.norm_eps)
+    logits = L.logits_head(params["lm_head"], x, cfg.final_softcap)
+    return constrain(logits, ("batch", "seq", "vocab")), aux
 
 
 def _block_train(p, x, positions, cfg, spec):
@@ -231,15 +237,19 @@ def loss_fn(params, batch, cfg, remat=True):
     logits, aux = forward(params, batch, cfg, remat)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     V = cfg.vocab_size
+    logits = logits[..., :V]
     if cfg.vision is not None:
         logits = logits[:, cfg.vision.n_patches:]
     if not cfg.causal:
-        ce = L.cross_entropy(logits[..., :V], torch.clamp(labels, min=0),
+        ce = L.cross_entropy(logits, torch.clamp(labels, min=0),
                              mask=labels >= 0)
     else:
-        ce = L.cross_entropy(logits[:, :-1, :V],
-                             torch.clamp(labels[:, 1:], min=0),
-                             mask=labels[:, 1:] >= 0)
+        # each position's NLL (the last against a wrapped label), then
+        # the last dropped: slicing the small (B, S) NLL keeps a
+        # DTensor's (B, S, V) logits where they lie
+        nxt = torch.cat([labels[:, 1:], labels[:, :1]], dim=1)
+        nll = L.token_nll(logits, torch.clamp(nxt, min=0))
+        ce = L.masked_mean(nll[:, :-1], labels[:, 1:] >= 0)
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux_loss": aux}
 

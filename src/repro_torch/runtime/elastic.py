@@ -19,8 +19,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..ckpt.checkpoint import tree_map
-from ..sharding.planner import Plan, make_plan, placements
+from ..sharding.planner import Plan, make_plan, place
 
 
 @dataclass
@@ -109,17 +108,8 @@ def reshard_state(state, old_plan: Plan, new_plan: Plan, axes):
     its spec's placements (`axes`: `param_axes` of the state's layout).
     A leaf may be a full host tensor (a checkpoint's) or a DTensor of the
     old mesh, which is gathered first: every rank of the old mesh calls
-    this."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    this (`sharding.planner.place`)."""
     mesh = new_plan.mesh
     if isinstance(mesh, RankGrid):
         mesh = mesh.device_mesh
-    device = mesh.device_type
-
-    def move(x, spec):
-        if isinstance(x, DTensor):
-            x = x.full_tensor()
-        return distribute_tensor(x.detach().to(device), mesh,
-                                 placements(spec, mesh))
-
-    return tree_map(move, state, new_plan.param_specs(state, axes))
+    return place(state, new_plan.param_specs(state, axes), mesh)

@@ -34,11 +34,11 @@ from __future__ import annotations
 
 import contextlib
 import math
-import threading
 from dataclasses import dataclass, field
 from typing import Optional
 
 from ..ckpt.checkpoint import tree_map
+from ..device import is_dtensor
 
 _SMALL = 1 << 16
 
@@ -144,9 +144,12 @@ def placements(spec, mesh) -> tuple:
     """DTensor placements for `spec` on a `DeviceMesh`: per mesh dim,
     `Shard(d)` where tensor dim d's entry names it, else `Replicate()`.
     A tuple entry shards one dim over several mesh dims in the mesh's
-    order, outer first (as DTensor splits them)."""
+    order, outer first (as DTensor splits them). A mesh dim of extent 1
+    holds every dim whole, so it replicates (DTensor will not reshape a
+    dim "sharded" over one rank: a microbatch of one row on `card_mesh`)."""
     from torch.distributed.tensor import Replicate, Shard
     names = axis_names(mesh)
+    sizes = tuple(mesh.shape)
     out = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
         idx = [names.index(a) for a in _flat(entry)]
@@ -157,7 +160,7 @@ def placements(spec, mesh) -> tuple:
             if not isinstance(out[i], Replicate):
                 raise ValueError(f"placements: mesh axis {names[i]!r} twice "
                                  f"in {spec}")
-            out[i] = Shard(d)
+            out[i] = Shard(d) if sizes[i] > 1 else Replicate()
     return tuple(out)
 
 
@@ -365,15 +368,18 @@ def make_plan(cfg, mesh, opts: frozenset = frozenset()) -> Plan:
 # Activation-constraint context (`constrain` by logical axes)
 # ---------------------------------------------------------------------------
 
-_ctx = threading.local()
+#: the plan of the innermost `plan_context`, for the whole process: the
+#: autograd engine runs a CUDA backward, and with it a checkpoint's
+#: recompute of the forward, on threads of its own
+_current: list = [None]
 
 
 @contextlib.contextmanager
 def plan_context(plan: Plan):
-    """Make `plan` current in this thread (and its `DeviceMesh` the
-    current mesh, where it is one)."""
-    prev = getattr(_ctx, "plan", None)
-    _ctx.plan = plan
+    """Make `plan` current (and its `DeviceMesh` the current mesh, where
+    it is one)."""
+    prev = _current[0]
+    _current[0] = plan
     enter = getattr(plan.mesh, "__enter__", None)
     try:
         if enter is None:
@@ -382,31 +388,158 @@ def plan_context(plan: Plan):
             with plan.mesh:
                 yield plan
     finally:
-        _ctx.plan = prev
+        _current[0] = prev
 
 
 def current_plan() -> Optional[Plan]:
-    return getattr(_ctx, "plan", None)
+    return _current[0]
 
 
-def constrain(x, logical: tuple):
+def constrain(x, logical: tuple, dims: Optional[tuple] = None):
     """Redistribute a DTensor to the current plan's spec for its logical
     axes; `x` itself outside a plan or when it is not a DTensor. Axes
     whose dim does not divide the mesh extent are dropped (batch-1
-    decode, seq 1)."""
+    decode, seq 1).
+
+    `logical` is resolved in its own order (`Plan.act_spec`: the last
+    axis wins a mesh axis that two want); `dims` then picks the resolved
+    entry of each dim of `x`, for a tensor whose dims are the reference's
+    in another order (moe's (E, B*C, D) buffers against the reference's
+    (B, E, C, D): `dims=(1, 0, 3)`)."""
+    if not is_dtensor(x):
+        return x
+    want = constraint_placements(x.shape, logical, x.device_mesh, dims)
+    if want is None or tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def constraint_placements(shape, logical: tuple, mesh,
+                          dims: Optional[tuple] = None):
+    """The placements `constrain` gives a tensor of `shape` on `mesh`;
+    None outside a plan."""
     plan = current_plan()
     if plan is None:
-        return x
-    from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
-        return x
-    sizes = mesh_sizes(plan.mesh)
+        return None
     spec = list(plan.act_spec(logical))
+    if dims is not None:
+        spec = [spec[i] for i in dims]
+    sizes = mesh_sizes(plan.mesh)
     for i, ax in enumerate(spec):
         if ax is None:
             continue
         div = math.prod(sizes[a] for a in _flat(ax))
-        if x.shape[i] % div:
+        if shape[i] % div:
             spec[i] = None
-    return x.redistribute(x.device_mesh, placements(Spec(*spec),
-                                                    x.device_mesh))
+    return placements(Spec(*spec), mesh)
+
+
+# ---------------------------------------------------------------------------
+# DTensor programs: plain tensors made inside a step, and placed state
+# ---------------------------------------------------------------------------
+
+
+def replicate_like(x, ref):
+    """`x` as a replicated DTensor on `ref`'s mesh where `ref` is a
+    DTensor and `x` is not (a position grid, RoPE's frequencies, a mask
+    that a step makes inside a DTensor program); `x` itself otherwise.
+    Every rank makes the same `x`, so no collective is needed."""
+    if not is_dtensor(ref) or is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ref.device_mesh
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def unshard(x, keep: tuple = ()):
+    """A DTensor `x` with every dim but those in `keep` gathered (its
+    shards there made replicas: the FSDP all-gather of a weight before
+    it is used, where a product reshapes it); `x` itself where nothing
+    moves or it is not a DTensor."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    want = tuple(p if p.is_shard() and p.dim in keep else
+                 p if p.is_replicate() else Replicate()
+                 for p in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def batch_placements(x) -> tuple:
+    """The placements of a DTensor `x` cut down to its batch sharding:
+    `Shard(0)` on the mesh dims that shard dim 0, `Replicate()` on the
+    others. Work that is independent a batch row (moe's routing and
+    dispatch) runs on each rank's rows under these."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+
+
+def shard_range(n: int, plc: tuple, mesh, dim: int) -> tuple:
+    """(start, length) of this rank's piece of a dim of `n` under the
+    placements `plc` on `mesh`: each mesh dim that shards `dim`, outer
+    first, cuts the piece before it as `torch.chunk` does."""
+    coord = mesh.get_coordinate()
+    lo = 0
+    for mdim, p in enumerate(plc):
+        if p.is_shard(dim):
+            chunk = -(-n // mesh.size(mdim))
+            start = min(coord[mdim] * chunk, n)
+            lo, n = lo + start, min(chunk, n - start)
+    return lo, n
+
+
+def place(tree, specs, mesh):
+    """Every leaf of `tree` as a DTensor on the `DeviceMesh` `mesh` with
+    the placements of its spec in `specs` (a tree of the same layout;
+    None leaves stay None). A leaf may be a full tensor, which every rank
+    holds alike (a seeded init, a checkpoint: each rank keeps its own
+    shard of it, with no collective), or a DTensor of any mesh, which is
+    gathered first: every rank of its mesh calls this. A rank outside
+    `mesh` keeps an empty shard, as `distribute_tensor` gives it."""
+    from torch.distributed.tensor import DTensor
+    device = mesh.device_type
+
+    def move(x, spec):
+        if x is None:
+            return None
+        if is_dtensor(x):
+            x = x.full_tensor()
+        x = x.detach().to(device)
+        plc = placements(spec, mesh)
+        if mesh.get_coordinate() is None:
+            local = x.new_empty(0)
+        else:
+            local = x
+            for d in range(x.dim()):
+                lo, n = shard_range(x.shape[d], plc, mesh, d)
+                if n != x.shape[d]:
+                    local = local.narrow(d, lo, n)
+            if local is not x:
+                local = local.contiguous()   # the whole tensor can go
+        return DTensor.from_local(local, mesh, plc, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    return tree_map(move, tree, specs)
+
+
+def place_train_state(plan: Plan, state, optimizer, batch=None, axes=None):
+    """A `TrainState` (and a batch) as DTensors on the plan's
+    `DeviceMesh`: the parameters by `plan.param_specs`, the optimizer
+    state by its `state_spec_tree`, the step replicated, the batch by
+    `plan.batch_spec`. The counterpart of the reference's
+    `jax.device_put(params, plan.param_shardings(meta))`. Returns
+    (state, batch), batch None when none is given."""
+    from ..train.train_step import TrainState
+    mesh = plan.mesh
+    pspecs = plan.param_specs(state.params, axes)
+    ospecs = optimizer.state_spec_tree(pspecs, state.params)
+    opt = type(state.opt_state)(*(place(x, spec, mesh) for x, spec in
+                                  zip(state.opt_state, ospecs)))
+    placed = TrainState(place(state.params, pspecs, mesh), opt,
+                        place(state.step, Spec(), mesh))
+    if batch is None:
+        return placed, None
+    return placed, place(batch, plan.batch_spec(batch), mesh)

@@ -88,11 +88,11 @@ class AdamW:
         tree_map(leaf, grads, params, state.m, state.v, state.master)
         return params, AdamWState(step, state.m, state.v, state.master)
 
-    def state_spec_tree(self, param_specs):
+    def state_spec_tree(self, param_specs, params_struct=None):
         """Partition specs of the state given the parameters' (the
         reference's: m, v and master take their parameter's spec; an
         f32 parameter's master is None in the state, and its spec goes
-        unused)."""
+        unused). `params_struct` is unused: Adafactor's takes it."""
         from ..sharding.planner import Spec
         return AdamWState(step=Spec(), m=param_specs, v=param_specs,
                           master=param_specs)

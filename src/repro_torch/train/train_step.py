@@ -21,12 +21,15 @@ the compute copies, added into an accumulator of their type.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 from ..ckpt.checkpoint import tree_leaves, tree_rebuild
+from ..device import is_dtensor
+from ..sharding.planner import batch_placements, placements, replicate_like
 
 
 class TrainState(NamedTuple):
@@ -48,45 +51,80 @@ def make_train_step(model, optimizer, n_micro: int, lr_schedule=None,
       "bf16_params"  cast f32 parameters of 2 or more dims to bf16 once a
                      step, before the microbatches;
       "bf16_grads"   accumulate gradients in bf16;
-      "shard_grads"  constrain the accumulator to the parameters'
-                     shardings; with `grad_specs` it needs a mesh, which
-                     the one-card port does not have, so it raises.
+      "shard_grads"  with `grad_specs` (a `Spec` a parameter) and `mesh`
+                     (their `DeviceMesh`): each microbatch's gradient is
+                     moved to its spec's placements before it is added
+                     (on DTensor parameters, the reduce-scatter inside
+                     the loop), as the reference constrains its
+                     accumulator to the parameters' shardings.
+
+    DTensor state (`sharding.planner.place_train_state`): every rank runs
+    the same step on its shards (eager SPMD), the models' `constrain`
+    calls placing the activations under `plan_context`. Without
+    "shard_grads" each gradient is reduced once, after the last
+    microbatch, to its parameter's placements; the optimizer never meets
+    a partial sum. A batch sharded on its rows is laid out as
+    (n_micro, rows) with each microbatch's rows sharded alike, which
+    gathers the batch once a step. The loss, the gradient norm and the
+    active shards come back replicated.
     """
-    if "shard_grads" in opts and grad_specs is not None:
-        raise NotImplementedError(
-            "make_train_step: 'shard_grads' with grad_specs needs a device "
-            "mesh; the port runs on one card (ROADMAP.md, multi-card item)")
     unknown = set(opts) - {"bf16_params", "bf16_grads", "shard_grads"}
     if unknown:
         raise ValueError(f"make_train_step: unknown opts {sorted(unknown)}")
+    shard = "shard_grads" in opts and grad_specs is not None
+    if shard and mesh is None:
+        raise ValueError("make_train_step: 'shard_grads' with grad_specs "
+                         "needs the device mesh of the specs (mesh=)")
     separate = "bf16_params" in opts or "bf16_grads" in opts
     acc_dt = torch.bfloat16 if "bf16_grads" in opts else torch.float32
 
     def micro_of(batch, device):
         out = {}
         for k, x in batch.items():
+            if is_dtensor(x):
+                out[k] = micro_rows(x, n_micro)
+                continue
             x = torch.as_tensor(x, device=device)
             out[k] = x.reshape((n_micro, x.shape[0] // n_micro)
                                + tuple(x.shape[1:]))
         return out
 
+    def targets(leaves):
+        """Each leaf's gradient placements: its grad spec's with
+        "shard_grads", else its own; None for a tensor that is not a
+        DTensor."""
+        specs = tree_leaves(grad_specs) if shard else [None] * len(leaves)
+        return [None if not is_dtensor(p) else
+                placements(spec, mesh) if shard else tuple(p.placements)
+                for p, spec in zip(leaves, specs, strict=True)]
+
     def grads_in_place(params, micro, mask, denom):
         """The .grad path; returns (loss sum, gradient leaves)."""
         leaves = tree_leaves(params)
-        for p in leaves:
+        want = targets(leaves)
+        hooks = []
+        for p, t in zip(leaves, want):
             p.requires_grad_(True)
             p.grad = None
+            if shard and t is not None:
+                hooks.append(p.register_post_accumulate_grad_hook(
+                    functools.partial(_move_grad, placements=t)))
         loss_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
-        for i in range(n_micro):
-            with micro_scope():
-                mb = {k: x[i] for k, x in micro.items()}
-                loss, _ = model.loss_fn(params, mb)
-                (mask[i] * loss).backward()
-                loss_sum = loss_sum + mask[i] * loss.detach()
+        try:
+            for i in range(n_micro):
+                with micro_scope():
+                    mb = {k: x[i] for k, x in micro.items()}
+                    loss, _ = model.loss_fn(params, mb)
+                    (mask[i] * loss).backward()
+                    loss_sum = loss_sum + mask[i] * loss.detach()
+        finally:
+            for h in hooks:
+                h.remove()
         # a leaf the loss does not use (audio's `embed`) gets no .grad;
         # jax.grad gives it zeros, and so does this
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad.div_(denom)
-                 for p in leaves]
+        grads = [torch.zeros_like(p) if p.grad is None
+                 else _reduced(p.grad, t).div_(denom)
+                 for p, t in zip(leaves, want)]
         for p in leaves:
             p.grad = None
         return loss_sum, grads
@@ -102,8 +140,8 @@ def make_train_step(model, optimizer, n_micro: int, lr_schedule=None,
         cparams = tree_rebuild(params, iter([compute(p) for p in
                                              tree_leaves(params)]))
         leaves = tree_leaves(cparams)
-        acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-               for p in leaves]
+        want = targets(leaves)
+        acc = [None] * len(leaves)
         loss_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
         for i in range(n_micro):
             with micro_scope():
@@ -111,10 +149,16 @@ def make_train_step(model, optimizer, n_micro: int, lr_schedule=None,
                 loss, _ = model.loss_fn(cparams, mb)
                 gs = torch.autograd.grad(loss, leaves, allow_unused=True,
                                          materialize_grads=True)
-                for a, g in zip(acc, gs):
-                    a.add_((mask[i] * g.to(torch.float32)).to(acc_dt))
+                for j, (g, t) in enumerate(zip(gs, want)):
+                    g = (mask[i] * g.to(torch.float32)).to(acc_dt)
+                    if shard:
+                        g = _reduced(g, t)
+                    if acc[j] is None:
+                        acc[j] = torch.zeros_like(g)
+                    acc[j].add_(g)
                 loss_sum = loss_sum + mask[i] * loss.detach()
-        return loss_sum, [a.to(torch.float32) / denom for a in acc]
+        return loss_sum, [_reduced(a, t).to(torch.float32) / denom
+                          for a, t in zip(acc, want)]
 
     def train_step(state: TrainState, batch, shard_mask):
         params = state.params
@@ -133,11 +177,53 @@ def make_train_step(model, optimizer, n_micro: int, lr_schedule=None,
         new_params, new_opt = optimizer.update(grad_tree, state.opt_state,
                                                params, lr_scale=lr_scale)
         del grads, grad_tree
-        metrics = {"loss": mean_loss, "grad_norm": gnorm,
-                   "active_shards": torch.sum(mask)}
+        ref = tree_leaves(params)[0]
+        metrics = {"loss": _replicated(mean_loss),
+                   "grad_norm": _replicated(gnorm),
+                   "active_shards": replicate_like(torch.sum(mask), ref)}
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return train_step
+
+
+def _reduced(g, placements):
+    """A DTensor gradient in `placements` (a partial sum reduced, a
+    replica scattered); `g` itself where it is there already or is not a
+    DTensor."""
+    if placements is None or tuple(g.placements) == placements:
+        return g
+    return g.redistribute(g.device_mesh, placements)
+
+
+def _move_grad(p, placements):
+    """Post-accumulate-grad hook: the accumulated `.grad` into
+    `placements`, so that the next microbatch's gradient is reduced into
+    it rather than kept as a partial sum."""
+    p.grad = _reduced(p.grad, placements)
+
+
+def _replicated(x):
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def micro_rows(x, n_micro):
+    """A DTensor batch leaf (rows sharded by the plan's `batch_spec`) as
+    (n_micro, rows / n_micro, ...), each microbatch's rows sharded as
+    the batch's were: microbatch i is rows [i m, (i + 1) m), as the
+    reference reshapes it. The rows are gathered once (tokens: a few
+    bytes a row) and cut again on each rank without a collective; one
+    microbatch needs neither."""
+    from torch.distributed.tensor import Replicate, Shard
+    if n_micro == 1:
+        return x.unsqueeze(0)
+    mesh = x.device_mesh
+    full = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    full = full.reshape((n_micro, x.shape[0] // n_micro) + tuple(x.shape[1:]))
+    return full.redistribute(mesh, [Shard(1) if p == Shard(0) else p
+                                    for p in batch_placements(x)])
 
 
 def cosine_schedule(base=1.0, warmup=100, total=10_000, floor=0.1):

@@ -268,20 +268,69 @@ def test_main_writes_a_cell_that_roofline_reads(tmp_path, capsys):
 
 
 def test_production_mesh_cell_splits_and_plans():
-    """A 16x16 cell of reduced olmoe (moe: the kept rows at their upper
-    bound under fake tensors) with the ep_data option: even split, no
-    collective bytes yet, the plan's notes, and arguments per device
-    below the whole."""
+    """olmoe-1b-7b's train_4k on 16x16 at full width (moe: the kept rows
+    at their upper bound under fake tensors), traced sharded as rank 0
+    of a fake process group of 256: per-device figures from the trace,
+    collective bytes with all-gathers (the parameters' FSDP gathers) and
+    reduce-scatters (their gradients'), less work a device than on one
+    card, and arguments per device below the whole. (Reduced, no leaf
+    reaches the 2^16 elements the plan shards.) A prefill cell on the
+    same mesh still splits evenly and says what waits."""
     one, _ = dryrun.cell("olmoe-1b-7b", "train_4k", "h100", device="cpu",
-                         reduced=True, verbose=False)
+                         verbose=False)
     rec, _ = dryrun.cell("olmoe-1b-7b", "train_4k", "16x16", device="cpu",
-                         reduced=True, verbose=False, opts={"ep_data"})
-    assert rec["per_device"] == "even_split" and rec["n_micro"] == 8
-    assert rec["collective_wire_bytes"] is None
-    assert rec["collective_reason"] == dryrun.NO_COLLECTIVES
-    assert rec["flops_per_device"] == pytest.approx(rec["flops_total"] / 256)
+                         verbose=False)
+    assert rec["per_device"] == "trace" and rec["n_micro"] == 8
+    assert rec["collective_wire_bytes"] > 0
+    assert {"all-gather", "reduce-scatter"} <= set(rec["collectives"])
+    assert "collective_reason" not in rec
+    assert rec["flops_per_device"] < one["flops_per_device"]
+    assert rec["flops_total"] == pytest.approx(rec["flops_per_device"] * 256)
     assert rec["memory"]["argument_bytes"] < one["memory"]["argument_bytes"]
-    assert rec["opts"] if "opts" in rec else True
+    row = roofline.roofline_row(rec)
+    assert row["collective_s"] == pytest.approx(
+        rec["collective_wire_bytes"] / roofline.NVLINK_BW)
+    pre, _ = dryrun.cell("olmoe-1b-7b", "prefill_32k", "16x16",
+                         device="cpu", reduced=True, verbose=False)
+    assert pre["per_device"] == "even_split"
+    assert pre["collective_wire_bytes"] is None
+    assert "prefill" in pre["collective_reason"]
+
+
+@pytest.mark.parametrize("mesh_kind,opts", [("2x16x16", ()),
+                                             ("16x16", ("ep_data",))])
+def test_sharded_moe_train_cell(mesh_kind, opts):
+    """olmoe-1b-7b's train_4k at full width, traced sharded on the
+    2x16x16 mesh (rank 0 of a fake process group of 512) and on 16x16
+    with the experts on the data axis (`ep_data`, the plan's token-moving
+    expert parallelism): per-device figures from the trace, the
+    parameters' all-gathers and their gradients' reduce-scatters, a
+    collective term in the roofline. The (E, B*C, D) expert buffers
+    cross the data axis (the tokens go to their experts' ranks) under
+    ep_data only: otherwise each rank dispatches to its own experts and
+    sums partially."""
+    from repro_torch.models.moe import _capacity
+    cfg = get_config("olmoe-1b-7b")
+    rec, log = dryrun.cell("olmoe-1b-7b", "train_4k", mesh_kind,
+                           device="cpu", verbose=False, opts=frozenset(opts))
+    n_dev = dryrun.MESHES[mesh_kind].size
+    assert rec["n_devices"] == n_dev == (512 if mesh_kind == "2x16x16"
+                                         else 256)
+    assert rec["per_device"] == "trace"
+    assert rec["n_micro"] == (4 if mesh_kind == "2x16x16" else 8)
+    assert rec["collective_wire_bytes"] > 0
+    assert {"all-gather", "reduce-scatter"} <= set(rec["collectives"])
+    assert "collective_reason" not in rec
+    assert rec["flops_total"] == pytest.approx(rec["flops_per_device"]
+                                               * n_dev)
+    assert roofline.roofline_row(rec)["collective_s"] == pytest.approx(
+        rec["collective_wire_bytes"] / roofline.NVLINK_BW)
+    C, E, D = _capacity(4096, cfg.moe), cfg.moe.n_experts, cfg.d_model
+    buffers = [
+        sig for sig, _ in records_of(log) if cost(sig)["collective"] and any(
+            d[0] == "t" and len(d[1]) == 3 and d[1][0] in (E, E // 16)
+            and d[1][1] % C == 0 and d[1][2] == D for d in sig[2])]
+    assert bool(buffers) == ("ep_data" in opts), buffers[:3]
 
 
 def test_options_and_device():

@@ -400,7 +400,7 @@ def test_train_step_drops_a_shard_like_reference(loss_setup, opts):
 def test_train_step_mask_weights_and_shard_grads(loss_setup):
     _, tcfg, rparams = loss_setup
     model = model_lib.build(tcfg)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh"):
         make_train_step(model, AdamW(), 2, opts=frozenset({"shard_grads"}),
                         grad_specs={"any": None})
     with pytest.raises(ValueError, match="unknown opts"):
