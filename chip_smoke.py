@@ -397,8 +397,8 @@ Phases; each raises on failure, so any failure exits non-zero:
    on), paligemma-3b and hubert-xlarge (at lr 3e-4) through
    make_train_step; olmoe-1b-7b and zamba2-7b cut in depth to the most
    layers (groups) whose 16 bytes a parameter leave 10 GiB (zamba2 16
-   GiB) of the card, and for time mamba2-2.7b to 32 of 64 layers and
-   zamba2-7b to 5 groups (phase 22 took its seconds from here). Every
+   GiB) of the card, and for time mamba2-2.7b to 16 of 64 layers and
+   zamba2-7b to 3 groups (phase 22 took its seconds from here). Every
    count set to 0 just before and read after the last step: flash
    attention 2 per attention layer, microbatch and step, all sm90; grid
    solve 5 per warm governor decision (Trainer) or none; losses finite
@@ -414,12 +414,19 @@ Phases; each raises on failure, so any failure exits non-zero:
 
 20. the sharding planner, the dry run and the roofline. (a)
    `launch/dryrun.py`'s cells on fake CUDA tensors at full width, in 4
-   spawned processes (DRYRUN_GROUPS) while (b) and (c) use the card:
+   spawned processes (DRYRUN_GROUPS) started before phase 18, beside
+   phases 18 and 19 and while (b) and (c) use the card:
    every applicable shape of gemma2-2b and zamba2-7b and arctic-480b's
    train_4k, on `h100` and `16x16`; each cell checks every spec against
    its leaf (no mesh axis twice, every sharded dim divisible); per cell
    FLOPs and bytes per device, arguments per device, `fits` and the
-   roofline's dominant term; arctic-480b must not fit one card. (b)
+   roofline's dominant term; arctic-480b must not fit one card. Every
+   16x16 cell is traced sharded as rank 0 of a fake process group of
+   256 (train, prefill and decode alike): its record must have
+   `"per_device": "trace"` and wire bytes, and a decode cell (decode_32k,
+   long_500k) raises if any collective's result holds a cache leaf's
+   whole extent on a dim `cache_spec_tree` shards (a gathered cache;
+   `dryrun.cache_gathers`). (b)
    gemma2-2b at full width, each step traced on fake tensors and run on
    the card under the op analyzer: one microbatch's train step
    (TRACE_TRAIN: 1 x 4096, AdamW) and one decode step (TRACE_DECODE: 8
@@ -455,27 +462,48 @@ Phases; each raises on failure, so any failure exits non-zero:
    expected).
 
 22. the sharded train step (DTensor eager SPMD). (a) On `card_mesh()`
-   (NCCL, (1, 1)): gemma2-2b at full width and olmoe-1b-7b cut in depth
-   as phase 19 cuts it, 2 steps each of 4 microbatches of 1 x 2048
-   tokens from seed 0, unsharded, then with the state and batch placed
+   (NCCL, (1, 1)): gemma2-2b at full width, olmoe-1b-7b cut in depth as
+   phase 19 cuts it, and paligemma-3b, hubert-xlarge, mamba2-2.7b (2
+   layers each) and zamba2-7b (3: one group and one tail layer) at full
+   width in their bf16 compute (SHARDED_CUTS, phase 19 (b)'s depths), 2
+   steps each of 4 microbatches of 1 x 2048 tokens (paligemma 256
+   patches and 1792 text tokens, hubert 2048 frames) from seed 0,
+   unsharded, then with the state and batch placed
    by the plan (`place_train_state`), "shard_grads" and the parameters'
    specs as grad_specs, under `plan_context`: losses, gradient norms and
    every parameter against the unsharded step (bit-equal, or the first
    differing leaf and its largest difference printed), flash-attention
-   launches counted from 0 (2 a layer, microbatch and step, all sm90,
-   each through the operator's DTensor rule), the first such launch's
+   launches counted from 0 (2 an attention layer, microbatch and step,
+   all sm90, each through the operator's DTensor rule; none for
+   mamba2), the first such launch's
    local inputs through the plain version (FA_TOL and the bf16 relative
    limits), step times, peak memory beside phase 16's. (b) Only where
    two cards or more are visible: olmoe-1b-7b at full width cut to 2
    layers on a (1, n) mesh of NCCL ranks, one a card, its losses against
    one card's; on one card a line says that (b) did not run and why.
-   (c) The 16x16 dry run of gemma2-2b's (phase 20 (a)'s record) and
-   olmoe-1b-7b's train_4k (traced in a spawned process beside (a)) at
-   full width, sharded: per-device FLOPs and bytes from rank 0's trace,
-   wire bytes by collective, the roofline row with its collective term.
+   (c) The 16x16 dry run of every family's train_4k at full width,
+   sharded (gemma2-2b's and zamba2-7b's are phase 20 (a)'s records, the
+   others traced in two spawned processes started before phase 18):
+   per-device FLOPs
+   and bytes from rank 0's trace, wire bytes by collective (all-gathers
+   and reduce-scatters required) beside `fsdp_reckoning`'s by hand, the
+   roofline row with its collective term.
+
+23. sharded prefill and decode (SHARDED_SERVE). On `card_mesh()`:
+   gemma2-2b at full width and zamba2-7b at full width cut to 4 of its
+   13 groups (the tail kept), weights cast to bf16 once, a 4 x 2048
+   prompt and 16 greedy decode steps from seed 0, unsharded, then with
+   the weights, prompt, tokens and caches placed by `place_serve_state`
+   under `plan_context`: every step's logits, the greedy tokens and
+   every cache leaf after the prefill and after the last step bit-equal
+   (it raises otherwise, naming the first difference); flash-attention
+   launches counted from 0 (one a prefill's attention layer: 26 and 4,
+   all sm90; none a decode step), the first one's local inputs through
+   the plain version; prefill and decode-step seconds, peak memory.
    The script's total time is printed before the JSON lines.
 
-The last lines are the sharded-train JSON (phase 22), the mesh JSON
+The last lines are the sharded-serve JSON (phase 23), the sharded-train
+JSON (phase 22), the mesh JSON
 (phase 21), the planner JSON (phase 20),
 the training-families
 JSON (phase 19), the ssm JSON
@@ -483,7 +511,7 @@ JSON (phase 19), the ssm JSON
 the chaos JSON (phases 10e and 10f), the serving JSON (phase 10d), the
 fleet JSON (phase 10c), the cluster JSON (phase 10b), the scenarios JSON
 (phases 6-10), the kernels JSON, the card line and the result JSON; each
-of the first eleven and the kernels JSON is also written under
+of the first twelve and the kernels JSON is also written under
 `chiprun_out/`.
 The script needs one CUDA card and exits non-zero without one.
 """
@@ -818,9 +846,10 @@ CHECK_TRAIN_FAMILIES = dict(
 # of a group holds five Mamba2 layers' recomputed activations and the
 # plain attention backward's (1, 32, 2048, 2048) f32 tensors (10 GiB ran
 # out of memory at 10 groups). `units` caps a cut further, for time: the
-# sharded step of phase 22 took its seconds back from here (mamba2-2.7b
-# 32 of 64 layers, zamba2-7b 5 groups, 3 steps where 4 were; the first
-# step moves no weight: the schedule's warm-up starts at 0). hubert-xlarge
+# sharded steps of phase 22 took their seconds back from here (mamba2-2.7b
+# 16 of 64 layers, zamba2-7b 3 groups, 3 steps where 4 were; the first
+# step moves no weight: the schedule's warm-up starts at 0, so 3 steps is
+# the fewest whose losses can fall). hubert-xlarge
 # trains at lr 3e-4, not the Trainer's 3e-3, at which its 48 layers'
 # loss rose over 4 steps on this batch of random frame labels
 FAMILY_STEPS = 3
@@ -830,9 +859,9 @@ TRAIN_FAMILIES = (
     dict(arch="paligemma-3b", via="step", batch=4, seq=2048, lr=3e-3),
     dict(arch="hubert-xlarge", via="step", batch=8, seq=1024, lr=3e-4),
     dict(arch="mamba2-2.7b", via="trainer", cut="layers",
-         headroom=10 * 2 ** 30, units=32),
+         headroom=10 * 2 ** 30, units=16),
     dict(arch="zamba2-7b", via="trainer", cut="groups",
-         headroom=16 * 2 ** 30, units=5))
+         headroom=16 * 2 ** 30, units=3))
 # (d): the serving launcher on the card, as a user runs it
 SERVE_LAUNCHER = ["--arch", "gemma2-2b", "--full-config", "--tokens", "16",
                   "--batch", "2"]
@@ -5877,17 +5906,19 @@ def phase_train_families(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 # (a) the dry run's cells on the card's fake tensors, one process a group
-# of cells, while (b) and (c) use the card; a cell's traces are shared by
-# the meshes of one process, so each (arch, shape) keeps its meshes
-# together but for the two longest train traces, which run apart (a
-# mesh of None: every mesh of DRYRUN_MESHES)
+# of cells, started before phase 18 (they need no card); every 16x16 cell
+# is a trace of its own (rank 0 of a sharded step), so the longest ones
+# (zamba2-7b's train and prefill on each mesh) run apart (a mesh of None:
+# every mesh of DRYRUN_MESHES)
 DRYRUN_MESHES = ("h100", "16x16")
 DRYRUN_GROUPS = (
-    (("zamba2-7b", "train_4k", "h100"), ("zamba2-7b", "decode_32k", None)),
-    (("zamba2-7b", "train_4k", "16x16"), ("zamba2-7b", "long_500k", None)),
-    (("arctic-480b", "train_4k", None), ("gemma2-2b", "prefill_32k", None),
-     ("gemma2-2b", "decode_32k", None), ("gemma2-2b", "long_500k", None)),
-    (("zamba2-7b", "prefill_32k", None), ("gemma2-2b", "train_4k", None)))
+    (("zamba2-7b", "train_4k", "16x16"), ("gemma2-2b", "long_500k", None)),
+    (("zamba2-7b", "train_4k", "h100"), ("zamba2-7b", "prefill_32k",
+                                         "16x16")),
+    (("arctic-480b", "train_4k", None), ("zamba2-7b", "decode_32k", None)),
+    (("zamba2-7b", "prefill_32k", "h100"), ("gemma2-2b", "train_4k", None),
+     ("gemma2-2b", "prefill_32k", None), ("gemma2-2b", "decode_32k", None),
+     ("zamba2-7b", "long_500k", None)))
 # (b) gemma2-2b at full width traced fake and run on the card: one
 # microbatch's train step (train_4k's 4 x 4096 cut to the 1 x 4096 that
 # fits beside the f32 parameters, AdamW's moments and the gradients) and
@@ -5900,15 +5931,20 @@ TRACE_DECODE = dict(batch=8, seq=32768, cut_from=(128, 32768))
 def dryrun_group(cells) -> list:
     """The records of one worker's cells (a mesh of None: every mesh of
     DRYRUN_MESHES), traced on fake CUDA tensors; a sharded trace's
-    record also gets its largest collectives (`top_collectives`)."""
+    record also gets its largest collectives (`top_collectives`), and a
+    sharded decode's the collectives that would hold a gathered cache
+    (`dryrun.cache_gathers`, to be empty)."""
     from repro_torch.launch import dryrun
     out = []
     for arch, shape, mesh in cells:
         for m in (DRYRUN_MESHES if mesh is None else (mesh,)):
             with contextlib.redirect_stdout(io.StringIO()):
                 rec, log = dryrun.cell(arch, shape, m, device="cuda")
-            if rec["per_device"] == "trace" and rec["n_devices"] > 1:
+            if rec["n_devices"] > 1:
                 rec["top_collectives"] = top_collectives(log)
+                if rec["kind"] == "decode":
+                    rec["cache_gathers"] = dryrun.cache_gathers(
+                        arch, shape, m, log)
             out.append(rec)
     return out
 
@@ -5933,16 +5969,18 @@ def top_collectives(log, n: int = 8) -> list:
 
 #: the logical axes `models.layers.weight` keeps sharded when it gathers
 #: a weight before its product (its tensor-parallel dims)
-TP_AXES = ("heads", "kv_heads", "ffn", "experts", "e_ffn", "vocab")
+TP_AXES = ("heads", "kv_heads", "ffn", "experts", "e_ffn", "vocab",
+           "ssm_in", "ssm_heads")
 
 
 def fsdp_reckoning(arch, mesh_kind="16x16", shape="train_4k") -> dict:
     """A card's parameter all-gathers and gradient reduce-scatters of one
     step, by hand from the plan: each leaf's bf16 shard gathered over the
     mesh extents of its dims outside TP_AXES (a ring: its local bytes
-    times extents - 1), twice a microbatch in the blocks (the forward and
-    remat's recompute) and once outside them; its gradient
-    reduce-scattered back once a microbatch."""
+    times extents - 1), twice a microbatch in the checkpointed blocks
+    (the forward and remat's recompute; the hybrid's groups and tail, and
+    its shared block twice in each group), once outside them; its
+    gradient reduce-scattered back once a microbatch."""
     from repro_torch.ckpt.checkpoint import tree_leaves_with_paths
     from repro_torch.configs import SHAPES
     from repro_torch.launch import dryrun
@@ -5956,6 +5994,9 @@ def fsdp_reckoning(arch, mesh_kind="16x16", shape="train_4k") -> dict:
     axes = dict(tree_leaves_with_paths(param_axes(cfg, params)))
     seq, batch, _ = SHAPES[shape]
     n_micro = dryrun.micro_count(arch, batch, plan._batch_div(), ())
+    uses = {"blocks": 2, "groups": 2, "tail": 2,
+            "shared_attn": 2 * (cfg.n_layers // cfg.hybrid.shared_attn_every
+                                if cfg.hybrid else 0)}
     gathers = scatters = 0.0
     for path, p in tree_leaves_with_paths(params):
         leaf = axes[path]
@@ -5964,19 +6005,23 @@ def fsdp_reckoning(arch, mesh_kind="16x16", shape="train_4k") -> dict:
                       if ax not in TP_AXES and e is not None
                       for a in (e if isinstance(e, tuple) else (e,)))
         wire = 2 * p.numel() / spec_div(spec, mesh) * (g - 1)
-        gathers += n_micro * (2 if path[0] == "blocks" else 1) * wire
+        gathers += n_micro * uses.get(path[0], 1) * wire
         scatters += n_micro * wire
     return dict(all_gather_bytes=gathers, reduce_scatter_bytes=scatters,
                 total_bytes=gathers + scatters, n_micro=n_micro)
 
 
-def start_dryrun():
-    """(a)'s processes started: (pool, futures, groups, start time)."""
+def start_dryrun(groups=DRYRUN_GROUPS):
+    """The dry run's processes started, one a group of cells (they need
+    no card): (pool, futures, applicable cells of each group, start
+    time). Phase 20 (a)'s and phase 22 (c)'s start before phase 18, so
+    that their traces run beside phases 18 and 19 on the host's other
+    cores; `main` shuts both pools down."""
     import concurrent.futures
     import multiprocessing
     from repro_torch.configs import shape_applicable
     groups = [[c for c in g if shape_applicable(c[0], c[1])[0]]
-              for g in DRYRUN_GROUPS]
+              for g in groups]
     pool = concurrent.futures.ProcessPoolExecutor(
         len(groups), mp_context=multiprocessing.get_context("spawn"))
     return pool, [pool.submit(dryrun_group, g) for g in groups], groups, \
@@ -5987,9 +6032,12 @@ def phase_dryrun(futures, groups, t0) -> dict:
     """(a): every applicable shape of gemma2-2b and zamba2-7b and
     arctic-480b's train_4k on `h100` and `16x16` (every spec checked
     against its leaf's shape in the cell: no mesh axis twice, every
-    sharded dim divisible), each record's roofline row."""
+    sharded dim divisible), each record's roofline row; every record a
+    trace with wire bytes, and no sharded decode with a gathered cache."""
+    t_wait = time.perf_counter()
     recs = [r for f in futures for r in f.result()]
     seconds = time.perf_counter() - t0
+    wait_s = time.perf_counter() - t_wait
     rows = {}
     for rec in recs:
         key = f"{rec['arch']}/{rec['shape']}/{rec['mesh']}"
@@ -5998,16 +6046,28 @@ def phase_dryrun(futures, groups, t0) -> dict:
               f"{rec['hbm_bytes_per_device']:.4e}, args/dev "
               f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB, fits "
               f"{rec['fits']}, dominant {row['dominant']}, per device "
-              f"{rec['per_device']} (trace {rec['trace_s']:.1f} s)")
+              f"{rec['per_device']}, wire bytes/dev "
+              f"{rec['collective_wire_bytes']:.4e} (trace "
+              f"{rec['trace_s']:.1f} s)")
     want = {f"{a}/{s}/{m}" for g in groups for a, s, mesh in g
             for m in (DRYRUN_MESHES if mesh is None else (mesh,))}
     if set(rows) != want:
         raise AssertionError(f"dry run: cells {sorted(want ^ set(rows))}")
+    for key, row in rows.items():
+        if row["per_device"] != "trace" or row[
+                "collective_wire_bytes"] is None:
+            raise AssertionError(f"dry run {key}: not traced: {row}")
+        if row.get("cache_gathers"):
+            raise AssertionError(f"dry run {key}: a collective holds a whole "
+                                 f"cache leaf on a sharded dim: "
+                                 f"{row['cache_gathers'][:4]}")
     if rows["arctic-480b/train_4k/h100"]["fits"]:
         raise AssertionError("dry run: arctic-480b fits one card")
-    print(f"phase 20 (a): {len(rows)} cells in {seconds:.1f} s "
-          f"({len(groups)} processes, beside (b) and (c))")
-    return dict(cells=rows, seconds=seconds, processes=len(groups))
+    print(f"phase 20 (a): {len(rows)} cells in {seconds:.1f} s from their "
+          f"processes' start ({len(groups)} processes, beside phases 18, 19 "
+          f"and 20 (b) and (c)); phase 20 waited {wait_s:.1f} s for them")
+    return dict(cells=rows, seconds=seconds, wait_s=wait_s,
+                processes=len(groups))
 
 
 def op_diff(fake: dict, real: dict) -> dict:
@@ -6231,19 +6291,14 @@ def phase_planner_card(dev) -> dict:
                 sharded_leaves=sharded, seconds=seconds)
 
 
-def phase_planner(dev) -> dict:
-    """Phase 20: (a) the dry run in its own processes while (b) traces
-    against the card and (c) places the planner's state on it."""
+def phase_planner(dev, dry) -> dict:
+    """Phase 20: (a) the dry run, in the processes `dry` started
+    (`start_dryrun`), while (b) traces against the card and (c) places
+    the planner's state on it."""
     t0 = time.perf_counter()
-    pool, futures, groups, t_a = start_dryrun()
-    try:
-        out = dict(trace=phase_trace_card(dev),
-                   planner=phase_planner_card(dev))
-        out["dryrun"] = phase_dryrun(futures, groups, t_a)
-    finally:
-        for f in futures:
-            f.cancel()
-        pool.shutdown(wait=True, cancel_futures=True)
+    _, futures, groups, t_a = dry
+    out = dict(trace=phase_trace_card(dev), planner=phase_planner_card(dev))
+    out["dryrun"] = phase_dryrun(futures, groups, t_a)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 20: {out['seconds']:.1f} s")
     return out
@@ -6570,13 +6625,21 @@ def phase_mesh(dev, p: SimParams) -> dict:
 # phase 22: the sharded train step
 # ---------------------------------------------------------------------------
 
-# (a) on card_mesh() (NCCL, (1, 1)): gemma2-2b at full width and
-# olmoe-1b-7b cut in depth as phase 19 cuts it, 2 steps of 4
-# microbatches of 1 x 2048 tokens each, with "shard_grads" and the
-# parameters' specs as grad_specs, against the unsharded step from the
-# same seed
-SHARDED = dict(archs=("gemma2-2b", "olmoe-1b-7b"), steps=2, batch=4,
-               seq=2048, n_micro=4)
+# (a) on card_mesh() (NCCL, (1, 1)): gemma2-2b at full width,
+# olmoe-1b-7b cut in depth as phase 19 cuts it, and paligemma-3b,
+# hubert-xlarge, mamba2-2.7b and zamba2-7b at full width cut to the
+# depths of SHARDED_CUTS in their own (bf16) compute type, 2 steps of 4
+# microbatches of 1 x 2048 tokens each (paligemma 256 patches and 1792
+# text tokens), with "shard_grads" and the parameters' specs as
+# grad_specs, against the unsharded step from the same seed
+SHARDED = dict(archs=("gemma2-2b", "olmoe-1b-7b", "paligemma-3b",
+                      "hubert-xlarge", "mamba2-2.7b", "zamba2-7b"),
+               steps=2, batch=4, seq=2048, n_micro=4)
+# phase 19 (b)'s depths (cut_config), paligemma at 2 layers
+SHARDED_CUTS = {"paligemma-3b": dict(n_layers=2),
+                "hubert-xlarge": dict(n_layers=2),
+                "mamba2-2.7b": dict(n_layers=2),
+                "zamba2-7b": dict(n_layers=3, shared_attn_every=2)}
 # (b) only with two cards or more: olmoe-1b-7b at full width cut to 2
 # layers on a (1, n) mesh of NCCL ranks, one a card, against one card;
 # bf16 compute summed in other orders, so the losses and gradient norms
@@ -6586,15 +6649,31 @@ SHARDED = dict(archs=("gemma2-2b", "olmoe-1b-7b"), steps=2, batch=4,
 # both limits are provisional)
 SHARDED_CARDS = dict(arch="olmoe-1b-7b", layers=2, steps=2, batch=4,
                      seq=1024, n_micro=2, loss_rtol=1e-2, param_rtol=0.1)
-# (c) the 16x16 dry run of the dense and moe train_4k cells, traced
-# sharded: gemma2-2b's is phase 20 (a)'s record, olmoe-1b-7b's is traced
-# here in a spawned process while (a) uses the card
-SHARDED_DRYRUN = ("gemma2-2b", "olmoe-1b-7b")
+# (c) the 16x16 dry run of every family's train_4k cell, traced sharded:
+# gemma2-2b's and zamba2-7b's are phase 20 (a)'s records, the others are
+# traced in spawned processes (SHARDED_DRYRUN_GROUPS) started before
+# phase 18
+SHARDED_DRYRUN = ("gemma2-2b", "olmoe-1b-7b", "paligemma-3b",
+                  "hubert-xlarge", "mamba2-2.7b", "zamba2-7b")
+SHARDED_DRYRUN_GROUPS = (("olmoe-1b-7b", "mamba2-2.7b"),
+                         ("hubert-xlarge", "paligemma-3b"))
+
+
+def sharded_dryrun_groups() -> tuple:
+    """(c)'s groups of cells, as `start_dryrun` takes them."""
+    return tuple(tuple((a, "train_4k", "16x16") for a in group)
+                 for group in SHARDED_DRYRUN_GROUPS)
 
 
 def sharded_config(arch, dev):
-    """(config, depth record) as phase 22 trains `arch`: phase 19's depth
-    cut where it has one, else the full config."""
+    """(config, depth record) as phase 22 trains `arch`: SHARDED_CUTS'
+    depth in the config's own compute type, or phase 19's depth cut
+    where it has one, else the full config."""
+    if arch in SHARDED_CUTS:
+        cut = SHARDED_CUTS[arch]
+        cfg = dataclasses.replace(cut_config(arch, cut), compute_dtype=
+                                  get_config(arch).compute_dtype)
+        return cfg, dict(cut, full_layers=get_config(arch).n_layers)
     spec = next((s for s in TRAIN_FAMILIES if s["arch"] == arch), {})
     if "cut" not in spec:
         return get_config(arch), None
@@ -6708,10 +6787,13 @@ def sharded_against_plain(arch, dev, mesh) -> dict:
     if not all(math.isfinite(x) for x in sharded["losses"]
                + sharded["grad_norms"]):
         raise AssertionError(f"phase 22 (a) {arch}: {sharded}")
-    e, mean_rel, max_rel = fa_compare(
-        f"phase 22 {arch}'s first DTensor-path launch", capture["out"],
-        fa.attention_plain(capture["q"], capture["k"], capture["v"],
-                           **capture["mask"]), "bfloat16")
+    # an attention-free family launches none
+    e = mean_rel = max_rel = None
+    if want_fa:
+        e, mean_rel, max_rel = fa_compare(
+            f"phase 22 {arch}'s first DTensor-path launch", capture["out"],
+            fa.attention_plain(capture["q"], capture["k"], capture["v"],
+                               **capture["mask"]), "bfloat16")
     same = (sharded["losses"] == plain["losses"]
             and sharded["grad_norms"] == plain["grad_norms"]
             and first_diff is None)
@@ -6721,7 +6803,8 @@ def sharded_against_plain(arch, dev, mesh) -> dict:
                flash_attention_predicted=want_fa,
                captured_launch=dict(
                    shape=list(capture["q"].shape), mask=capture["mask"],
-                   max_abs_err=e, mean_rel=mean_rel, max_rel=max_rel),
+                   max_abs_err=e, mean_rel=mean_rel, max_rel=max_rel)
+               if want_fa else None,
                seconds=time.perf_counter() - t0)
     print(f"phase 22 (a) {arch} ({cfg.n_layers} layers, full width; "
           f"{SHARDED['steps']} steps of {SHARDED['n_micro']} x "
@@ -6734,10 +6817,12 @@ def sharded_against_plain(arch, dev, mesh) -> dict:
           + f"; bit-equal {same}; flash launches {counts} (predicted "
           f"{want_fa}); step s {sharded['step_s']} (plain {plain['step_s']});"
           f" peak {sharded['peak_memory_bytes'] / 2**30:.2f} GiB (plain "
-          f"{plain['peak_memory_bytes'] / 2**30:.2f}); first DTensor-path "
-          f"launch {out['captured_launch']['shape']} against the plain "
-          f"version: max |err| {e:.3g}, mean rel {mean_rel:.3g}, max rel "
-          f"{max_rel:.3g}; {out['seconds']:.1f} s")
+          f"{plain['peak_memory_bytes'] / 2**30:.2f}); "
+          + ("" if not want_fa else
+             f"first DTensor-path launch {out['captured_launch']['shape']} "
+             f"against the plain version: max |err| {e:.3g}, mean rel "
+             f"{mean_rel:.3g}, max rel {max_rel:.3g}; ")
+          + f"{out['seconds']:.1f} s")
     if not same:
         # on (1, 1) every redistribution is a no-op: the kernels and the
         # order of every sum are the unsharded step's
@@ -6893,7 +6978,8 @@ def dryrun_row(rec) -> dict:
         per_device=rec["per_device"],
         collective_wire_bytes=rec["collective_wire_bytes"],
         collectives=rec["collectives"],
-        top_collectives=rec.get("top_collectives"))
+        top_collectives=rec.get("top_collectives"),
+        cache_gathers=rec.get("cache_gathers"))
 
 
 def phase_sharded_dryrun(futures, planner) -> dict:
@@ -6901,8 +6987,8 @@ def phase_sharded_dryrun(futures, planner) -> dict:
     (per-device figures from rank 0's trace, wire bytes by collective),
     with their roofline rows and collective terms."""
     recs = {r["arch"]: dryrun_row(r) for f in futures for r in f.result()}
-    key = "gemma2-2b/train_4k/16x16"
-    recs["gemma2-2b"] = planner["dryrun"]["cells"][key]
+    for arch in ("gemma2-2b", "zamba2-7b"):
+        recs[arch] = planner["dryrun"]["cells"][f"{arch}/train_4k/16x16"]
     out = {}
     for arch in SHARDED_DRYRUN:
         r = recs[arch]
@@ -6933,41 +7019,250 @@ def phase_sharded_dryrun(futures, planner) -> dict:
     return out
 
 
-def phase_sharded_train(dev, planner, phase16_peak) -> dict:
-    """Phase 22: the sharded train step. (c)'s olmoe trace starts in its
-    own process, (a) runs on card_mesh, (b) only on several cards."""
-    import concurrent.futures
-    import multiprocessing
+def phase_sharded_train(dev, planner, phase16_peak, dry) -> dict:
+    """Phase 22: the sharded train step. (a) runs on card_mesh, (b) only
+    on several cards, (c) reads the traces of the processes `dry`
+    started (`start_dryrun(sharded_dryrun_groups())`)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import card_mesh
     t0 = time.perf_counter()
-    pool = concurrent.futures.ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"))
-    futures = [pool.submit(dryrun_group, [
-        (a, "train_4k", "16x16") for a in SHARDED_DRYRUN
-        if a != "gemma2-2b"])]
+    mesh = card_mesh()
     try:
-        mesh = card_mesh()
-        try:
-            if dist.get_backend() != "nccl":
-                raise AssertionError(f"card_mesh: backend "
-                                     f"{dist.get_backend()}, not nccl")
-            out = {arch: sharded_against_plain(arch, dev, mesh)
-                   for arch in SHARDED["archs"]}
-        finally:
-            dist.destroy_process_group()
-        peak = max(out[a]["sharded"]["peak_memory_bytes"]
-                   for a in SHARDED["archs"])
-        print(f"phase 22 (a): peak device memory of the sharded steps "
-              f"{peak / 2**30:.2f} GiB, beside phase 16's "
-              f"{phase16_peak / 2**30:.2f} GiB")
-        out["phase16_peak_memory_bytes"] = phase16_peak
-        out["cards"] = phase_sharded_cards(dev)
-        out["dryrun"] = phase_sharded_dryrun(futures, planner)
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"card_mesh: backend "
+                                 f"{dist.get_backend()}, not nccl")
+        out = {arch: sharded_against_plain(arch, dev, mesh)
+               for arch in SHARDED["archs"]}
     finally:
-        pool.shutdown(wait=True, cancel_futures=True)
+        dist.destroy_process_group()
+    peak = max(out[a]["sharded"]["peak_memory_bytes"]
+               for a in SHARDED["archs"])
+    print(f"phase 22 (a): peak device memory of the sharded steps "
+          f"{peak / 2**30:.2f} GiB, beside phase 16's "
+          f"{phase16_peak / 2**30:.2f} GiB")
+    out["phase16_peak_memory_bytes"] = phase16_peak
+    out["cards"] = phase_sharded_cards(dev)
+    out["dryrun"] = phase_sharded_dryrun(dry[1], planner)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 22: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 23: sharded prefill and decode
+# ---------------------------------------------------------------------------
+
+# on card_mesh() (NCCL, (1, 1)): `Model.prefill` and `Model.decode_step`
+# on weights (cast to bf16 once, as the Engine casts them), prompt,
+# tokens and caches placed by `place_serve_state` under `plan_context`,
+# against the same calls unsharded: gemma2-2b at full width and
+# zamba2-7b at full width cut to `groups` of its 13 groups (the tail
+# kept), for the phase's seconds; 4 x 2048 prompts and 16 greedy steps
+SHARDED_SERVE = dict(archs=("gemma2-2b", "zamba2-7b"), batch=4, prompt=2048,
+                     tokens=16, groups={"zamba2-7b": 4})
+
+
+def sharded_serve_config(arch):
+    """(config, depth record) of phase 23's `arch`."""
+    cfg = get_config(arch)
+    n = SHARDED_SERVE["groups"].get(arch)
+    if n is None:
+        return cfg, None
+    per = cfg.hybrid.shared_attn_every
+    tail = cfg.n_layers - (cfg.n_layers // per) * per
+    cut = dataclasses.replace(cfg, n_layers=n * per + tail)
+    return cut, dict(unit="groups", kept=n, full=cfg.n_layers // per,
+                     layers=cut.n_layers, full_layers=cfg.n_layers)
+
+
+def host_tree(tree):
+    """Every tensor of a cache (a DTensor's local shard: the whole of it
+    on card_mesh) copied to the host."""
+    from repro_torch.ckpt.checkpoint import tree_map
+    return tree_map(lambda x: (x.to_local() if hasattr(x, "to_local")
+                               else x).to("cpu", copy=True), tree)
+
+
+def sharded_serve_run(cfg, dev, mesh=None, capture=None) -> dict:
+    """SHARDED_SERVE's prefill and greedy decode steps of `cfg` from
+    seed 0, unsharded, or on `mesh` with the weights, prompt, tokens
+    and caches placed by the plan; the counts set to 0 just before the
+    prefill. `capture`, a dict, gets the first flash-attention launch's
+    inputs and output. Returns the logits of every step, the tokens and
+    the caches after the prefill and after the last step (on the host),
+    the counts, times and peak memory."""
+    from repro_torch.models.param import param_axes
+    from repro_torch.sharding import make_plan, plan_context
+    from repro_torch.sharding.planner import place_serve_state
+    c = SHARDED_SERVE
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = model_lib.build(cfg)
+    params = cast_weights(model.init(seed=0, device=dev), torch.bfloat16)
+    batch = make_batch(cfg, c["batch"], c["prompt"], "prefill", seed=0,
+                       device=dev)
+    ctx, place_tokens = contextlib.nullcontext(), lambda t: t
+    if mesh is not None:
+        plan = make_plan(cfg, mesh)
+        params, batch, _, _ = place_serve_state(
+            plan, params, param_axes(cfg, params), batch=batch)
+        ctx = plan_context(plan)
+        place_tokens = lambda t: place_serve_state(plan, {}, tokens=t)[3]
+    launch = fa._launch
+
+    def captured(route, q, k, v, causal, softcap, window=None, prefix_len=0):
+        out = launch(route, q, k, v, causal, softcap, window, prefix_len)
+        if capture is not None and not capture:
+            capture.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                           out=out.clone(), mask=dict(
+                               causal=causal, softcap=softcap, window=window,
+                               prefix_len=prefix_len))
+        return out
+
+    V = cfg.vocab_size
+    out = dict(logits=[], tokens=[], step_s=[])
+    reset_counts()
+    fa._launch = captured
+    try:
+        with ctx, torch.no_grad():
+            (logits, cache), out["prefill_s"] = synced(
+                lambda: model.prefill(params, batch,
+                                      c["prompt"] + c["tokens"]))
+            out["prefill_counts"] = fa_counts()
+            out["prefill_cache"] = host_tree(cache)
+            for _ in range(c["tokens"]):
+                local = logits.to_local() if hasattr(logits, "to_local") \
+                    else logits
+                out["logits"].append(local.to("cpu", copy=True))
+                tok = local[:, -1:, :V].argmax(-1).to(torch.int32)
+                out["tokens"].append(tok[:, 0].tolist())
+                (logits, cache), dt = synced(
+                    lambda: model.decode_step(params, place_tokens(tok),
+                                              cache))
+                out["step_s"].append(dt)
+            out["logits"].append(host_tree(logits))
+            out["final_cache"] = host_tree(cache)
+    finally:
+        fa._launch = launch
+    out["counts"] = fa_counts()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def first_difference(got, want):
+    """The first leaf of two host trees that differs, and its largest
+    difference; None where every leaf is bit-equal."""
+    from repro_torch.ckpt.checkpoint import tree_leaves_with_paths
+    for (path, g), (_, w) in zip(tree_leaves_with_paths(got),
+                                 tree_leaves_with_paths(want)):
+        if not torch.equal(g, w):
+            return dict(leaf=str(path), max_abs_diff=float(
+                (g.double() - w.double()).abs().max()))
+    return None
+
+
+def sharded_serve_against_plain(arch, dev, mesh) -> dict:
+    """Phase 23 for one arch: the unsharded run, then the sharded run;
+    every step's logits, the greedy tokens and every cache leaf after the
+    prefill and after the last step bit-equal (or it raises, naming the
+    first difference); flash launches counted (one a prefill's attention
+    layer, none a decode step) and the first one held against the plain
+    version on its own inputs."""
+    t0 = time.perf_counter()
+    cfg, cut = sharded_serve_config(arch)
+    plain = sharded_serve_run(cfg, dev)
+    capture = {}
+    sharded = sharded_serve_run(cfg, dev, mesh, capture)
+    diffs = {
+        "logits": next((dict(step=i, max_abs_diff=float(
+            (g.double() - w.double()).abs().max()))
+            for i, (g, w) in enumerate(zip(sharded["logits"],
+                                           plain["logits"]))
+            if not torch.equal(g, w)), None),
+        "tokens": None if sharded["tokens"] == plain["tokens"] else dict(
+            sharded=sharded["tokens"], plain=plain["tokens"]),
+        "prefill_cache": first_difference(sharded["prefill_cache"],
+                                          plain["prefill_cache"]),
+        "final_cache": first_difference(sharded["final_cache"],
+                                        plain["final_cache"])}
+    want_fa = attention_layers(cfg)
+    counts = sharded["counts"]
+    e, mean_rel, max_rel = (None,) * 3
+    if want_fa:
+        e, mean_rel, max_rel = fa_compare(
+            f"phase 23 {arch}'s first DTensor-path launch", capture["out"],
+            fa.attention_plain(capture["q"], capture["k"], capture["v"],
+                               **capture["mask"]), "bfloat16")
+    same = not any(diffs.values())
+    n_cache = len(list(tree_leaves_named(sharded["final_cache"])))
+    out = dict(arch=arch, layers=cfg.n_layers, depth_cut=cut,
+               bit_equal=same, differences=diffs, cache_leaves=n_cache,
+               tokens=sharded["tokens"],
+               counts=counts, prefill_counts=sharded["prefill_counts"],
+               flash_attention_predicted=want_fa,
+               prefill_s=dict(sharded=sharded["prefill_s"],
+                              plain=plain["prefill_s"]),
+               decode_step_s=dict(sharded=sharded["step_s"],
+                                  plain=plain["step_s"]),
+               peak_memory_bytes=dict(sharded=sharded["peak_memory_bytes"],
+                                      plain=plain["peak_memory_bytes"]),
+               captured_launch=dict(
+                   shape=list(capture["q"].shape), mask=capture["mask"],
+                   max_abs_err=e, mean_rel=mean_rel, max_rel=max_rel)
+               if want_fa else None,
+               seconds=time.perf_counter() - t0)
+    c = SHARDED_SERVE
+    mean = lambda xs: sum(xs) / len(xs)
+    print(f"phase 23 {arch} ({cfg.n_layers} layers, full width, bf16 "
+          f"weights; {c['batch']} x {c['prompt']} prompt, {c['tokens']} "
+          f"greedy steps) on card_mesh: logits, tokens and {n_cache} cache "
+          f"leaves bit-equal {same}"
+          + ("" if same else f" ({ {k: v for k, v in diffs.items() if v} })")
+          + f"; flash launches {counts} (predicted {want_fa}, all in the "
+          f"prefill); prefill s {sharded['prefill_s']:.3f} (plain "
+          f"{plain['prefill_s']:.3f}), decode step s "
+          f"{mean(sharded['step_s']):.4f} (plain "
+          f"{mean(plain['step_s']):.4f}); peak "
+          f"{sharded['peak_memory_bytes'] / 2**30:.2f} GiB (plain "
+          f"{plain['peak_memory_bytes'] / 2**30:.2f}); "
+          + ("" if not want_fa else
+             f"first DTensor-path launch {out['captured_launch']['shape']} "
+             f"against the plain version: max |err| {e:.3g}, mean rel "
+             f"{mean_rel:.3g}, max rel {max_rel:.3g}; ")
+          + f"{out['seconds']:.1f} s")
+    if not same:
+        # on (1, 1) every redistribution is a no-op: the kernels and the
+        # order of every sum are the unsharded calls'
+        raise AssertionError(f"phase 23 {arch}: sharded prefill and decode "
+                             f"on card_mesh not bit-equal: {diffs}")
+    if (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_simt"]) != (want_fa, want_fa, 0) or \
+            sharded["prefill_counts"] != counts:
+        raise AssertionError(f"phase 23 {arch}: flash launches {counts} "
+                             f"(prefill {sharded['prefill_counts']}), "
+                             f"expected {want_fa} sm90 in the prefill")
+    return out
+
+
+def phase_sharded_serve(dev) -> dict:
+    """Phase 23: sharded prefill and decode on card_mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import card_mesh
+    t0 = time.perf_counter()
+    mesh = card_mesh()
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"card_mesh: backend {dist.get_backend()}, "
+                                 f"not nccl")
+        out = {arch: sharded_serve_against_plain(arch, dev, mesh)
+               for arch in SHARDED_SERVE["archs"]}
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 23: {out['seconds']:.1f} s")
     return out
 
 
@@ -7090,12 +7385,22 @@ def main() -> None:
     train["seconds"] = time.perf_counter() - t16
     print(f"phase 16: {train['seconds']:.1f} s")
     families = phase_masks_families(dev)
-    ssm = phase_ssm(dev)
-    train_families = phase_train_families(dev)
-    planner = phase_planner(dev)
-    mesh = phase_mesh(dev, p)
-    sharded = phase_sharded_train(
-        dev, planner, train["full_width"]["peak_memory_bytes"])
+    # the dry run's traces (phases 20 (a), 22 (c)) need no card: their
+    # processes run beside phases 18 and 19 on the host's other cores
+    dry = start_dryrun()
+    sharded_dry = start_dryrun(sharded_dryrun_groups())
+    try:
+        ssm = phase_ssm(dev)
+        train_families = phase_train_families(dev)
+        planner = phase_planner(dev, dry)
+        mesh = phase_mesh(dev, p)
+        sharded = phase_sharded_train(
+            dev, planner, train["full_width"]["peak_memory_bytes"],
+            sharded_dry)
+    finally:
+        for pool in (dry[0], sharded_dry[0]):
+            pool.shutdown(wait=True, cancel_futures=True)
+    sharded_serve = phase_sharded_serve(dev)
 
     # last: a profiler session this large can cost the next session its
     # first kernel records, and kernel_ms counts every launch
@@ -7330,7 +7635,14 @@ def main() -> None:
              launches_phase22={
                  a: dict(counts=sharded[a]["sharded"]["counts"],
                          predicted=sharded[a]["flash_attention_predicted"])
-                 for a in SHARDED["archs"]}),
+                 for a in SHARDED["archs"]},
+             # phase 23: the sharded prefill and 16 decode steps on
+             # card_mesh, counted from 0 (all in the prefill)
+             launches_phase23={
+                 a: dict(counts=sharded_serve[a]["counts"],
+                         predicted=sharded_serve[a][
+                             "flash_attention_predicted"])
+                 for a in SHARDED_SERVE["archs"]}),
     ]
     ct = cluster["times"]
     kernels.append(dict(
@@ -7432,6 +7744,11 @@ def main() -> None:
             k["launches_mesh"] = mesh_launches(mesh, k["name"])
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
+    sharded_serve_line = json.dumps({"sharded_serve": sharded_serve})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "sharded_serve.json").write_text(
+        sharded_serve_line)
+    print(sharded_serve_line)
     sharded_line = json.dumps({"sharded_train": sharded})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "sharded_train.json").write_text(sharded_line)

@@ -21,18 +21,21 @@ Meshes:
     with `sharding.planner`. `memory.argument_bytes` per device: each
     leaf's bytes over the product of the mesh extents its spec uses
     (parameters, `state_spec_tree`, `batch_spec`, `cache_spec_tree`).
-    A dense or moe train cell is traced sharded (`trace_train_sharded`):
-    as rank 0 of a fake process group of 256 or 512 ranks, its state
-    and batch DTensors of fake tensors placed by the plan, the step run
-    as eager SPMD. FLOPs and bytes per device are then rank 0's local
-    ops, and the collectives of its redistributions give the wire bytes
-    (`"per_device": "trace"`). On CUDA fake tensors DTensor moves a
-    shard to another dim by an all-to-all; on CPU ones (`--device cpu`)
-    it all-gathers and chunks instead (gloo has no all-to-all), so such
-    a trace counts those moves n times over. The other cells split the
-    one-card trace's totals evenly (`"per_device": "even_split"`), with
-    null collective bytes and a `collective_reason` that says what
-    waits.
+    Every cell is traced sharded, as rank 0 of a fake process group of
+    256 or 512 ranks (`fake_rank0`), its DTensors of fake tensors placed
+    by the plan, the step run as eager SPMD under `plan_context`: a
+    train step (`trace_train_sharded`: state and batch by
+    `place_train_state`), a prefill (`trace_prefill_sharded`: parameters
+    and prompt by `place_serve_state`, the cache made placed by
+    `cache_spec_tree`) or a decode step (`trace_decode_sharded`:
+    parameters, tokens and cache by `place_serve_state`), as the
+    reference's dry run jits them with these shardings. FLOPs and bytes
+    per device are rank 0's local ops, and the collectives of its
+    redistributions give the wire bytes (`"per_device": "trace"`). On
+    CUDA fake tensors DTensor moves a shard to another dim by an
+    all-to-all; on CPU ones (`--device cpu`) it all-gathers and chunks
+    instead (gloo has no all-to-all), so such a trace counts those moves
+    n times over.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k \\
@@ -42,6 +45,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gzip
 import json
@@ -58,7 +62,8 @@ from ..models import model as model_lib
 from ..models.inputs import batch_struct
 from ..models.param import param_axes
 from ..sharding.planner import (PlanMesh, check_spec, make_plan, place,
-                                place_train_state, plan_context, spec_div)
+                                place_serve_state, place_train_state,
+                                plan_context, spec_div)
 from ..train.optimizer import make_optimizer
 from ..train.train_step import TrainState, make_train_step, micro_rows
 from .op_analyzer import OpAnalyzer, log_of, records_of, summary_of
@@ -78,18 +83,6 @@ MESHES = {
 }
 #: one H100 SXM's device memory
 HBM_CAPACITY_BYTES = 80 * 2**30
-#: the families whose train step runs sharded (DTensor parameters)
-SHARDED_FAMILIES = ("dense", "moe")
-
-
-def collective_reason(cfg, kind) -> str:
-    """Why a mesh cell's collective bytes are null."""
-    if kind != "train":
-        return (f"sharded {kind} steps wait (ROADMAP A.4); FLOPs and bytes "
-                f"are the one-card trace split evenly")
-    return (f"the sharded train step of the {cfg.family} family waits "
-            f"(ROADMAP A.4); FLOPs and bytes are the one-card trace split "
-            f"evenly")
 
 
 def n_microbatches(arch: str, global_batch: int, batch_div: int) -> int:
@@ -218,28 +211,38 @@ def trace_train(model, optimizer, state, micro_batch, n_micro: int,
         return step(state, micro_batch, [1.0])
 
 
-def trace_train_sharded(cfg, mesh, batch: int, seq: int, n_micro: int,
-                        opts=frozenset(), device=None):
-    """(op records, seconds) of one sharded train step of `cfg` on the
-    plan mesh `mesh`, traced as rank 0 of a fake process group of
-    `mesh.size` ranks (no communication, nothing allocated): the seeded
-    state and a zero `batch` x `seq` batch placed by the plan
-    (`place_train_state`) as DTensors of fake tensors, the step run
-    under `plan_context` as `trace_train` runs it. Starts and destroys
-    its own process group, so none may be started."""
+@contextlib.contextmanager
+def fake_rank0(mesh, device=None):
+    """The `DeviceMesh` of the plan mesh `mesh` as rank 0 of a fake
+    process group of `mesh.size` ranks (no communication, nothing
+    allocated) on `device`'s type, and the device; the group destroyed
+    on exit. None may be started already."""
     import torch.distributed as dist
-    from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
-        raise RuntimeError("trace_train_sharded: a process group is already "
-                           "started; the trace starts its own fake one")
+        raise RuntimeError("dryrun: a process group is already started; a "
+                           "sharded trace starts its own fake one")
     dev = resolve_device(device)
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=mesh.size)
     try:
-        dmesh = init_device_mesh(dev.type, tuple(mesh.shape),
-                                 mesh_dim_names=tuple(mesh.axis_names))
+        yield init_device_mesh(dev.type, tuple(mesh.shape),
+                               mesh_dim_names=tuple(mesh.axis_names)), dev
+    finally:
+        dist.destroy_process_group()
+
+
+def trace_train_sharded(cfg, mesh, batch: int, seq: int, n_micro: int,
+                        opts=frozenset(), device=None):
+    """(op records, seconds) of one sharded train step of `cfg` on the
+    plan mesh `mesh`, traced as rank 0 of a fake process group
+    (`fake_rank0`): the seeded state and a zero `batch` x `seq` batch
+    placed by the plan (`place_train_state`) as DTensors of fake
+    tensors, the step run under `plan_context` as `trace_train` runs
+    it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with fake_rank0(mesh, device) as (dmesh, dev):
         plan = make_plan(cfg, dmesh, opts=frozenset(opts))
         model = model_lib.build(cfg)
         optimizer = make_optimizer(cfg)
@@ -263,8 +266,55 @@ def trace_train_sharded(cfg, mesh, batch: int, seq: int, n_micro: int,
                             if shard else None,
                             mesh=dmesh if shard else None)
             return list(an.records.items()), time.perf_counter() - t0
-    finally:
-        dist.destroy_process_group()
+
+
+def _trace_serve_sharded(cfg, mesh, kind: str, batch: int, seq: int,
+                         opts=frozenset(), device=None):
+    """(op records, seconds) of one sharded prefill or decode step of
+    `cfg` on the plan mesh `mesh`, traced as rank 0 of a fake process
+    group (`fake_rank0`): the seeded parameters with a zero prompt of
+    `batch` x `seq` (prefill), or with zero tokens of `batch` x 1 and an
+    empty cache of `seq` positions (decode), placed by
+    `place_serve_state`, the step run under `plan_context`. The prefill
+    makes its cache placed by `cache_spec_tree`; the decode writes and
+    reads each rank's shard of it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with fake_rank0(mesh, device) as (dmesh, dev):
+        plan = make_plan(cfg, dmesh, opts=frozenset(opts))
+        model = model_lib.build(cfg)
+        an = OpAnalyzer()
+        with FakeTensorMode():
+            t0 = time.perf_counter()
+            params = model.init(seed=0, device=dev)
+            axes = param_axes(cfg, params)
+            with plan_context(plan):
+                if kind == "prefill":
+                    params, prompt, _, _ = place_serve_state(
+                        plan, params, axes,
+                        batch=batch_struct(cfg, batch, seq, "prefill", dev))
+                    trace_prefill(model, params, prompt, seq, an)
+                else:
+                    params, _, cache, tokens = place_serve_state(
+                        plan, params, axes,
+                        cache=model.init_cache(batch, seq, device=dev),
+                        tokens=torch.zeros((batch, 1), dtype=torch.int32,
+                                           device=dev))
+                    trace_decode(model, params, tokens, cache, an)
+            return list(an.records.items()), time.perf_counter() - t0
+
+
+def trace_prefill_sharded(cfg, mesh, batch: int, seq: int,
+                          opts=frozenset(), device=None):
+    """`_trace_serve_sharded` of a prefill."""
+    return _trace_serve_sharded(cfg, mesh, "prefill", batch, seq, opts,
+                                device)
+
+
+def trace_decode_sharded(cfg, mesh, batch: int, seq: int, opts=frozenset(),
+                         device=None):
+    """`_trace_serve_sharded` of a decode step."""
+    return _trace_serve_sharded(cfg, mesh, "decode", batch, seq, opts,
+                                device)
 
 
 def trace_decode(model, params, tokens, cache, analyzer: OpAnalyzer):
@@ -275,6 +325,45 @@ def trace_decode(model, params, tokens, cache, analyzer: OpAnalyzer):
 def trace_prefill(model, params, batch, seq, analyzer: OpAnalyzer):
     with analyzer, torch.no_grad():
         return model.prefill(params, batch, seq)
+
+
+def cache_gathers(arch: str, shape_name: str, mesh_kind: str, log,
+                  reduced=False) -> list:
+    """The collectives of a serving cell's op log (`log_of`) whose result
+    holds a decode cache leaf's whole extent on a dim that
+    `cache_spec_tree` shards (a gathered cache: a kv cache's sequence or
+    kv heads, an ssm state's N), its other dims at the leaf's whole or
+    per-device extents; each as {"kind", "count", "result", "leaf"}.
+    Empty where every rank reads and writes only its own shards."""
+    from .op_analyzer import cost
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    seq, batch, _ = SHAPES[shape_name]
+    mesh = MESHES[mesh_kind]
+    cache = model_lib.build(cfg).init_cache(batch, seq, device="meta")
+    specs = dict(tree_leaves_with_paths(
+        make_plan(cfg, mesh).cache_spec_tree(cache, batch)))
+    leaves = []
+    for path, x in tree_leaves_with_paths(cache):
+        spec, full = specs[path], tuple(x.shape)
+        local = tuple(-(-n // spec_div(spec[i: i + 1], mesh))
+                      if i < len(spec) else n for i, n in enumerate(full))
+        cut = [i for i in range(len(full)) if local[i] != full[i]]
+        if cut:
+            leaves.append((str(path), full, local, cut))
+    out = []
+    for sig, count in records_of(log):
+        kind = cost(sig)["collective"]
+        results = [tuple(d[1]) for d in sig[3] if d[0] == "t"] if kind \
+            else []
+        for shape in results:
+            for path, full, local, cut in leaves:
+                if len(shape) == len(full) and all(
+                        s in (f, n) for s, f, n in zip(shape, full, local)) \
+                        and any(shape[i] == full[i] for i in cut):
+                    out.append(dict(kind=kind, count=count,
+                                    result=list(shape), leaf=path))
+    return out
 
 
 _TRACES: dict = {}
@@ -294,8 +383,7 @@ def cell(arch: str, shape_name: str, mesh_kind: str, device=None,
     plan = make_plan(cfg, mesh, opts=frozenset(opts))
     n_dev = mesh.size
     dev = resolve_device(device)
-    sharded = n_dev > 1 and kind == "train" and \
-        cfg.family in SHARDED_FAMILIES
+    sharded = n_dev > 1
     model = model_lib.build(cfg)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
            "n_devices": n_dev, "kind": kind, "seq": seq, "batch": batch,
@@ -349,7 +437,9 @@ def cell(arch: str, shape_name: str, mesh_kind: str, device=None,
                     tokens, plan.batch_spec(tokens), mesh)
             key = (arch, reduced, shape_name, tuple(sorted(opts)), batch, 1,
                    str(dev))
-            if key not in _TRACES:
+            if sharded:
+                key += (mesh_kind,)   # traced below, out of this mode
+            elif key not in _TRACES:
                 an = OpAnalyzer()
                 t0 = time.perf_counter()
                 if kind == "prefill":
@@ -359,11 +449,16 @@ def cell(arch: str, shape_name: str, mesh_kind: str, device=None,
                 _TRACES[key] = (list(an.records.items()),
                                 time.perf_counter() - t0)
     if key not in _TRACES:
-        _TRACES[key] = trace_train_sharded(cfg, mesh, batch, seq, n_micro,
-                                           opts, device=dev)
+        if kind == "train":
+            _TRACES[key] = trace_train_sharded(cfg, mesh, batch, seq,
+                                               n_micro, opts, device=dev)
+        else:
+            trace = trace_prefill_sharded if kind == "prefill" else \
+                trace_decode_sharded
+            _TRACES[key] = trace(cfg, mesh, batch, seq, opts, device=dev)
     records, trace_s = _TRACES[key]
     arg = sum(memory.values())
-    rec["per_device"] = "trace" if n_dev == 1 or sharded else "even_split"
+    rec["per_device"] = "trace"
     rec.update(_costs(summary_of(records), rec))
     rec.update({
         "memory": {"argument_bytes": arg, "argument_breakdown": memory,
@@ -374,8 +469,6 @@ def cell(arch: str, shape_name: str, mesh_kind: str, device=None,
         "trace_s": trace_s,
         "plan_notes": plan.notes,
     })
-    if rec["per_device"] == "even_split":
-        rec["collective_reason"] = collective_reason(cfg, kind)
     if verbose:
         print(f"  {arch} {shape_name} {mesh_kind}: args/dev "
               f"{arg / 2**30:.2f} GiB (fits {rec['fits']}), flops/dev "
@@ -386,21 +479,15 @@ def cell(arch: str, shape_name: str, mesh_kind: str, device=None,
 
 def _costs(s, rec) -> dict:
     """A record's fields from its trace's `summary_of`: per device, the
-    trace's own where it was one device's (one card, or rank 0 of a
-    sharded step: `rec["per_device"] == "trace"`), else the totals split
-    evenly over the devices, with no collective bytes."""
-    n = 1 if rec["per_device"] == "trace" else rec["n_devices"]
-    traced = rec["per_device"] == "trace"
+    trace's own (one card, or rank 0 of a sharded step); the totals are
+    rank 0's times the devices."""
     return {
-        "flops_per_device": s["dot_flops"] / n,
-        "hbm_bytes_per_device": s["hbm_bytes"] / n,
-        "collective_wire_bytes": s["wire_bytes"] if traced else None,
+        "flops_per_device": s["dot_flops"],
+        "hbm_bytes_per_device": s["hbm_bytes"],
+        "collective_wire_bytes": s["wire_bytes"],
         "collectives": s["collectives"],
-        # a sharded trace's totals are rank 0's, times the ranks
-        "flops_total": s["dot_flops"] * rec["n_devices"] if traced
-        else s["dot_flops"],
-        "hbm_bytes_total": s["hbm_bytes"] * rec["n_devices"] if traced
-        else s["hbm_bytes"],
+        "flops_total": s["dot_flops"] * rec["n_devices"],
+        "hbm_bytes_total": s["hbm_bytes"] * rec["n_devices"],
         "flash_attention_entries": s["flash_attention_entries"],
         "n_ops": sum(s["op_counts"].values()),
     }

@@ -7,11 +7,10 @@ Three terms per (arch x shape x mesh), in seconds a step:
   memory     = HBM_bytes_per_device / HBM_BW   (HBM3)
   collective = wire_bytes_per_device / NVLINK_BW  (one direction)
 
-A mesh cell traced sharded (a dense or moe train cell: its record's
-`"per_device": "trace"`) has its wire bytes, so its collective term;
-a null one (a cell that still splits a one-card trace evenly) is left
-out of the max and shown as "—". The bound is
-the largest term. `ideal` = MODEL_FLOPS / (devices x PEAK_FLOPS), the
+Every record is a trace of one device's work (`"per_device":
+"trace"`: one card, or rank 0 of a sharded step), so every one has its
+wire bytes and its collective term (0 on one card). The bound is the
+largest term. `ideal` = MODEL_FLOPS / (devices x PEAK_FLOPS), the
 time a perfect implementation would take; roofline_fraction = ideal /
 bound; flops_ratio = MODEL_FLOPS / traced FLOPs (remat and padding
 waste). For decode the floor is also every argument byte (weights and
@@ -54,17 +53,15 @@ def roofline_row(rec: dict) -> dict:
     n = rec["n_devices"]
     compute_s = rec["flops_per_device"] / PEAK_FLOPS
     memory_s = rec["hbm_bytes_per_device"] / HBM_BW
-    wire = rec["collective_wire_bytes"]
-    coll_s = None if wire is None else wire / NVLINK_BW
+    coll_s = rec["collective_wire_bytes"] / NVLINK_BW
     terms = {"compute": compute_s, "memory": memory_s, "collective": coll_s}
-    live = {k: v for k, v in terms.items() if v is not None}
-    dominant = max(live, key=live.get)
+    dominant = max(terms, key=terms.get)
     ideal = rec["model_flops"] / (n * PEAK_FLOPS)
     if rec["kind"] == "decode":
         # decode is bound by memory by construction: the floor is
         # reading every argument byte (weights and cache) once a step
         ideal = max(ideal, rec["memory"]["argument_bytes"] / HBM_BW)
-    bound = max(live.values())
+    bound = max(terms.values())
     traced = rec["flops_per_device"] * n
     return {
         "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
@@ -90,11 +87,9 @@ def table(rows: list[dict]) -> str:
             out.append(f"{r['arch']:20s} {r['shape']:11s}  -- skipped: "
                        f"{r['skipped'][:60]}")
             continue
-        coll = "—" if r["collective_s"] is None else \
-            f"{r['collective_s']:9.4f}"
         out.append(
             f"{r['arch']:20s} {r['shape']:11s} {r['compute_s']:9.4f} "
-            f"{r['memory_s']:9.4f} {coll:>9s} "
+            f"{r['memory_s']:9.4f} {r['collective_s']:9.4f} "
             f"{r['dominant']:>10s} {r['ideal_s']:9.4f} "
             f"{r['roofline_fraction']:6.3f} {r['flops_ratio']:7.3f} "
             f"{r['hbm_fit_gib']:8.2f} {str(r['fits']):>5s}")

@@ -173,42 +173,58 @@ def _gold_mask(labels, lo: int, n: int):
     return F.one_hot(torch.clamp(j, 0, n - 1), n).bool() & inside[..., None]
 
 
-def _nll_vocab_sharded(logits, labels):
+def _nll_vocab_sharded(logits, labels, n_valid=None):
     """lse - gold of DTensor logits sharded on the vocabulary: the max,
     the sum of exps and the gold logit reduced over the vocabulary's
     ranks (small (B, S) collectives) into the logits' batch layout,
     never the (B, S, V) logits moved (nor, in the backward, their
     gradient). The gold logit is a sum over a one-hot mask made on each
-    rank's own shard."""
+    rank's own shard; columns from `n_valid` on (the padded vocabulary)
+    are -inf in the max and the sum, masked on each rank's shard."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = logits.device_mesh
     rows = batch_placements(logits)
+    last = logits.dim() - 1
+    lo, n = shard_range(logits.shape[-1], logits.placements, mesh, last)
 
     def reduced(x):
         return x.redistribute(mesh, rows)
 
     onehot = local_map(_gold_mask, out_placements=list(logits.placements),
                        in_placements=(rows, None, None), device_mesh=mesh,
-                       redistribute_inputs=True)(
-        labels, *shard_range(logits.shape[-1], logits.placements, mesh,
-                             logits.dim() - 1))
-    m = reduced(logits.detach().amax(-1, keepdim=True))
-    lse = torch.log(reduced(torch.exp(logits - m).sum(-1))) + m[..., 0]
+                       redistribute_inputs=True)(labels, lo, n)
+    z = logits
+    if n_valid is not None and n_valid < logits.shape[-1]:
+        cols = tuple(Shard(0) if p.is_shard(last) else Replicate()
+                     for p in logits.placements)
+        pad = torch.arange(lo, lo + n, device=logits.to_local().device) \
+            >= n_valid
+        z = logits.masked_fill(DTensor.from_local(
+            pad, mesh, cols, run_check=False, shape=(logits.shape[-1],),
+            stride=(1,)), float("-inf"))
+    m = reduced(z.detach().amax(-1, keepdim=True))
+    lse = torch.log(reduced(torch.exp(z - m).sum(-1))) + m[..., 0]
     gold = reduced((logits * onehot.to(logits.dtype)).sum(-1))
     return lse - gold
 
 
-def token_nll(logits, labels):
-    """The negative log-likelihood of each position's label; logits
-    float32 (B, S, V) -> (B, S). Plain labels beside DTensor logits are
-    replicated on their mesh; DTensor logits sharded on the vocabulary
-    take `_nll_vocab_sharded`."""
+def token_nll(logits, labels, n_valid=None):
+    """The negative log-likelihood of each position's label over the
+    first `n_valid` logits (all by default); logits float32 (B, S, V) ->
+    (B, S). Plain labels beside DTensor logits are replicated on their
+    mesh; DTensor logits sharded on the vocabulary take
+    `_nll_vocab_sharded`, which masks the columns past `n_valid` where
+    they lie rather than slicing them off (a slice of a sharded dim
+    would gather the logits)."""
     labels = replicate_like(labels, logits)
     last = logits.dim() - 1
     if is_dtensor(logits) and any(
             p.is_shard(last) and logits.device_mesh.size(i) > 1
             for i, p in enumerate(logits.placements)):
-        return _nll_vocab_sharded(logits, labels)
+        return _nll_vocab_sharded(logits, labels, n_valid)
+    if n_valid is not None and n_valid < logits.shape[-1]:
+        logits = logits[..., :n_valid]
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return lse - gold
@@ -223,6 +239,21 @@ def masked_mean(nll, mask=None):
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def cross_entropy(logits, labels, mask=None):
-    """Mean CE over valid positions; logits float32 (B, S, V)."""
-    return masked_mean(token_nll(logits, labels), mask)
+def cross_entropy(logits, labels, mask=None, n_valid=None):
+    """Mean CE over valid positions; logits float32 (B, S, V), of which
+    the first `n_valid` take part (all by default)."""
+    return masked_mean(token_nll(logits, labels, n_valid), mask)
+
+
+def next_token_ce(logits, labels, n_valid, prefix: int = 0):
+    """Next-token CE, as the reference takes it: position t's logits
+    (past a `prefix` of positions with no label, vlm's patches) against
+    labels[t + 1] over the first `n_valid` logits, the last position
+    dropped. Each position's NLL is taken against the wrapped labels and
+    the small (B, S) NLL is sliced, so that DTensor logits stay where
+    they lie."""
+    nxt = torch.cat([labels[:, 1:], labels[:, :1]], dim=1)
+    if prefix:
+        nxt = torch.cat([nxt[:, :1].expand(-1, prefix), nxt], dim=1)
+    nll = token_nll(logits, torch.clamp(nxt, min=0), n_valid)[:, prefix:]
+    return masked_mean(nll[:, :-1], labels[:, 1:] >= 0)

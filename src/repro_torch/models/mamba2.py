@@ -15,14 +15,30 @@ the scan and the states in f32. `ssd_reference` is the recurrent oracle
 the tests hold `ssd_chunked` against; the reference's `_rms` is
 `layers.rms_norm`. The reference computes all of this with XLA, not with
 a Pallas kernel.
+
+Under a plan (DTensor parameters, `sharding.planner`), as the reference
+shards it: z, x and dt are column-parallel (d_inner and the heads on
+"model"), B and C are whole on every rank (every head reads them), the
+conv runs on each rank's channels and the SSD core on each rank's
+batch rows and heads after the `constrain` of the head inputs (both as
+plain torch on local shards, `planner.on_shards`: DTensor's op-by-op choices
+over the ~500 ops of a chunk loop would move shards about, and its
+dispatch would cost more than the ops), the gated norm's mean over
+d_inner is a partial sum across its ranks, and out_proj is
+row-parallel. Decode keeps each state in the
+placements its cache has (`Plan.cache_spec_tree`): the conv step runs in
+its state's layout, and the ssm update on each rank's shard of the
+(B, H, P, N) state (`_ssm_step_sharded`), so that no state is gathered.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..sharding.planner import constrain
-from .layers import rms_norm
+from ..device import is_dtensor
+from ..sharding.planner import (constrain, on_shards, reduce_partial,
+                                replicate_like, unshard)
+from .layers import rms_norm, weight
 from .param import normal
 
 
@@ -96,18 +112,50 @@ def _conv_full(x, w, b):
 
 def _conv_step(state, new_col, w, b):
     """Decode conv: state (B, W-1, C) (cast to the new column's type),
-    new_col (B, 1, C) -> (out (B, C), state (B, W-1, C))."""
+    new_col (B, 1, C) -> (out (B, C), state (B, W-1, C)). A DTensor state
+    keeps its placements: the new column is cut to them (no collective)
+    and the weights follow."""
+    if is_dtensor(state):
+        new_col = new_col.redistribute(state.device_mesh, state.placements)
     window = torch.cat([state.to(new_col.dtype), new_col], dim=1)
     out = torch.einsum("bwc,wc->bc", window, w) + b
     return F.silu(out), window[:, 1:]
 
 
 def _gated_norm(y, z, w, eps):
+    """RMS norm of y * silu(z) over d_inner, scaled by (1 + w); a DTensor
+    y sharded on d_inner by `_gated_norm_sharded`."""
+    if is_dtensor(y) and any(p.is_shard(y.dim() - 1) for p in y.placements):
+        return _gated_norm_sharded(y, z, w, eps)
     y = y * F.silu(z.to(torch.float32)).to(y.dtype)
     yf = y.to(torch.float32)
     var = torch.mean(yf * yf, dim=-1, keepdim=True)
     return ((yf * torch.rsqrt(var + eps)) * (1.0 + w.to(torch.float32))
             ).to(y.dtype)
+
+
+def _gated_norm_sharded(y, z, w, eps):
+    """`_gated_norm` of DTensors y and z sharded on d_inner, on each
+    rank's shards (`on_shards`): each rank gates its channels and sums
+    their squares over d_inner, a partial sum across the channels' ranks
+    reduced by an all-reduce of (B, S, 1), then scales its own
+    channels."""
+    n = y.shape[-1]
+
+    def gate(y, z):
+        g = y * F.silu(z.to(torch.float32)).to(y.dtype)
+        gf = g.to(torch.float32)
+        return g, torch.sum(gf * gf, dim=-1, keepdim=True) / n
+
+    def scale(g, ms, w):
+        gf = g.to(torch.float32)
+        return ((gf * torch.rsqrt(ms + eps)) * (1.0 + w.to(torch.float32))
+                ).to(g.dtype)
+
+    dims = (0, 1, 2)
+    g, ms = on_shards(gate, [(y, dims), (z, dims)], [dims, (0, 1, None)])
+    return on_shards(scale, [(g, dims), (reduce_partial(ms), (0, 1, None)),
+                             (w, (2,))], [dims])
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +202,8 @@ def _ssd_intra(cs, Ccc, Bcc, dtx, intra_dtype):
     H)."""
     Q = cs.shape[2]
     csh = cs.transpose(2, 3)                              # (B,nc,H,Q)
-    upper = torch.ones((Q, Q), dtype=torch.bool, device=cs.device).triu(1)
+    upper = replicate_like(torch.ones((Q, Q), dtype=torch.bool,
+                                      device=cs.device).triu(1), cs)
     M = torch.exp((csh[..., :, None] - csh[..., None, :]).masked_fill(
         upper, float("-inf")))                            # (B,nc,H,Q,Q)
     CB = torch.einsum("bcin,bcjn->bcij", Ccc.to(intra_dtype),
@@ -177,8 +226,7 @@ def _ssd_chunk_scan(cs, Ccc, Bcc, dtx, h0=None):
     states = torch.einsum("bcjhp,bcjn->bchpn", dtx * decay_end[..., None],
                           Bcc)                            # (B,nc,H,P,N)
     chunk_decay = torch.exp(cs[:, :, -1, :])              # (B,nc,H)
-    h = torch.zeros((Bsz, H, Pd, Bcc.shape[-1]), dtype=torch.float32,
-                    device=dtx.device) if h0 is None else h0
+    h = torch.zeros_like(states[:, 0]) if h0 is None else h0
     h_prev = []                                           # entering chunk c
     for c in range(nc):
         h_prev.append(h)
@@ -207,18 +255,73 @@ def ssd_reference(xh, dt, A, Bc, Cc):
 
 
 # ---------------------------------------------------------------------------
+# DTensor programs: the conv and the SSD core on each rank's shards
+# ---------------------------------------------------------------------------
+
+
+def conv_full(x, w, b):
+    """`_conv_full`; on a DTensor x (B, S, C) on each rank's batch rows
+    and channels, the weights (W, C) and (C,) cut to its channels."""
+    if not is_dtensor(x):
+        return _conv_full(x, w, b)
+    return on_shards(_conv_full, [(x, (0, 1, 2)), (w, (None, 2)), (b, (2,))],
+                     [(0, 1, 2)])
+
+
+def ssd(xh, dt, A, Bc, Cc, chunk, intra_dtype):
+    """`ssd_chunked`; on a DTensor xh (B, S, H, P) on each rank's batch
+    rows and heads, dt (B, S, H) and A (H,) cut alike, B and C (B, S, N)
+    to its rows (their gradients partial sums over the heads' ranks)."""
+    if not is_dtensor(xh):
+        return ssd_chunked(xh, dt, A, Bc, Cc, chunk,
+                           intra_dtype=intra_dtype)
+    return on_shards(
+        lambda *a: ssd_chunked(*a, chunk, intra_dtype=intra_dtype),
+        [(xh, (0, 1, 2, 3)), (dt, (0, 1, 2)), (A, (2,)), (Bc, (0, 1, None)),
+         (Cc, (0, 1, None))], [(0, 1, 2, 3), (0, 2, 3, None)])
+
+
+# ---------------------------------------------------------------------------
 # Block-level apply
 # ---------------------------------------------------------------------------
 
 
-def _project(p, hn, dtype):
-    """The input projections: (z, x, B, C, dt raw), each hn @ W."""
-    return tuple(hn @ p[k].to(dtype)
-                 for k in ("in_z", "in_x", "in_B", "in_C", "in_dt"))
+#: each input projection's tensor-parallel dims, which a DTensor weight
+#: keeps sharded (`layers.weight`): d_inner for z and x, the heads for
+#: dt; B and C are shared by every head, so gathered whole
+_PROJ_KEEP = {"in_z": (1,), "in_x": (1,), "in_B": (), "in_C": (),
+              "in_dt": (1,)}
+#: the same for the conv weights and biases
+_CONV_KEEP = {"x": ((1,), (0,)), "B": ((), ()), "C": ((), ())}
 
 
-def _out_proj(p, y):
-    return y @ p["out_proj"].to(y.dtype)
+def _project(p, hn):
+    """The input projections: (z, x, B, C, dt raw), each hn @ W in hn's
+    type."""
+    return tuple(hn @ weight(p[k], hn, keep) for k, keep in
+                 _PROJ_KEEP.items())
+
+
+def _conv_weights(p, name, x):
+    """(w, b) of the conv of `name` ("x", "B" or "C") in x's type."""
+    kw, kb = _CONV_KEEP[name]
+    return weight(p[f"conv_{name}"], x, kw), weight(p[f"conv_{name}_b"], x,
+                                                     kb)
+
+
+def _heads(p, key):
+    """A (H,) parameter (A_log, D, dt_bias) with its heads' shards."""
+    return unshard(p[key], (0,))
+
+
+def _out_proj(p, y, x):
+    """Row-parallel: a DTensor y sharded on d_inner gives a partial sum,
+    reduced into the layout of the residual `x` it is added to (as the
+    reference's residual keeps its input's sharding)."""
+    out = y @ weight(p["out_proj"], y, (0,))
+    if is_dtensor(out) and tuple(out.placements) != tuple(x.placements):
+        out = out.redistribute(x.device_mesh, x.placements)
+    return out
 
 
 def apply_mamba_full(p, x, cfg):
@@ -229,25 +332,46 @@ def apply_mamba_full(p, x, cfg):
     d_inner, H, Pd, N, G = dims(cfg)
     dtype = x.dtype
     hn = rms_norm(x, p["ln"], cfg.norm_eps)
-    z, xin, Bc, Cc, dtr = _project(p, hn, dtype)
+    z, xin, Bc, Cc, dtr = _project(p, hn)
     W = s.conv_width
     # copies: a view would keep the whole (B, S, C) input alive
     st = tuple(c[:, -(W - 1):].to(torch.bfloat16, copy=True)
                for c in (xin, Bc, Cc))
-    xin = _conv_full(xin, p["conv_x"].to(dtype), p["conv_x_b"].to(dtype))
-    Bc = _conv_full(Bc, p["conv_B"].to(dtype), p["conv_B_b"].to(dtype))
-    Cc = _conv_full(Cc, p["conv_C"].to(dtype), p["conv_C_b"].to(dtype))
-    dt = F.softplus(dtr.to(torch.float32) + p["dt_bias"].to(torch.float32))
-    A = -torch.exp(p["A_log"].to(torch.float32))
+    xin = conv_full(xin, *_conv_weights(p, "x", xin))
+    Bc = conv_full(Bc, *_conv_weights(p, "B", Bc))
+    Cc = conv_full(Cc, *_conv_weights(p, "C", Cc))
+    dt = F.softplus(dtr.to(torch.float32)
+                    + _heads(p, "dt_bias").to(torch.float32))
+    A = -torch.exp(_heads(p, "A_log").to(torch.float32))
     xh = xin.reshape(*xin.shape[:2], H, Pd)
     xh = constrain(xh, ("batch", None, "ssm_heads", None))
-    y, h_final = ssd_chunked(xh, dt, A, Bc, Cc, s.chunk,
-                             intra_dtype=getattr(torch, s.intra_dtype))
-    y = y + xh * p["D"].to(dtype)[:, None]
+    y, h_final = ssd(xh, dt, A, Bc, Cc, s.chunk,
+                     getattr(torch, s.intra_dtype))
+    y = y + xh * _heads(p, "D").to(dtype)[:, None]
     y = y.reshape(*y.shape[:2], d_inner)
-    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
-    out = _out_proj(p, y)
+    y = _gated_norm(y, z, unshard(p["norm"], (0,)), cfg.norm_eps)
+    out = _out_proj(p, y, x)
     return x + out, st + (h_final,)
+
+
+def _ssm_step(h, a, dtx, Bo, Co):
+    """One token of the recurrence, f32: h (B, H, P, N) decayed by a
+    (B, H) plus dtx (B, H, P) (x) Bo (B, N); y = h . Co (B, H, P)."""
+    h = a[:, :, None, None] * h + torch.einsum("bhp,bn->bhpn", dtx, Bo)
+    return h, torch.einsum("bhpn,bn->bhp", h, Co)
+
+
+def _ssm_step_sharded(h, a, dtx, Bo, Co):
+    """`_ssm_step` on each rank's shard of a DTensor state h, which keeps
+    its placements (the cache's: its batch on the batch axes, N or the
+    heads on "model"): a, dtx, Bo and Co cut to the matching dims (a
+    gather of the small ones where h shards a dim they lack), and y, a
+    sum over N, a partial sum over the mesh dims that shard N, reduced
+    here (an all-reduce of (B, H, P))."""
+    h, y = on_shards(_ssm_step, [(h, (0, 1, 2, 3)), (a, (0, 1)),
+                                 (dtx, (0, 1, 2)), (Bo, (0, 3)),
+                                 (Co, (0, 3))], [(0, 1, 2, 3), (0, 1, 2)])
+    return h, reduce_partial(y)
 
 
 def apply_mamba_decode(p, x, states, cfg):
@@ -258,26 +382,24 @@ def apply_mamba_decode(p, x, states, cfg):
     dtype = x.dtype
     conv_x, conv_B, conv_C, ssm_state = states
     hn = rms_norm(x, p["ln"], cfg.norm_eps)
-    z, xin, Bc, Cc, dtr = _project(p, hn, dtype)
-    xo, conv_x = _conv_step(conv_x, xin, p["conv_x"].to(dtype),
-                            p["conv_x_b"].to(dtype))
-    Bo, conv_B = _conv_step(conv_B, Bc, p["conv_B"].to(dtype),
-                            p["conv_B_b"].to(dtype))
-    Co, conv_C = _conv_step(conv_C, Cc, p["conv_C"].to(dtype),
-                            p["conv_C_b"].to(dtype))
+    z, xin, Bc, Cc, dtr = _project(p, hn)
+    xo, conv_x = _conv_step(conv_x, xin, *_conv_weights(p, "x", xin))
+    Bo, conv_B = _conv_step(conv_B, Bc, *_conv_weights(p, "B", Bc))
+    Co, conv_C = _conv_step(conv_C, Cc, *_conv_weights(p, "C", Cc))
     f32 = torch.float32
-    dt = F.softplus(dtr.to(f32) + p["dt_bias"].to(f32))   # (B,1,H)
-    A = -torch.exp(p["A_log"].to(f32))
+    dt = F.softplus(dtr.to(f32) + _heads(p, "dt_bias").to(f32))  # (B,1,H)
+    A = -torch.exp(_heads(p, "A_log").to(f32))
     a = torch.exp(dt[:, 0] * A)                           # (B,H)
     xh = xo.reshape(-1, H, Pd).to(f32)
     dtx = xh * dt[:, 0][..., None]
-    h = a[:, :, None, None] * ssm_state + torch.einsum(
-        "bhp,bn->bhpn", dtx, Bo.to(f32))
-    y = torch.einsum("bhpn,bn->bhp", h, Co.to(f32))
-    y = y + xh * p["D"].to(f32)[:, None]
+    step = _ssm_step_sharded if is_dtensor(ssm_state) else _ssm_step
+    h, y = step(ssm_state, a, dtx, Bo.to(f32), Co.to(f32))
+    if is_dtensor(y):
+        xh = xh.redistribute(y.device_mesh, y.placements)
+    y = y + xh * _heads(p, "D").to(f32)[:, None]
     y = y.reshape(-1, 1, d_inner).to(dtype)
-    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
-    out = _out_proj(p, y)
+    y = _gated_norm(y, z, unshard(p["norm"], (0,)), cfg.norm_eps)
+    out = _out_proj(p, y, x)
     new_states = (conv_x.to(torch.bfloat16), conv_B.to(torch.bfloat16),
                   conv_C.to(torch.bfloat16), h)
     return x + out, new_states

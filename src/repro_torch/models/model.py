@@ -25,6 +25,14 @@ group: every application of the shared block has its own cache) and
 "tail" (the tail layers' states). The reference stacks layers and
 `lax.scan`s over them; the port keeps one dict per layer and loops. An
 audio encoder has no decode (`cfg.has_decode`).
+
+Sharded serving: `prefill` and `decode_step` on parameters, prompts,
+tokens and caches placed as DTensors (`sharding.planner.
+place_serve_state`) under `plan_context` run as eager SPMD, and give
+their caches back in the plan's `cache_spec_tree` placements
+(`planner.cache_placed`), as the reference's dry run jits them with the
+cache specs as out_shardings. The `Engine` stays unsharded, as the
+reference's.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..sharding.planner import (cache_placed, cache_zeros, reduce_partial,
+                                replicate_like)
 from . import attention as A
 from . import layers as L
 from . import mamba2 as M2
@@ -88,12 +98,14 @@ def _build_transformer(cfg) -> Model:
 
     def prefill(params, batch, max_seq=None):
         logits, caches, lengths = TF.prefill(params, batch, cfg, max_seq)
-        return logits, {"kv": caches, "lengths": lengths}
+        return logits, cache_placed({"kv": caches, "lengths": lengths},
+                                    lengths.shape[0], logits)
 
     def decode_step(params, tokens, cache):
         logits, kv, lengths = TF.decode_step(params, tokens, cache["kv"],
                                              cache["lengths"], cfg)
-        return logits, {"kv": kv, "lengths": lengths}
+        return logits, cache_placed({"kv": kv, "lengths": lengths},
+                                    lengths.shape[0], logits)
 
     def loss_fn(params, batch):
         return TF.loss_fn(params, batch, cfg)
@@ -128,9 +140,12 @@ def _init_params(cfg, seed, device, body):
 
 
 def _embed(params, tokens, cfg):
+    """The embedded tokens; a DTensor table's partial rows reduced
+    (`reduce_partial`) before the first layer's norm and casts."""
     cdt = getattr(torch, cfg.compute_dtype)
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
-    return L.embed_tokens(params["embed"].to(cdt), tokens, cfg.embed_scale)
+    return reduce_partial(L.embed_tokens(params["embed"].to(cdt), tokens,
+                                         cfg.embed_scale))
 
 
 def _head(params, x, cfg):
@@ -139,12 +154,11 @@ def _head(params, x, cfg):
 
 
 def _next_token_loss(forward, params, batch, cfg):
-    """Next-token CE over the first vocab_size logits (no aux loss)."""
+    """Next-token CE over the first vocab_size logits (no aux loss),
+    reduced where DTensor logits lie (`layers.next_token_ce`)."""
     logits, aux = forward(params, batch)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
-    ce = L.cross_entropy(logits[:, :-1, :cfg.vocab_size],
-                         torch.clamp(labels[:, 1:], min=0),
-                         mask=labels[:, 1:] >= 0)
+    ce = L.next_token_ce(logits, labels, cfg.vocab_size)
     return ce, {"loss": ce, "ce": ce, "aux_loss": aux}
 
 
@@ -193,9 +207,11 @@ def _build_ssm(cfg) -> Model:
         for p in params["blocks"]:
             x, st = M2.apply_mamba_full(p, x, cfg)
             states.append(st)
-        return _head(params, x[:, -1:], cfg), {
+        logits = _head(params, x[:, -1:], cfg)
+        return logits, cache_placed({
             "states": states, "lengths": _lengths(x.shape[0], x.shape[1],
-                                                  x.device)}
+                                                  x.device)},
+            x.shape[0], logits)
 
     @torch.no_grad()
     def decode_step(params, tokens, cache):
@@ -204,8 +220,10 @@ def _build_ssm(cfg) -> Model:
         for p, st in zip(params["blocks"], cache["states"], strict=True):
             x, st = M2.apply_mamba_decode(p, x, st, cfg)
             states.append(st)
-        return _head(params, x, cfg), {"states": states,
-                                       "lengths": cache["lengths"] + 1}
+        logits = _head(params, x, cfg)
+        return logits, cache_placed({"states": states,
+                                     "lengths": cache["lengths"] + 1},
+                                    x.shape[0], logits)
 
     def init_cache(batch, max_seq=None, device=None):
         dev = resolve_device(device)
@@ -282,8 +300,8 @@ def _build_hybrid(cfg) -> Model:
         if max_seq < S:
             raise ValueError(f"prefill: max_seq {max_seq} < prompt length "
                              f"{S}")
-        positions = TF._positions(B, S, x.device)
-        kv = kv_cache(B, max_seq, x.device)
+        positions = replicate_like(TF._positions(B, S, x.device), x)
+        kv = cache_zeros(lambda d: kv_cache(B, max_seq, d), B, x)
         groups, tails = [], []
         for group, cache in zip(params["groups"], kv, strict=True):
             states = []
@@ -293,14 +311,15 @@ def _build_hybrid(cfg) -> Model:
             groups.append(states)
             x, new, _ = TF.apply_block(params["shared_attn"], x, positions,
                                        cfg, spec)
-            cache["k"][:, :S] = new["k"]
-            cache["v"][:, :S] = new["v"]
+            A.write_prefix(cache["k"], new["k"])
+            A.write_prefix(cache["v"], new["v"])
         for p in params["tail"]:
             x, st = M2.apply_mamba_full(p, x, cfg)
             tails.append(st)
-        return _head(params, x[:, -1:], cfg), {
+        logits = _head(params, x[:, -1:], cfg)
+        return logits, cache_placed({
             "groups": groups, "kv": kv, "tail": tails,
-            "lengths": _lengths(B, S, x.device)}
+            "lengths": _lengths(B, S, x.device)}, B, logits)
 
     @torch.no_grad()
     def decode_step(params, tokens, cache):
@@ -320,9 +339,10 @@ def _build_hybrid(cfg) -> Model:
         for p, st in zip(params["tail"], cache["tail"], strict=True):
             x, st = M2.apply_mamba_decode(p, x, st, cfg)
             tails.append(st)
-        return _head(params, x, cfg), {
+        logits = _head(params, x, cfg)
+        return logits, cache_placed({
             "groups": groups, "kv": cache["kv"], "tail": tails,
-            "lengths": pos + 1}
+            "lengths": pos + 1}, x.shape[0], logits)
 
     def init_cache(batch, max_seq, device=None):
         dev = resolve_device(device)

@@ -25,7 +25,8 @@ from torch.utils.checkpoint import checkpoint
 from . import attention as A
 from . import layers as L
 from . import moe as MOE
-from ..sharding.planner import constrain, replicate_like
+from ..sharding.planner import (cache_zeros, constrain, reduce_partial,
+                                replicate_like)
 from .param import normal
 
 
@@ -166,7 +167,9 @@ def init_params(cfg, generator=None, dtype=None, device=None):
 def _embed_inputs(params, batch, cfg):
     """-> (x (B,S,D), prefix_len): vlm's projected patch embeddings
     before its embedded text (prefix_len = n_patches), audio's projected
-    frames, or the embedded text."""
+    frames, or the embedded text. A DTensor projection is gathered whole
+    before its product (`layers.weight`): its d_model takes no
+    tensor-parallel axis."""
     check_supported(cfg, TRANSFORMER_FAMILIES)
     cdt = getattr(torch, cfg.compute_dtype)
     dev = params["embed"].device
@@ -177,12 +180,12 @@ def _embed_inputs(params, batch, cfg):
                               cfg.embed_scale)
 
     if cfg.vision is not None:
-        patches = torch.as_tensor(batch["patch_embeds"], device=dev)
-        pe = patches.to(cdt) @ params["vision_proj"].to(cdt)
+        patches = torch.as_tensor(batch["patch_embeds"], device=dev).to(cdt)
+        pe = patches @ L.weight(params["vision_proj"], patches, ())
         return torch.cat([pe, embed_text()], dim=1), cfg.vision.n_patches
     if cfg.audio is not None:
-        frames = torch.as_tensor(batch["frames"], device=dev)
-        return frames.to(cdt) @ params["frame_proj"].to(cdt), 0
+        frames = torch.as_tensor(batch["frames"], device=dev).to(cdt)
+        return frames @ L.weight(params["frame_proj"], frames, ()), 0
     return embed_text(), 0
 
 
@@ -237,19 +240,12 @@ def loss_fn(params, batch, cfg, remat=True):
     logits, aux = forward(params, batch, cfg, remat)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     V = cfg.vocab_size
-    logits = logits[..., :V]
-    if cfg.vision is not None:
-        logits = logits[:, cfg.vision.n_patches:]
     if not cfg.causal:
         ce = L.cross_entropy(logits, torch.clamp(labels, min=0),
-                             mask=labels >= 0)
+                             mask=labels >= 0, n_valid=V)
     else:
-        # each position's NLL (the last against a wrapped label), then
-        # the last dropped: slicing the small (B, S) NLL keeps a
-        # DTensor's (B, S, V) logits where they lie
-        nxt = torch.cat([labels[:, 1:], labels[:, :1]], dim=1)
-        nll = L.token_nll(logits, torch.clamp(nxt, min=0))
-        ce = L.masked_mean(nll[:, :-1], labels[:, 1:] >= 0)
+        ce = L.next_token_ce(logits, labels, V, prefix=cfg.vision.n_patches
+                             if cfg.vision is not None else 0)
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux_loss": aux}
 
@@ -274,20 +270,24 @@ def prefill(params, batch, cfg, max_seq=None):
 
     Each layer's k and v go into its bf16 cache as they come (the
     reference pads and casts the stacked kv after the scan: the same
-    values)."""
+    values). Under a plan the caches are made placed by its
+    `cache_spec_tree`, and each rank writes its own shard
+    (`attention.write_prefix`)."""
     x, prefix_len = _embed_inputs(params, batch, cfg)
+    x = reduce_partial(x)
     B, S, _ = x.shape
     max_seq = max_seq or S
     if max_seq < S:
         raise ValueError(f"prefill: max_seq {max_seq} < prompt length {S}")
-    positions = _positions(B, S, x.device)
-    caches = init_cache(cfg, B, max_seq, device=x.device)
+    positions = replicate_like(_positions(B, S, x.device), x)
+    caches = cache_zeros(lambda d: init_cache(cfg, B, max_seq, device=d),
+                         B, x)
     for p, spec, cache in zip(params["blocks"],
                               layer_specs(cfg, prefix_len), caches,
                               strict=True):
         x, kv, _ = apply_block(p, x, positions, cfg, spec)
-        cache["k"][:, :S] = kv["k"]
-        cache["v"][:, :S] = kv["v"]
+        A.write_prefix(cache["k"], kv["k"])
+        A.write_prefix(cache["v"], kv["v"])
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = L.logits_head(params["lm_head"], x, cfg.final_softcap)
     lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -301,7 +301,8 @@ def decode_step(params, tokens, caches, lengths, cfg):
     the reference: a decoded token is past any prefix."""
     check_supported(cfg, TRANSFORMER_FAMILIES)
     cdt = getattr(torch, cfg.compute_dtype)
-    x = L.embed_tokens(params["embed"].to(cdt), tokens, cfg.embed_scale)
+    x = reduce_partial(L.embed_tokens(params["embed"].to(cdt), tokens,
+                                      cfg.embed_scale))
     for p, spec, cache in zip(params["blocks"], layer_specs(cfg), caches,
                               strict=True):
         x, _, _ = apply_block(p, x, None, cfg, spec, cache=cache,

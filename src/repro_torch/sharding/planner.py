@@ -468,6 +468,53 @@ def unshard(x, keep: tuple = ()):
     return x.redistribute(x.device_mesh, want)
 
 
+def reduce_partial(x):
+    """A DTensor `x` with its partial sums reduced (each `Partial`
+    placement made a replica: an all-reduce); `x` itself where it has
+    none or is not a DTensor. A cast, a norm or any other op that is not
+    linear must not meet a partial sum: each rank would round or
+    transform its own piece (the vocabulary-sharded embedding's rows are
+    one)."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+
+
+def follow(plc, dims, partial=False) -> tuple:
+    """Placements of a tensor whose dims are `dims` of a leading
+    DTensor's (None: a dim it has that the leading one lacks), given the
+    leading one's placements `plc`: its shards where the tensor has that
+    dim, else a replica, or with `partial` a partial sum (a tensor that
+    lacks a sharded dim because it was summed over it, or the gradient
+    of one broadcast over it)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return tuple(Shard(dims.index(p.dim)) if p.is_shard() and p.dim in dims
+                 else Partial() if p.is_shard() and partial else Replicate()
+                 for p in plc)
+
+
+def on_shards(fn, operands, out_dims):
+    """fn(*tensors) run as plain torch on each rank's shards
+    (`local_map`). `operands` = [(tensor, its dims among the first
+    one's)]: the first, a DTensor, leads, and every other tensor is cut
+    to match its placements (`follow`); each output's placements come
+    from its dims in `out_dims` (an output lacking a sharded dim of the
+    leader's is a partial sum over it). A gradient of an operand that
+    lacks a sharded dim is a partial sum over that dim's mesh dims."""
+    from torch.distributed.tensor.experimental import local_map
+    lead = tuple(operands[0][0].placements)
+    outs = tuple(follow(lead, d, partial=True) for d in out_dims)
+    return local_map(
+        fn, out_placements=outs if len(outs) > 1 else list(outs[0]),
+        in_placements=tuple(follow(lead, d) for _, d in operands),
+        in_grad_placements=tuple(follow(lead, d, partial=True)
+                                 for _, d in operands),
+        device_mesh=operands[0][0].device_mesh,
+        redistribute_inputs=True)(*(t for t, _ in operands))
+
+
 def batch_placements(x) -> tuple:
     """The placements of a DTensor `x` cut down to its batch sharding:
     `Shard(0)` on the mesh dims that shard dim 0, `Replicate()` on the
@@ -523,6 +570,67 @@ def place(tree, specs, mesh):
                                   shape=x.shape, stride=x.stride())
 
     return tree_map(move, tree, specs)
+
+
+def cache_zeros(make, batch_size: int, ref):
+    """A decode cache of zeros: `make(device)` (a tree of zero tensors
+    on `device`) itself on `ref`'s device, or, where `ref` is a DTensor
+    under a plan, DTensors on `ref`'s mesh placed by the plan's
+    `cache_spec_tree`, each rank allocating only its own shard (`make`
+    gives the shapes and types on the meta device)."""
+    plan = current_plan()
+    if plan is None or not is_dtensor(ref):
+        return make(ref.device)
+    from torch.distributed.tensor import zeros
+    import torch
+    struct = make(torch.device("meta"))
+    mesh = ref.device_mesh
+    return tree_map(lambda x, spec: zeros(
+        tuple(x.shape), dtype=x.dtype, device_mesh=mesh,
+        placements=placements(spec, mesh)), struct,
+        plan.cache_spec_tree(struct, batch_size))
+
+
+def cache_placed(cache, batch_size: int, ref):
+    """A cache as the reference's jitted prefill and decode give it out
+    (`out_shardings`): where `ref` (the step's logits) is a DTensor under
+    a plan, every leaf in the placements of the plan's `cache_spec_tree`
+    (a DTensor redistributed, a plain tensor, the lengths, placed; a
+    no-op for a leaf already there); `cache` itself otherwise."""
+    plan = current_plan()
+    if plan is None or not is_dtensor(ref):
+        return cache
+    from torch.distributed.tensor import DTensor
+    mesh = ref.device_mesh
+
+    def put(x, spec):
+        if not isinstance(x, DTensor):
+            return place(x, spec, mesh)
+        want = placements(spec, mesh)
+        return x if tuple(x.placements) == want else x.redistribute(mesh,
+                                                                    want)
+
+    return tree_map(put, cache, plan.cache_spec_tree(cache, batch_size))
+
+
+def place_serve_state(plan: Plan, params, axes=None, *, batch=None,
+                      cache=None, tokens=None):
+    """Serving state as DTensors on the plan's `DeviceMesh`, as the
+    reference's dry run shards its jitted prefill and decode: the
+    parameters by `plan.param_specs`, a prompt batch and decode tokens
+    by `plan.batch_spec` (the batch axes only where the batch divides
+    them), a cache (`Model.init_cache`'s layout) by
+    `plan.cache_spec_tree`. Returns (params, batch, cache, tokens), None
+    for each not given."""
+    mesh = plan.mesh
+    out = [place(params, plan.param_specs(params, axes), mesh)]
+    for tree in (batch, tokens):
+        out.append(None if tree is None else
+                   place(tree, plan.batch_spec(tree), mesh))
+    if cache is not None:
+        cache = place(cache, plan.cache_spec_tree(
+            cache, cache["lengths"].shape[0]), mesh)
+    return out[0], out[1], cache, out[2]
 
 
 def place_train_state(plan: Plan, state, optimizer, batch=None, axes=None):

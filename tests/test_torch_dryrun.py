@@ -17,6 +17,7 @@ there.
 """
 import gzip
 import json
+import math
 import os
 
 import pytest
@@ -222,7 +223,7 @@ def test_fake_trace_equals_real_trace():
 
 def test_roofline_row_matches_reference(monkeypatch):
     """The same record through both rows, under the reference's three
-    constants; a null collective term is left out and shown as "—"."""
+    constants; the table shows the collective term."""
     monkeypatch.setattr(roofline, "PEAK_FLOPS", ref_roofline.PEAK_FLOPS)
     monkeypatch.setattr(roofline, "HBM_BW", ref_roofline.HBM_BW)
     monkeypatch.setattr(roofline, "NVLINK_BW", ref_roofline.ICI_BW)
@@ -236,10 +237,9 @@ def test_roofline_row_matches_reference(monkeypatch):
         got["hlo_flops_total"] = got.pop("traced_flops_total")
         got.pop("fits")
         assert got == want
-    rec["collective_wire_bytes"] = None
     row = roofline.roofline_row(rec)
-    assert row["collective_s"] is None and row["dominant"] == "memory"
-    assert "—" in roofline.table([row])
+    assert row["collective_s"] == pytest.approx(5e12 / roofline.NVLINK_BW)
+    assert f"{row['collective_s']:9.4f}" in roofline.table([row])
 
 
 def test_main_writes_a_cell_that_roofline_reads(tmp_path, capsys):
@@ -274,8 +274,9 @@ def test_production_mesh_cell_splits_and_plans():
     collective bytes with all-gathers (the parameters' FSDP gathers) and
     reduce-scatters (their gradients'), less work a device than on one
     card, and arguments per device below the whole. (Reduced, no leaf
-    reaches the 2^16 elements the plan shards.) A prefill cell on the
-    same mesh still splits evenly and says what waits."""
+    reaches the 2^16 elements the plan shards.) A reduced prefill cell
+    on the same mesh is traced sharded too: wire bytes, no reason for
+    missing ones."""
     one, _ = dryrun.cell("olmoe-1b-7b", "train_4k", "h100", device="cpu",
                          verbose=False)
     rec, _ = dryrun.cell("olmoe-1b-7b", "train_4k", "16x16", device="cpu",
@@ -292,9 +293,44 @@ def test_production_mesh_cell_splits_and_plans():
         rec["collective_wire_bytes"] / roofline.NVLINK_BW)
     pre, _ = dryrun.cell("olmoe-1b-7b", "prefill_32k", "16x16",
                          device="cpu", reduced=True, verbose=False)
-    assert pre["per_device"] == "even_split"
-    assert pre["collective_wire_bytes"] is None
-    assert "prefill" in pre["collective_reason"]
+    assert pre["per_device"] == "trace"
+    assert pre["collective_wire_bytes"] > 0
+    assert "collective_reason" not in pre
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_sharded_decode_cell_keeps_its_cache(shape):
+    """A reduced decode cell on 16x16 whose kv heads (4) do not divide
+    "model": `cache_spec_tree` shards the cache's sequence (on "model",
+    or on ("data", "model") at long_500k's batch of 1), and the sharded
+    trace writes and reads each rank's shard: wire bytes, the
+    split-softmax combine's all-reduces, and no collective whose result
+    holds a cache leaf's whole extent on a dim the spec shards."""
+    rec, log = dryrun.cell("gemma2-2b", shape, "16x16", device="cpu",
+                           reduced=True, verbose=False)
+    assert rec["per_device"] == "trace" and rec["collective_wire_bytes"] > 0
+    assert "all-reduce" in rec["collectives"]
+    cfg = get_config("gemma2-2b").reduced()
+    seq, batch, _ = SHAPES[shape]
+    spec = dryrun.make_plan(cfg, dryrun.MESHES["16x16"]).cache_spec_tree(
+        model_lib.build(cfg).init_cache(batch, seq, device="meta"),
+        batch)["kv"][0]["k"]
+    assert spec[1] == ("model" if batch > 1 else ("data", "model"))
+    assert dryrun.cache_gathers("gemma2-2b", shape, "16x16", log,
+                                reduced=True) == []
+    # the check sees a gathered cache: a log with the cache's sequence
+    # all-gathered
+    local = (batch // 16 if batch > 1 else 1, seq // 16 if batch > 1
+             else seq // 256, cfg.n_kv_heads, cfg.head_dim)
+    full = (local[0], seq) + local[2:]
+    sig = ("_c10d_functional.all_gather_into_tensor.default", False,
+           (("t", local, 2, "bfloat16", False, False, math.prod(local)),
+            ("s", 16), ("s", "0")),
+           (("t", full, 2, "bfloat16", False, False, math.prod(full)),),
+           16)
+    assert [g["leaf"] for g in dryrun.cache_gathers(
+        "gemma2-2b", shape, "16x16", [[list(sig), 1]], reduced=True)][:1] \
+        == ["('kv', 0, 'k')"]
 
 
 @pytest.mark.parametrize("mesh_kind,opts", [("2x16x16", ()),
