@@ -500,9 +500,52 @@ Phases; each raises on failure, so any failure exits non-zero:
    launches counted from 0 (one a prefill's attention layer: 26 and 4,
    all sm90; none a decode step), the first one's local inputs through
    the plain version; prefill and decode-step seconds, peak memory.
+
+24. the registered configs never built on the card before: chatglm3-6b
+   (32 query heads over 2 kv heads, RoPE on half of each head dim),
+   mistral-nemo-12b (a 131,072-token vocabulary), deepseek-coder-33b
+   (d_model 7168, 56 heads over 8) and arctic-480b (128 experts top-2
+   beside a dense residual, bf16 parameters, Adafactor), at published
+   width, cut only in depth. (a) Each config's flash-attention launch,
+   (4, 32, 2, 2048, 128), (4, 32, 8, 2048, 128) and (4, 56, 8, 2048,
+   128) (groups 16, 4 and 7; arctic's is deepseek's), causal, bf16, the
+   model's strided views: the first launch moves the sm90 count by one
+   and is held against the plain version (phase 14's bf16 criteria);
+   kernel, call and plain ms, the bound over the causal pairs, SDPA with
+   enable_gqa as a yardstick. (b) The Engine in bf16 compute, 4 x 2048
+   prompts and 32 greedy tokens: chatglm3-6b and mistral-nemo-12b at full
+   depth, deepseek-coder-33b cut to 16 of 62 layers, arctic-480b to 2 of
+   35 in its bf16; every count set to 0 just before the first generate
+   and read just after (one sm90 launch a layer, causal, all in the
+   prefill; the first held against the plain version); a warm generate
+   with the same tokens, prefill ms, decode ms a token, tokens/s, peak
+   memory, one profiled generate of the prompt and 8 tokens (idle
+   share); phase 17's paths now print prefill and decode ms too. (c) Card against the CPU
+   at full width, f32 compute: the dense configs cut to 2 layers through
+   ssm_step_compare (prefill and 3 decode steps, each card step from the
+   CPU's cache: logits within 1e-4, the bf16 caches within one ulp; the
+   drift of the card decoding from its own cache recorded; one SIMT
+   launch a layer); arctic-480b cut to 1 layer with its bf16
+   parameters on both sides, the forward's logits of 1 x 32 tokens within
+   1e-4, after the host's MemAvailable is printed beside what the CPU's
+   side needs (it raises if the host is short). (d) Training at full
+   width: the dense configs through the Trainer as phase 19 (c) trains
+   olmoe-1b-7b (f32 parameters, AdamW, bf16 compute, remat, 3 steps of 4
+   microbatches of 1 x 2048, the governor on), cut in depth to the most
+   layers whose 16 bytes a parameter leave 10 GiB of the card, with phase
+   19 (c)'s checks and readings; arctic-480b cut to 1 layer through
+   make_train_step with its own Adafactor and bf16 parameters, 3 steps
+   of one 4 x 2048 microbatch: 2 sm90 launches a step, the loss finite
+   and falling, step s, peak memory. (e) The dense configs cut to 1 layer,
+   one make_train_step on the card and on the CPU (phase 19 (b)'s
+   limits); and the streamed Adafactor update of the card's own gradient
+   of 8 of arctic's experts (taken as a leaf of its own, 1.1 GB in f32)
+   against the unstreamed update: vr and vc bit-equal, parameters within
+   1e-6 of their max.
    The script's total time is printed before the JSON lines.
 
-The last lines are the sharded-serve JSON (phase 23), the sharded-train
+The last lines are the configs JSON (phase 24), the sharded-serve JSON
+(phase 23), the sharded-train
 JSON (phase 22), the mesh JSON
 (phase 21), the planner JSON (phase 20),
 the training-families
@@ -511,7 +554,7 @@ JSON (phase 19), the ssm JSON
 the chaos JSON (phases 10e and 10f), the serving JSON (phase 10d), the
 fleet JSON (phase 10c), the cluster JSON (phase 10b), the scenarios JSON
 (phases 6-10), the kernels JSON, the card line and the result JSON; each
-of the first twelve and the kernels JSON is also written under
+of the first thirteen and the kernels JSON is also written under
 `chiprun_out/`.
 The script needs one CUDA card and exits non-zero without one.
 """
@@ -4921,15 +4964,26 @@ class CapturedLaunches:
 
 def engine_path(spec, dev) -> dict:
     """One Engine path at full width (gemma2-2b past its window, olmoe,
-    paligemma): build, the counted first generate (every count set to 0
-    just before, read just after; each launch's mask recorded, the first
-    launch with a window and the first without one held against the plain
-    version on their own tensors), a warm
-    generate (the same tokens), one profiled generate, peak memory."""
-    cfg = get_config(spec["arch"])
+    paligemma; phase 24's configs, cut in depth where the spec gives
+    `n_layers`): build (its peak memory), the counted first generate
+    (every count set to 0 just before, read just after; each launch's
+    mask recorded, the first launch with a window and the first without
+    one held against the plain version on their own tensors), a warm
+    prefill, a warm generate (the same tokens; its time past the prefill
+    gives decode ms a token), one profiled generate (of the spec's
+    `profile_tokens` only, if it gives them, against that generate's own
+    unprofiled warm wall), peak memory."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = get_config(spec["arch"])
+    cfg = dataclasses.replace(base, n_layers=spec.get("n_layers",
+                                                      base.n_layers))
     B, P, T = spec["batch"], spec["prompt"], spec["tokens"]
+    torch.cuda.reset_peak_memory_stats()
     eng, build_s = synced(lambda: Engine.build(cfg, max_seq=P + T, seed=0,
                                                device=dev))
+    build_peak = torch.cuda.max_memory_allocated()
     batch = make_batch(cfg, B, P, "prefill", seed=0, device=dev)
     n_params = n_elements(eng.params)
     torch.cuda.reset_peak_memory_stats()
@@ -4953,27 +5007,47 @@ def engine_path(spec, dev) -> dict:
         raise AssertionError(f"{cfg.name}: tokens {toks.shape} outside the "
                              f"vocabulary")
     held = cap.check(cfg.name)
+    (logits, cache), prefill_s = synced(
+        lambda: eng.model.prefill(eng.params, batch, P + T))
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: prefill logits not all finite")
+    del logits, cache
     toks2, warm_s = synced(lambda: eng.generate(batch, T))
     if not (toks2 == toks).all():
         raise AssertionError(f"{cfg.name}: the warm generate's tokens "
                              f"differ from the first's")
-    prof = phase_profile(lambda: eng.generate(batch, T),
-                         f"{cfg.name} generate (B {B}, prompt {P}, {T} "
-                         f"tokens)", warm_s)
-    out = dict(params=n_params, build_s=build_s, generate_first_s=first_s,
-               generate_warm_s=warm_s, tokens_per_s=B * T / warm_s,
+    T_prof = spec.get("profile_tokens", T)
+    prof_s = warm_s if T_prof == T else \
+        synced(lambda: eng.generate(batch, T_prof))[1]
+    prof = phase_profile(lambda: eng.generate(batch, T_prof),
+                         f"{cfg.name} generate (B {B}, prompt {P}, {T_prof} "
+                         f"tokens)", prof_s)
+    out = dict(layers=cfg.n_layers, full_layers=base.n_layers,
+               params=n_params, build_s=build_s,
+               build_peak_memory_bytes=build_peak, generate_first_s=first_s,
+               generate_warm_s=warm_s, prefill_ms=1e3 * prefill_s,
+               decode_ms_per_token=1e3 * (warm_s - prefill_s) / T,
+               tokens_per_s=B * T / warm_s,
                prompt_tokens_per_s=B * P / warm_s, peak_memory_bytes=peak,
                counts=counts, launch_masks=list(dict.fromkeys(cap.masks)),
-               held_launches=held, profile=prof,
+               held_launches=held, profile_tokens=T_prof, profile=prof,
+               idle_share=prof["idle_share"],
                kernel_share=prof["flash_attention_ms"]
-               / prof["device_busy_ms"], tokens_head=toks[:, :8].tolist())
-    print(f"{cfg.name} ({n_params:,} parameters; B {B}, prompt {P}, {T} "
-          f"tokens): build {build_s:.2f} s; generate first {first_s:.3f} s, "
-          f"warm {warm_s:.3f} s = {out['tokens_per_s']:.1f} tokens/s; peak "
-          f"device memory {peak / 2**30:.2f} GiB; idle share "
-          f"{prof['idle_share']:.3f}; launches {counts}, masks "
-          f"{out['launch_masks']}; held launches {held}")
+               / prof["device_busy_ms"], tokens_head=toks[:, :8].tolist(),
+               seconds=time.perf_counter() - t0)
+    print(f"{cfg.name} ({cfg.n_layers} of {base.n_layers} layers, "
+          f"{n_params:,} parameters; B {B}, prompt {P}, {T} tokens): build "
+          f"{build_s:.2f} s (peak {build_peak / 2**30:.2f} GiB); generate "
+          f"first {first_s:.3f} s, warm {warm_s:.3f} s = "
+          f"{out['tokens_per_s']:.1f} tokens/s; prefill "
+          f"{out['prefill_ms']:.2f} ms; decode "
+          f"{out['decode_ms_per_token']:.3f} ms a token; peak device memory "
+          f"{peak / 2**30:.2f} GiB; idle share {prof['idle_share']:.3f} "
+          f"(prompt and {T_prof} tokens); launches {counts}, masks "
+          f"{out['launch_masks']}; held launches {held}; "
+          f"{out['seconds']:.1f} s")
     del eng, batch
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -5103,23 +5177,32 @@ def phase_masks_families(dev) -> dict:
     return out
 
 
-def fa_d112_times(dev) -> dict:
-    """zamba2-7b's launch (FA_D112_PATH, causal, bf16, the model's strided
-    views): the tensor-core kernel (ms by the profiler, call ms), the
+def fa_path_times(dev, shape, seed, label) -> dict:
+    """A path's causal launch `shape` (B, H, K, S, D), bf16, the model's
+    strided views: the first launch through `attention` moves the sm90
+    count by one and is held against the plain version (the bf16
+    criteria); the tensor-core kernel (ms by the profiler, call ms), the
     plain version, the bound over the causal pairs, and the yardstick
-    SDPA(is_causal=True), which the port never calls."""
-    B, H, K, S, D = FA_D112_PATH
-    q, k, v = fa_inputs(B, H, K, S, D, "bfloat16", 11, dev, views=True)
+    SDPA(is_causal=True, enable_gqa=True), which the port never calls."""
+    B, H, K, S, D = shape
+    q, k, v = fa_inputs(B, H, K, S, D, "bfloat16", seed, dev, views=True)
     launch = lambda: fa.attention_cuda(q, k, v, causal=True)
     plain = lambda: fa.attention_plain(q, k, v, causal=True)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True)
-    e, mean_rel, max_rel = fa_compare("D 112 path shape", launch(), plain(),
+        q, k, v, is_causal=True, enable_gqa=True)
+    before = (fa.launches_sm90, fa.launches_simt)
+    got = fa.attention(q, k, v, causal=True)
+    moved = (fa.launches_sm90 - before[0], fa.launches_simt - before[1])
+    if moved != (1, 0):
+        raise AssertionError(f"flash_attention {label} {shape}: route counts "
+                             f"moved {moved}, expected one sm90 launch")
+    e, mean_rel, max_rel = fa_compare(f"{label} {shape}", got, plain(),
                                       "bfloat16")
+    del got
     bytes_ms, ops_ms = fa_bound(B, H, K, S, D, "bfloat16", True)
     bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
-    out = dict(shape=dict(B=B, H=H, K=K, S=S, D=D, causal=True,
-                          softcap=None),
+    out = dict(shape=dict(B=B, H=H, K=K, S=S, D=D, group=H // K,
+                          causal=True, softcap=None),
                pairs=fa_pairs(S, True, None, 0),
                ms=kernel_ms(launch, 20, "flash_attention_sm90_kernel"),
                call_ms=cuda_ms(launch, 20), plain_ms=cuda_ms(plain, 3),
@@ -5128,12 +5211,17 @@ def fa_d112_times(dev) -> dict:
                max_abs_err=e, mean_rel=mean_rel, max_rel=max_rel)
     out["bound_share"] = bound_ms / out["ms"]
     out["tflops"] = ops_ms * BF16_TENSOR_OPS_PER_S / 1e12 / out["ms"]
-    print(f"flash_attention D 112 at {FA_D112_PATH}, causal: tensor-core "
-          f"kernel {out['ms']:.4f} ms (call {out['call_ms']:.4f}; "
-          f"{out['tflops']:.1f} TFLOP/s, {out['bound_share']:.3f} of the "
-          f"bound {bound_ms:.5f} ms, {bound_by}; bytes {bytes_ms:.5f}), "
-          f"plain {out['plain_ms']:.3f} ms, SDPA is_causal (yardstick) "
-          f"{out['library_ms']:.4f} ms; max abs err {e:.3g}")
+    print(f"flash_attention {label} at {shape} (group {H // K}), causal: "
+          f"sm90 kernel equals the plain version, max abs err {e:.3g}, "
+          f"mean |err| / mean |want| {mean_rel:.3g}, max |err| / max |want| "
+          f"{max_rel:.3g}; kernel {out['ms']:.4f} ms (call "
+          f"{out['call_ms']:.4f}; {out['tflops']:.1f} TFLOP/s, "
+          f"{out['bound_share']:.3f} of the bound {bound_ms:.5f} ms, "
+          f"{bound_by}; bytes {bytes_ms:.5f}), plain {out['plain_ms']:.3f} "
+          f"ms, SDPA is_causal enable_gqa (yardstick) "
+          f"{out['library_ms']:.4f} ms")
+    del q, k, v
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5451,7 +5539,8 @@ def phase_ssm(dev) -> dict:
           f"{rel['mean_rel']:.3g}, max |err| / max |want| <= "
           f"{rel['max_rel']:.3g}")
     out = dict(registers=regs, smem_bytes=fa.SM90_SMEM_BYTES[112],
-               masks=masks, times=fa_d112_times(dev),
+               masks=masks,
+               times=fa_path_times(dev, FA_D112_PATH, 11, "D 112"),
                check=phase_ssm_check(dev))
     for spec in SSM_SERVE:
         out[spec["arch"]] = ssm_engine_path(spec, dev)
@@ -5515,14 +5604,15 @@ def attention_layers(cfg) -> int:
     return cfg.n_layers
 
 
-def train_family_check(arch: str, opts, dev) -> dict:
+def train_family_check(arch: str, opts, dev, cuts=None) -> dict:
     """(b) for one family and gradient path: one make_train_step on the
     card (the SIMT route: the forward and the remat recompute of each
     attention layer) and on the CPU from the same seeded weights, held to
     CHECK_TRAIN_FAMILIES' limits; a leaf the loss does not use gets an
-    all-zero gradient on both."""
+    all-zero gradient on both. `cuts` (default CHECK_TRAIN_FAMILIES')
+    gives each arch's depth."""
     c = CHECK_TRAIN_FAMILIES
-    cfg = cut_config(arch, c["cuts"][arch])
+    cfg = cut_config(arch, (cuts or c["cuts"])[arch])
     t0 = time.perf_counter()
     model = model_lib.build(cfg)
     params = model.init(seed=1, device=dev)
@@ -7266,6 +7356,354 @@ def phase_sharded_serve(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the registered configs never built on the card
+# ---------------------------------------------------------------------------
+
+# chatglm3-6b (32 query heads over 2 kv heads, a group of 16; RoPE on half
+# of each head dim), mistral-nemo-12b (32 over 8; a 131,072-token
+# vocabulary), deepseek-coder-33b (d_model 7168, 56 heads over 8, a group
+# of 7) and arctic-480b (deepseek's attention, 128 experts top-2 beside a
+# dense residual, bf16 parameters, Adafactor): published widths, cut only
+# in depth, each cut printed
+CONFIG_ARCHS = ("chatglm3-6b", "mistral-nemo-12b", "deepseek-coder-33b",
+                "arctic-480b")
+CONFIG_DENSE = CONFIG_ARCHS[:3]
+# (a) each config's flash-attention launch at 4 x 2048 tokens, causal, no
+# softcap, bf16, the model's strided views (fa_path_times): (B, H, K, S,
+# D); arctic-480b's attention is deepseek-coder-33b's
+CONFIG_FA = {"chatglm3-6b": (4, 32, 2, 2048, 128),
+             "mistral-nemo-12b": (4, 32, 8, 2048, 128),
+             "deepseek-coder-33b": (4, 56, 8, 2048, 128)}
+# (b) the Engine in bf16 compute, a 4 x 2048 prompt and 32 greedy tokens:
+# chatglm3-6b (6.24e9 parameters, 25.0 GB in f32) and mistral-nemo-12b
+# (12.25e9, 49.0 GB) at full depth, built in f32 and cast once;
+# deepseek-coder-33b (33.3e9) cut to 16 of 62 layers (8.95e9, 35.8 GB);
+# arctic-480b in its bf16 to 2 of 35 layers (27.68e9, 55.4 GB). The
+# profiled generate decodes 8 tokens: a 32-token generate's ~100,000
+# device ops take the profiler some 20 s to read back
+CONFIG_SERVE = tuple(
+    dict(arch=a, batch=4, prompt=2048, tokens=32, profile_tokens=8, **cut)
+    for a, cut in (("chatglm3-6b", {}), ("mistral-nemo-12b", {}),
+                   ("deepseek-coder-33b", dict(n_layers=16)),
+                   ("arctic-480b", dict(n_layers=2))))
+# (c) card against the CPU at full width, f32 compute, the same seeded
+# weights: the dense configs cut to 2 layers through ssm_step_compare (B
+# 1, a 64-token prompt, 3 decode steps fed the CPU's choices, each card
+# step from the CPU's cache; the SIMT route, one launch a layer): the
+# bf16 kv cache rounds f32 values that differ by ~1e-6 between the two,
+# and one element rounded the other way moved chatglm3-6b's next logits
+# by 1.4e-3 when each side decoded from its own cache (recorded beside,
+# not held); arctic-480b cut to 1 layer with its bf16
+# parameters on both sides (widened where used), the forward's logits of
+# 1 x 32 tokens. The CPU's side of arctic holds 28.1 GB of parameters
+# and one expert leaf widened to f32 (17.9 GB) at a time: the host's
+# MemAvailable must hold that and ARCTIC_HOST_MARGIN more
+CONFIG_CHECK = dict(layers=2, batch=1, prompt=64, tokens=3, tol=1e-4,
+                    arctic_layers=1, arctic_seq=32)
+ARCTIC_HOST_MARGIN = 4 * 2 ** 30
+# (d) training at full width: the dense configs through the Trainer as
+# phase 19 (c) trains olmoe-1b-7b (f32 parameters, AdamW, bf16 compute,
+# remat, FAMILY_STEPS steps of 4 microbatches of 1 x 2048, the governor
+# on), cut in depth to the most layers whose 16 bytes a parameter leave
+# 10 GiB of the card (mistral-nemo-12b 16 GiB: its loss holds (2048,
+# 131,072) f32 logits and their gradients, and 12 layers ran out of
+# memory at 10 GiB); arctic-480b through make_train_step with its own
+# optimizer (Adafactor) and bf16 parameters, 1 layer, one microbatch of
+# 4 x 2048 tokens a step (a second microbatch would need the 56.3 GB f32
+# accumulator of the reference's default path beside the 56.3 GB of bf16
+# parameters and gradients), 3 steps at a constant rate
+CONFIG_TRAIN = tuple(
+    dict(arch=a, via="trainer", cut="layers",
+         headroom=(16 if a == "mistral-nemo-12b" else 10) * 2 ** 30)
+    for a in CONFIG_DENSE)
+ARCTIC_TRAIN = dict(arch="arctic-480b", layers=1, batch=4, seq=2048,
+                    steps=3, lr=1e-3, check_experts=8, rtol=1e-6)
+# (e) the dense configs cut to 1 layer, one make_train_step on the card
+# and on the CPU, phase 19 (b)'s limits
+CONFIG_TRAIN_CHECK = {a: dict(n_layers=1) for a in CONFIG_DENSE}
+
+
+def mem_available() -> int:
+    """The host's MemAvailable, bytes (/proc/meminfo)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def config_check(arch, dev) -> dict:
+    """(c) one config at full width, f32 compute, the same seeded weights
+    on the card (SIMT route) and on the CPU (plain path): a dense config
+    cut to CONFIG_CHECK["layers"] through ssm_step_compare (logits and
+    caches at every step, each card decode step from the CPU's cache);
+    arctic-480b cut to one layer, its bf16 parameters on both sides, the
+    forward's logits."""
+    c = CONFIG_CHECK
+    t0 = time.perf_counter()
+    base = get_config(arch)
+    n_layers = c["layers"] if base.moe is None else c["arctic_layers"]
+    cfg = dataclasses.replace(base, n_layers=n_layers,
+                              compute_dtype="float32")
+    model = model_lib.build(cfg)
+    params = model.init(seed=1, device=dev)
+    reset_counts()
+    out = dict(layers=n_layers, param_dtype=cfg.param_dtype)
+    if base.moe is None:
+        batch = make_batch(cfg, c["batch"], c["prompt"], "prefill", seed=1,
+                           device="cpu")
+        max_seq = c["prompt"] + c["tokens"]
+        card = Engine.build(cfg, max_seq=max_seq, params=params, device=dev)
+        host = Engine.build(cfg, max_seq=max_seq, params=params,
+                            device="cpu")
+        del params
+        err, clear, free_err, caches = ssm_step_compare(
+            cfg, card, host, batch, max_seq, c["tokens"], c["tol"])
+        del card, host
+        out.update(max_logit_err=err, clear_choices=clear,
+                   free_running_max_logit_err=free_err, caches=caches)
+    else:
+        leaves = ckpt.checkpoint.tree_leaves(params)
+        host_bytes = sum(x.numel() * x.element_size() for x in leaves)
+        widened = 4 * max(x.numel() for x in leaves)
+        need = host_bytes + widened + ARCTIC_HOST_MARGIN
+        avail = mem_available()
+        print(f"config check {arch}: host MemAvailable {avail / 1e9:.1f} GB;"
+              f" the CPU's side needs {host_bytes / 1e9:.1f} GB of "
+              f"{cfg.param_dtype} parameters + {widened / 1e9:.1f} GB for one"
+              f" expert leaf widened to f32 + {ARCTIC_HOST_MARGIN / 1e9:.1f}"
+              f" GB = {need / 1e9:.1f} GB")
+        if avail < need:
+            raise AssertionError(f"config check {arch}: the host has "
+                                 f"{avail / 1e9:.1f} GB available, the CPU's"
+                                 f" forward needs {need / 1e9:.1f} GB")
+        batch = make_batch(cfg, c["batch"], c["arctic_seq"], "prefill",
+                           seed=1, device="cpu")
+        with torch.no_grad():
+            lg = model.forward(params, {k: v.to(dev) for k, v in
+                                        batch.items()})[0].cpu()
+            host = to_host(params)
+            del params
+            torch.cuda.empty_cache()
+            lc = model.forward(host, batch)[0]
+        del host
+        err = float((lg - lc).abs().max())
+        if not bool(torch.isfinite(lg).all()) or not torch.allclose(
+                lg, lc, rtol=c["tol"], atol=c["tol"]):
+            raise AssertionError(f"config check {arch}: card logits "
+                                 f"{err:.3g} off the CPU's (tol {c['tol']})")
+        out.update(max_logit_err=err, clear_choices=None,
+                   host_need_bytes=need, host_available_bytes=avail)
+        del lg, lc
+    counts = fa_counts()
+    if (counts["flash_attention"], counts["flash_attention_simt"]) != (
+            n_layers, n_layers):
+        raise AssertionError(f"config check {arch}: launches {counts}, "
+                             f"expected {n_layers} on the simt route")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(seconds=time.perf_counter() - t0,
+               simt_launches=counts["flash_attention_simt"])
+    print(f"config check {arch} ({n_layers} layers, full width, f32 "
+          f"compute, {cfg.param_dtype} parameters): card equals the CPU's "
+          f"plain path, max logit err {out['max_logit_err']:.3g} (tol "
+          f"{c['tol']}); clear greedy choices {out['clear_choices']}; "
+          f"from its own caches "
+          f"{out.get('free_running_max_logit_err')}; caches "
+          f"{out.get('caches')}; {out['seconds']:.1f} s")
+    return out
+
+
+class SliceRecorder:
+    """An optimizer that keeps, at its first update, the first `n` experts
+    of the gradient and of the parameter at `path` (before the update),
+    then updates as the optimizer it wraps."""
+
+    def __init__(self, opt, path, n):
+        self.opt, self.path, self.n = opt, path, n
+        self.grad = self.param = None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, lr_scale=1.0):
+        if self.grad is None:
+            at = lambda tree: dict(ckpt.checkpoint.tree_leaves_with_paths(
+                tree))[self.path][:self.n].detach().clone()
+            self.grad, self.param = at(grads), at(params)
+        return self.opt.update(grads, state, params, lr_scale=lr_scale)
+
+
+def streamed_against_whole(grad, param, lr, rtol) -> dict:
+    """(e) for arctic-480b: the card's own gradient of an expert slice,
+    taken with its parameter (widened to f32) as a leaf of its own,
+    through one Adafactor update streamed in SLICE_ELEMS-element slices
+    and through one unstreamed (one slice): every statistic bit-equal,
+    every parameter within `rtol` of its largest value (only the clip's
+    sum of squares is added in another order), each update's peak memory
+    above what it was given."""
+    from repro_torch.train import Adafactor
+    from repro_torch.train.optimizer import SLICE_ELEMS
+    runs = {}
+    for name, n in (("streamed", SLICE_ELEMS), ("whole", grad.numel())):
+        opt = Adafactor(lr=lr, slice_elems=n)
+        p = {"w": param.to(torch.float32)}
+        state = opt.init(p)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        opt.update({"w": grad}, state, p)
+        torch.cuda.synchronize()
+        runs[name] = (p["w"], state,
+                      torch.cuda.max_memory_allocated() - base)
+    (a, sa, peak_a), (b, sb, peak_b) = runs["streamed"], runs["whole"]
+    for f in ("vr", "vc"):
+        if not torch.equal(getattr(sa, f)["w"], getattr(sb, f)["w"]):
+            raise AssertionError(f"streamed Adafactor: statistic {f} differs"
+                                 f" from the unstreamed update's")
+    rel = float((a - b).abs().max() / b.abs().max())
+    if not rel <= rtol:
+        raise AssertionError(f"streamed Adafactor: parameters {rel:.3g} of "
+                             f"their max off the unstreamed update's (limit "
+                             f"{rtol})")
+    out = dict(shape=list(grad.shape), slices=math.ceil(
+        grad.shape[0] / max(1, SLICE_ELEMS // grad[0].numel())),
+        stats_bit_equal=True, param_rel=rel, peak_streamed_bytes=peak_a,
+        peak_whole_bytes=peak_b)
+    print(f"  streamed Adafactor on the card's gradient of "
+          f"{tuple(grad.shape)} experts ({out['slices']} slices): vr and vc "
+          f"bit-equal to the unstreamed update's, parameters within "
+          f"{rel:.3g} of their max (limit {rtol}); peak above its inputs "
+          f"{peak_a / 2**30:.2f} GiB streamed, {peak_b / 2**30:.2f} GiB "
+          f"whole")
+    return out
+
+
+def arctic_train(dev) -> dict:
+    """(d) arctic-480b at full width cut to ARCTIC_TRAIN's layers:
+    make_train_step with its own optimizer (Adafactor, stack_period from
+    its block pattern), bf16 parameters and compute, one microbatch a
+    step, every count set to 0 just before the first step and read after
+    the last (2 sm90 launches an attention layer a step: forward and
+    remat recompute); losses finite and falling; step s, tokens/s, peak
+    memory; then (e) the streamed update against the unstreamed one on
+    the first step's gradient of ARCTIC_TRAIN["check_experts"] experts."""
+    s = ARCTIC_TRAIN
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = get_config(s["arch"])
+    cfg = dataclasses.replace(base, n_layers=s["layers"])
+    model = model_lib.build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, build_s = synced(lambda: model.init(seed=0, device=dev))
+    n_params = n_elements(params)
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in ckpt.checkpoint.tree_leaves(params))
+    rec = SliceRecorder(make_optimizer(cfg, lr=s["lr"]),
+                        ("blocks", 0, "moe", "wi_gate"), s["check_experts"])
+    state = TrainState(params, rec.init(params),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    del params
+    step = make_train_step(model, rec, 1)
+    batch = make_batch(cfg, s["batch"], s["seq"], "train", seed=0,
+                       device=dev)
+    mask = torch.ones((1,), device=dev)
+    reset_counts()
+    losses, norms, times = [], [], []
+    for _ in range(s["steps"]):
+        (state, m), dt = synced(lambda: step(state, batch, mask))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(dt)
+    counts = fa_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want_fa = 2 * cfg.n_layers * s["steps"]
+    if (counts["flash_attention"], counts["flash_attention_sm90"]) != (
+            want_fa, want_fa):
+        raise AssertionError(f"train {cfg.name}: launches {counts}, expected "
+                             f"{want_fa} sm90 (forward and recompute of "
+                             f"{cfg.n_layers} layers x {s['steps']} steps)")
+    if not all(math.isfinite(x) for x in losses + norms) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train {cfg.name}: losses {losses}, gradient "
+                             f"norms {norms} (finite, the loss lower at the "
+                             f"last step than at the first)")
+    warm_s = sorted(times[1:])[len(times[1:]) // 2]
+    opt = rec.opt
+    out = dict(arch=s["arch"], via="make_train_step", layers=cfg.n_layers,
+               full_layers=base.n_layers, params=n_params,
+               param_bytes=param_bytes, param_dtype=cfg.param_dtype,
+               optimizer=type(opt).__name__, stack_period=opt.stack_period,
+               batch=dict(seqs=s["batch"], seq=s["seq"], n_micro=1),
+               build_s=build_s, losses=losses, grad_norms=norms,
+               step_s=times, first_step_s=times[0], warm_step_s=warm_s,
+               tokens_per_s=s["batch"] * s["seq"] / warm_s,
+               peak_memory_bytes=peak, counts=counts,
+               flash_attention_predicted=want_fa)
+    print(f"train {cfg.name} via make_train_step ({cfg.n_layers} of "
+          f"{base.n_layers} layers, {n_params:,} parameters, "
+          f"{cfg.param_dtype}, {param_bytes / 1e9:.1f} GB; "
+          f"{type(opt).__name__} stack_period {opt.stack_period}; "
+          f"{s['steps']} steps of 1 x {s['batch']} x {s['seq']}): build "
+          f"{build_s:.2f} s; losses {losses}; gradient norms {norms}; step s "
+          f"{times} (warm {warm_s:.3f}); {out['tokens_per_s']:.0f} tokens/s; "
+          f"peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
+    grad, param = rec.grad, rec.param
+    del state, batch, step, rec, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["streamed_check"] = streamed_against_whole(grad, param, s["lr"],
+                                                   s["rtol"])
+    del grad, param
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_configs(dev) -> dict:
+    """Phase 24: the registered configs never built on the card: (a) their
+    flash-attention launches, (b) served, (c) card against the CPU, (d)
+    trained at full width, (e) train steps against the CPU and arctic's
+    streamed Adafactor update."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"phase 24: device memory free {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB; host MemAvailable "
+          f"{mem_available() / 1e9:.1f} GB")
+    out, secs = {}, {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t
+
+    timed("fa", lambda: {a: fa_path_times(dev, shape, 240 + i, a)
+                         for i, (a, shape) in enumerate(CONFIG_FA.items())})
+    timed("serve", lambda: {spec["arch"]: engine_path(spec, dev)
+                            for spec in CONFIG_SERVE})
+    timed("check", lambda: {a: config_check(a, dev) for a in CONFIG_ARCHS})
+
+    def train_checks():
+        with host_heap_reuse():
+            return {a: train_family_check(a, (), dev, CONFIG_TRAIN_CHECK)
+                    for a in CONFIG_DENSE}
+
+    timed("train_check", train_checks)
+    timed("train", lambda: {spec["arch"]: train_family(spec, dev)
+                            for spec in CONFIG_TRAIN})
+    timed("train_arctic", lambda: arctic_train(dev))
+    out["train"][ARCTIC_TRAIN["arch"]] = out.pop("train_arctic")
+    out["seconds_by_part"] = secs
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 24: {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")")
+    return out
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -7401,6 +7839,7 @@ def main() -> None:
         for pool in (dry[0], sharded_dry[0]):
             pool.shutdown(wait=True, cancel_futures=True)
     sharded_serve = phase_sharded_serve(dev)
+    configs = phase_configs(dev)
 
     # last: a profiler session this large can cost the next session its
     # first kernel records, and kernel_ms counts every launch
@@ -7642,7 +8081,19 @@ def main() -> None:
                  a: dict(counts=sharded_serve[a]["counts"],
                          predicted=sharded_serve[a][
                              "flash_attention_predicted"])
-                 for a in SHARDED_SERVE["archs"]}),
+                 for a in SHARDED_SERVE["archs"]},
+             # phase 24: the new configs' launch shapes (groups 16, 4 and
+             # 7 at D 128, causal) held and timed, and their paths'
+             # launches counted from 0: one a layer in a generate (all in
+             # the prefill), 2 a layer, microbatch and step in training
+             config_times=configs["fa"],
+             launches_phase24=dict(
+                 serve={a: v["counts"] for a, v in configs["serve"].items()},
+                 train={a: dict(counts=v["counts"],
+                                predicted=v["flash_attention_predicted"])
+                        for a, v in configs["train"].items()},
+                 check={a: v["simt_launches"]
+                        for a, v in configs["check"].items()})),
     ]
     ct = cluster["times"]
     kernels.append(dict(
@@ -7744,6 +8195,10 @@ def main() -> None:
             k["launches_mesh"] = mesh_launches(mesh, k["name"])
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
+    configs_line = json.dumps({"configs": configs})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "configs.json").write_text(configs_line)
+    print(configs_line)
     sharded_serve_line = json.dumps({"sharded_serve": sharded_serve})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "sharded_serve.json").write_text(

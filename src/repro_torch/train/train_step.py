@@ -17,6 +17,17 @@ keeps one f32 gradient per parameter, with no separate accumulator
 (12.8 GB at gemma2-2b's full width). The "bf16_params" and "bf16_grads"
 options take the reference's path instead: per-microbatch gradients of
 the compute copies, added into an accumulator of their type.
+
+A parameter that is not f32 (arctic-480b's bf16 ones) gets the
+reference's f32 gradient: with two microbatches or more, each
+microbatch's gradient is widened (exactly) as soon as it is formed and
+added into an f32 accumulator in microbatch order, and the sum is
+divided in f32. With one microbatch the weight w / max(w, 1) scales the
+loss and nothing is divided (for w <= 1, as a governor's 0/1 mask, the
+division was by 1): the gradient stays in the parameter's type, and its
+exact widening is left to where it is used, a slice at a time (the norm
+here, the optimizer's update). The reference's f32 gradients of one
+arctic-480b layer are 56.3 GB; kept in bf16 they are 28.1 GB.
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ import torch
 from ..ckpt.checkpoint import tree_leaves, tree_rebuild
 from ..device import is_dtensor
 from ..sharding.planner import batch_placements, placements, replicate_like
+from .optimizer import SLICE_ELEMS, leaf_slices
 
 
 class TrainState(NamedTuple):
@@ -102,29 +114,42 @@ def make_train_step(model, optimizer, n_micro: int, lr_schedule=None,
         """The .grad path; returns (loss sum, gradient leaves)."""
         leaves = tree_leaves(params)
         want = targets(leaves)
+        one = n_micro == 1
+        # a leaf that is not f32, with 2 microbatches or more: its f32 sum
+        acc = {j: None for j, p in enumerate(leaves)
+               if p.dtype != torch.float32 and not one}
         hooks = []
-        for p, t in zip(leaves, want):
+        for j, (p, t) in enumerate(zip(leaves, want)):
             p.requires_grad_(True)
             p.grad = None
-            if shard and t is not None:
+            if j in acc or (shard and t is not None):
                 hooks.append(p.register_post_accumulate_grad_hook(
-                    functools.partial(_move_grad, placements=t)))
+                    functools.partial(_take_grad, j=j, acc=acc,
+                                      placements=t if shard else None)))
+        weight = mask / denom if one else mask
         loss_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
         try:
             for i in range(n_micro):
                 with micro_scope():
                     mb = {k: x[i] for k, x in micro.items()}
                     loss, _ = model.loss_fn(params, mb)
-                    (mask[i] * loss).backward()
+                    (weight[i] * loss).backward()
                     loss_sum = loss_sum + mask[i] * loss.detach()
         finally:
             for h in hooks:
                 h.remove()
-        # a leaf the loss does not use (audio's `embed`) gets no .grad;
+
+        # a leaf the loss does not use (audio's `embed`) gets no gradient;
         # jax.grad gives it zeros, and so does this
-        grads = [torch.zeros_like(p) if p.grad is None
-                 else _reduced(p.grad, t).div_(denom)
-                 for p, t in zip(leaves, want)]
+        def grad(j, p, t):
+            g = acc[j] if j in acc else p.grad
+            if g is None:
+                return torch.zeros_like(
+                    p, dtype=torch.float32 if j in acc else p.dtype)
+            g = _reduced(g, t)
+            return g if one else g.div_(denom)
+
+        grads = [grad(j, p, t) for j, (p, t) in enumerate(zip(leaves, want))]
         for p in leaves:
             p.grad = None
         return loss_sum, grads
@@ -173,7 +198,7 @@ def make_train_step(model, optimizer, n_micro: int, lr_schedule=None,
         lr_scale = lr_schedule(state.step) if lr_schedule else 1.0
         grad_tree = tree_rebuild(params, iter(grads))
         with torch.no_grad():
-            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            gnorm = torch.sqrt(sum(_sum_squares(g) for g in grads))
         new_params, new_opt = optimizer.update(grad_tree, state.opt_state,
                                                params, lr_scale=lr_scale)
         del grads, grad_tree
@@ -195,11 +220,31 @@ def _reduced(g, placements):
     return g.redistribute(g.device_mesh, placements)
 
 
-def _move_grad(p, placements):
-    """Post-accumulate-grad hook: the accumulated `.grad` into
-    `placements`, so that the next microbatch's gradient is reduced into
-    it rather than kept as a partial sum."""
-    p.grad = _reduced(p.grad, placements)
+def _take_grad(p, j, acc, placements):
+    """Post-accumulate-grad hook of leaf j: the accumulated `.grad` into
+    `placements` (with "shard_grads"), so that the next microbatch's
+    gradient is reduced into it rather than kept as a partial sum; for a
+    leaf of `acc` (not f32), this microbatch's gradient widened and added
+    into its f32 sum, and `.grad` freed."""
+    g = p.grad if placements is None else _reduced(p.grad, placements)
+    if j not in acc:
+        p.grad = g
+        return
+    g = g.to(torch.float32)
+    acc[j] = g if acc[j] is None else acc[j].add_(g)
+    p.grad = None
+
+
+def _sum_squares(g):
+    """The sum of g's squares in f32: an f32 gradient as the reference
+    squares it; another type widened a slice at a time (`leaf_slices`)."""
+    if g.dtype == torch.float32:
+        return torch.sum(g * g)
+    total = 0.0
+    for s in leaf_slices(g.contiguous(), SLICE_ELEMS):
+        s = s.to(torch.float32)
+        total = total + torch.sum(s * s)
+    return total
 
 
 def _replicated(x):

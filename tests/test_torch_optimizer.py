@@ -13,15 +13,23 @@ last f32 bit differently; ROADMAP.md section C shows such ties inside the
 reference itself); each near-tie is printed. Floats are within rtol 1e-5,
 Monte-Carlo met exact and cost within rtol 2e-5 (the reference kernel
 tests' tolerance).
+
+The training optimizer's streamed Adafactor update
+(`repro_torch.train.Adafactor` with a forced slice size) is held here
+too: against its own unsliced update, every statistic bit for bit, and
+against the reference's `Adafactor`, statistics and parameters within
+1e-6 (XLA and torch add a row's mean in other orders: ~1e-7 relative).
 """
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core import JobSpec as RefJobSpec
+from repro.train import optimizer as ref_train_opt
 from repro.core import gamma as ref_gamma
 from repro.core import pocd as ref_pocd
 from repro.core import optimizer as ref_opt
@@ -39,7 +47,10 @@ from repro_torch.core import (JobSpec, gamma, pocd_clone,
                               solve, solve_algorithm1, solve_batch,
                               solve_grid, theory)
 from repro_torch.core.utility import utility
+from repro_torch.ckpt.checkpoint import tree_leaves_with_paths
 from repro_torch.kernels import ops
+from repro_torch.train import Adafactor
+from repro_torch.train.optimizer import leaf_slices
 
 from test_torch_pocd_mc import assert_mc_equal, near_deadline
 
@@ -248,3 +259,152 @@ def test_quickstart_path_matches_reference():
                          job)) == pytest.approx(
         float(ref_utility("clone", jnp.float32(r_star["clone"]), ref_job)),
         rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The training optimizer: Adafactor's update, streamed a slice at a time
+# ---------------------------------------------------------------------------
+
+#: 4 layers whose block leaves share a clip group two by two
+#: (stack_period 2: the reference stacks layers 0 and 2, 1 and 3), with a
+#: stacked (E, rows, cols) leaf, a factored matrix and a vector; outside
+#: the blocks a factored matrix and a vector
+ADA_LAYERS, ADA_PERIOD = 4, 2
+ADA_BLOCK = {"moe": {"wi": (3, 160, 144)}, "w": (150, 130), "norm": (144,)}
+ADA_TOP = {"embed": (200, 136), "b": (9,)}
+#: cuts the expert leaf into its 3 matrices and the norm into 100 + 44
+ADA_SLICE = 100
+
+
+def nest_map(fn, tree):
+    return {k: nest_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def ada_trees(seed):
+    """(port tree, reference tree) of the same seeded f32 values: the
+    port's one dict a layer, the reference's block leaves stacked over
+    the layers of each of the ADA_PERIOD pattern positions."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):
+        return (0.05 * rng.standard_normal(shape)).astype(np.float32)
+
+    layers = [nest_map(draw, ADA_BLOCK) for _ in range(ADA_LAYERS)]
+    top = nest_map(draw, ADA_TOP)
+    port = dict(blocks=[nest_map(torch.from_numpy, x) for x in layers],
+                **nest_map(torch.from_numpy, top))
+    ref = dict(blocks=tuple(
+        jax.tree.map(lambda *a: jnp.asarray(np.stack(a)),
+                     *layers[i::ADA_PERIOD]) for i in range(ADA_PERIOD)),
+        **nest_map(jnp.asarray, top))
+    return port, ref
+
+
+def port_of_ref(tree):
+    """A reference-layout tree (block leaves stacked; a state's 0-dim
+    placeholders are not) in the port's."""
+    tree = jax.tree.map(np.asarray, tree)
+    layers = [jax.tree.map(lambda a: torch.from_numpy(
+        (a[i // ADA_PERIOD] if a.ndim else a).copy()),
+        tree["blocks"][i % ADA_PERIOD]) for i in range(ADA_LAYERS)]
+    return dict(blocks=layers, **{k: torch.from_numpy(v.copy())
+                                  for k, v in tree.items() if k != "blocks"})
+
+
+def ada_pairs(got, want):
+    """(path, tensor, tensor) of two port-layout trees, leaf by leaf."""
+    w = dict(tree_leaves_with_paths(want))
+    return [(path, g, w[path]) for path, g in tree_leaves_with_paths(got)]
+
+
+def ada_run(slice_elems):
+    """Two updates of the port's Adafactor from the seeded trees; returns
+    (params, state, the elements of the largest f32 tensor an op of the
+    updates allocated: not a view, not written in place)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class LargestF32(TorchDispatchMode):
+        most = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            given = {a.untyped_storage().data_ptr() for a in
+                     jax.tree.leaves((args, kwargs or {}))
+                     if isinstance(a, torch.Tensor)}
+            for x in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(x, torch.Tensor) and \
+                        x.dtype == torch.float32 and not x._is_view() and \
+                        x.untyped_storage().data_ptr() not in given:
+                    self.most = max(self.most, x.numel())
+            return out
+
+    params, _ = ada_trees(0)
+    opt = Adafactor(lr=1e-2, weight_decay=0.1, stack_period=ADA_PERIOD,
+                    slice_elems=slice_elems)
+    state = opt.init(params)
+    watch = LargestF32()
+    for seed in (1, 2):
+        grads, _ = ada_trees(seed)
+        with watch:
+            params, state = opt.update(grads, state, params,
+                                       lr_scale=torch.tensor(0.7))
+    return params, state, watch.most
+
+
+def test_leaf_slices_cover_the_leaf_in_whole_units():
+    x = torch.arange(5 * 6 * 7, dtype=torch.float32).reshape(5, 6, 7)
+    for n, inner, want in ((1000, 2, [5]), (84, 2, [2, 2, 1]),
+                           (10, 2, [1] * 5), (100, 0, [100, 100, 10]),
+                           (14, 1, [2] * 15)):
+        parts = leaf_slices(x, n, inner)
+        assert [len(p) for p in parts] == want, (n, inner)
+        assert all(p.untyped_storage().data_ptr() ==
+                   x.untyped_storage().data_ptr() for p in parts)  # views
+        assert torch.equal(torch.cat([p.reshape(-1) for p in parts]),
+                           x.reshape(-1))
+    with pytest.raises(RuntimeError):           # no flat view to cut
+        leaf_slices(x.transpose(1, 2), 10)
+
+
+def test_streamed_adafactor_matches_unsliced_and_reference():
+    """Two updates in ADA_SLICE-element slices against the unsliced
+    update (every statistic bit-equal; the parameters within 1e-6 of
+    each tensor's largest value, as each clip group's sum of squares is
+    added in another order) and against the reference's Adafactor on
+    the stacked tree (statistics and parameters within 1e-6). The
+    streamed update forms no f32 tensor larger than one slice, where a
+    slice holds at least one (rows, cols) matrix: the embedding's
+    (200, 136), where the expert leaf is (3, 160, 144)."""
+    params, state, most = ada_run(ADA_SLICE)
+    whole, whole_state, whole_most = ada_run(1 << 28)
+    assert most == 200 * 136 < whole_most == 3 * 160 * 144
+    for f in ("vr", "vc", "v"):
+        for path, a, b in ada_pairs(getattr(state, f),
+                                    getattr(whole_state, f)):
+            assert torch.equal(a, b), (f, path)
+    for path, a, b in ada_pairs(params, whole):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-6 * float(b.abs().max()),
+                                   err_msg=str(path))
+
+    ropt = ref_train_opt.Adafactor(lr=1e-2, weight_decay=0.1)
+    _, rparams = ada_trees(0)
+    rstate = ropt.init(rparams)
+    for seed in (1, 2):
+        _, rgrads = ada_trees(seed)
+        rparams, rstate = ropt.update(rgrads, rstate, rparams,
+                                      lr_scale=jnp.float32(0.7))
+    assert int(state.step) == int(rstate.step) == 2
+    for f in ("vr", "vc", "v"):
+        for path, a, b in ada_pairs(getattr(state, f),
+                                    port_of_ref(getattr(rstate, f))):
+            assert a.shape == b.shape, (f, path)
+            np.testing.assert_allclose(
+                a.numpy(), b.numpy(), rtol=0,
+                atol=1e-6 * max(float(b.abs().max()), 1e-30),
+                err_msg=f"{f} {path}")
+    for path, a, b in ada_pairs(params, port_of_ref(rparams)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-6 * float(b.abs().max()),
+                                   err_msg=str(path))
