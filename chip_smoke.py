@@ -8,7 +8,9 @@ Phases; each raises on failure, so any failure exits non-zero:
 1. print the card (nvidia-smi name and power limit) and build every kernel
    of the main path from `src/repro_torch/kernels/csrc/` (grid_solve.cu,
    pocd_mc.cu, flash_attention.cu, flash_attention_sm90.cu,
-   dispatch_scan.cu, philox_rows.cu), one nvcc process per source, timed,
+   flash_attention_bwd_bf16.cu, flash_attention_bwd_f32.cu,
+   dispatch_scan.cu, philox_rows.cu), one nvcc
+   process per source, timed,
    with ptxas's
    registers and spills (dispatch_scan's for each of its three designs,
    which must show 0 bytes of stack and 0 spills), the sorted design's
@@ -288,7 +290,8 @@ Phases; each raises on failure, so any failure exits non-zero:
 
 16. the training path. (a) The differentiable flash-attention call
    (`attention`: the kernel forward, `attention_backward` as its
-   gradient) against autograd through the plain version on the card, at
+   gradient, the backward kernel since PR 32) against autograd through
+   the plain version on the card, at
    phase 14's shapes, one training microbatch's (B 1, H 8, K 4, S 2048,
    D 256, bf16, softcap 50, the model's strided views) and the hot
    softcap cases: the forward moves its route's count by one; dq, dk, dv
@@ -336,10 +339,10 @@ Phases; each raises on failure, so any failure exits non-zero:
    within 1e-4), hubert-xlarge's forward logits. (d) The full-width
    paths, every count set to 0 just before the first run and each
    launch's mask recorded: gemma2-2b with a batch of 1 x 8192 tokens
-   and 32 generated (26 launches, the 13 local ones with window 4096;
+   and 16 generated (26 launches, the 13 local ones with window 4096;
    one local and one global launch held against the plain version on
-   their own tensors), olmoe-1b-7b (4 x 2048, 32 tokens, 16 launches,
-   one held), paligemma-3b (4 x (256 patches + 1792 text), 32 tokens, 18
+   their own tensors), olmoe-1b-7b cut to 8 of 16 layers (4 x 2048, 16
+   tokens, 8 launches, one held), paligemma-3b (4 x (256 patches + 1792 text), 16 tokens, 18
    launches with prefix 256, one held) and hubert-xlarge's forward (8 x 1024
    frames, 48 launches at D 80, one held): first and warm wall,
    tokens/s or frames/s, peak memory, the same tokens twice, and one
@@ -360,10 +363,11 @@ Phases; each raises on failure, so any failure exits non-zero:
    the caches' f32 states within 1e-4 of their max and their bf16 states
    and kv within that and one bf16 ulp; the card's run from its own
    caches recorded beside it; zamba2's one launch on the SIMT route. (c)
-   mamba2-2.7b (64 layers, 2.83 B parameters) and zamba2-7b (81 layers,
-   5.74 B) at full width, bf16, through the Engine, 4 x 2048 + 32 tokens,
-   every count set to 0 just before the first generate: 0 flash launches
-   for mamba2, 13 sm90 ones for zamba2 (the first held against the plain
+   mamba2-2.7b cut to 32 of 64 layers and zamba2-7b to 45 of 81 (7 of
+   13 groups, the tail kept) at full width, bf16, through the Engine, 4 x
+   2048 + 16 tokens, every count set to 0 just before the first
+   generate: 0 flash launches for mamba2, 7 sm90 ones for zamba2 (the
+   first held against the plain
    version on its own tensors); generate first and warm (the same
    tokens), prefill and decode ms, tokens/s, peak memory, one profiled
    generate (idle share), and the device time of a prefill and of one
@@ -397,8 +401,9 @@ Phases; each raises on failure, so any failure exits non-zero:
    on), paligemma-3b and hubert-xlarge (at lr 3e-4) through
    make_train_step; olmoe-1b-7b and zamba2-7b cut in depth to the most
    layers (groups) whose 16 bytes a parameter leave 10 GiB (zamba2 16
-   GiB) of the card, and for time mamba2-2.7b to 16 of 64 layers and
-   zamba2-7b to 3 groups (phase 22 took its seconds from here). Every
+   GiB) of the card, and for time olmoe-1b-7b to 6 layers, mamba2-2.7b
+   to 8 of 64 and zamba2-7b to 2 groups (phases 22 and 25 took their
+   seconds from here). Every
    count set to 0 just before and read after the last step: flash
    attention 2 per attention layer, microbatch and step, all sm90; grid
    solve 5 per warm governor decision (Trainer) or none; losses finite
@@ -513,9 +518,9 @@ Phases; each raises on failure, so any failure exits non-zero:
    and is held against the plain version (phase 14's bf16 criteria);
    kernel, call and plain ms, the bound over the causal pairs, SDPA with
    enable_gqa as a yardstick. (b) The Engine in bf16 compute, 4 x 2048
-   prompts and 32 greedy tokens: chatglm3-6b and mistral-nemo-12b at full
-   depth, deepseek-coder-33b cut to 16 of 62 layers, arctic-480b to 2 of
-   35 in its bf16; every count set to 0 just before the first generate
+   prompts and 16 greedy tokens: chatglm3-6b cut to 14 of 28 layers,
+   mistral-nemo-12b to 20 of 40 (both at full depth before PR 32),
+   deepseek-coder-33b to 16 of 62, arctic-480b to 2 of 35 in its bf16; every count set to 0 just before the first generate
    and read just after (one sm90 launch a layer, causal, all in the
    prefill; the first held against the plain version); a warm generate
    with the same tokens, prefill ms, decode ms a token, tokens/s, peak
@@ -544,7 +549,38 @@ Phases; each raises on failure, so any failure exits non-zero:
    1e-6 of their max.
    The script's total time is printed before the JSON lines.
 
-The last lines are the configs JSON (phase 24), the sharded-serve JSON
+25. the attention gradient as a kernel (csrc/flash_attention_bwd.h)
+   and remat="dots". (a) The backward kernel against
+   `attention_backward_plain` on the card (BWD_CASES: phase 16 (a)'s
+   cases and hot softcaps, phase 17's masks, phase 19 (a)'s head dims 80
+   and 112 and their hot cases, phase 24's groups 16, 4 and 7; f32 and
+   bf16; the first case of each type also with inputs one element off
+   an allocation, for the kernel's element-by-element loads): each case
+   called twice, one launch a call and the same bits,
+   dq, dk and dv within phase 16 (a)'s limits (a zero where the plain
+   version's is not counts as lost above BWD_LOST_FLOOR, 2^-20, of the
+   tensor's max: two f32 sums cancel to within rounding of 0), the worst
+   readings by type; at FA_TRAIN each of its two launches (profiler),
+   the call, the plain version, SDPA's backward alone (yardstick) and
+   the bound.
+   (b) The extra peak memory of one backward at (1, 8, 4, 8192, 256),
+   causal, window 4096, softcap 50: the kernel's under 256 MiB, the
+   plain version's at least 2 GiB. (c) gemma2-2b at full width and
+   olmoe-1b-7b cut to 2 layers, 2 steps of 4 x 1 x 2048, remat "full"
+   then "dots" from seed 0: losses, gradient norms, the first step's
+   gradients and the updated parameters bit-equal (each leaf's 64-bit
+   digest of its bits, taken on the card), launches counted
+   (forward, recompute and backward), warm step s and peak memory of
+   both; gemma2-2b cut to 2 layers under "dots" on card_mesh against
+   unsharded, phase 22 (a)'s check. (d) The dry run's gemma2-2b and
+   olmoe-1b-7b train_4k cells on h100 and 16x16 with remat_dots and
+   with blockattn (traced in three processes started after phase 20)
+   against the default cells: on h100 remat_dots's FLOPs are the
+   default's less the blocks' weight products' forward FLOPs, on 16x16
+   fewer; blockattn's records equal the default's.
+
+The last lines are the backward JSON (phase 25), the configs JSON
+(phase 24), the sharded-serve JSON
 (phase 23), the sharded-train
 JSON (phase 22), the mesh JSON
 (phase 21), the planner JSON (phase 20),
@@ -554,7 +590,7 @@ JSON (phase 19), the ssm JSON
 the chaos JSON (phases 10e and 10f), the serving JSON (phase 10d), the
 fleet JSON (phase 10c), the cluster JSON (phase 10b), the scenarios JSON
 (phases 6-10), the kernels JSON, the card line and the result JSON; each
-of the first thirteen and the kernels JSON is also written under
+of the first fourteen and the kernels JSON is also written under
 `chiprun_out/`.
 The script needs one CUDA card and exits non-zero without one.
 """
@@ -762,7 +798,8 @@ RESTART = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
 RESTART_RUN = dict(n_steps=4, global_batch=4, seq_len=256, n_micro=2,
                    ckpt_every=2, log_every=1000)
 SOURCES = ("grid_solve", "pocd_mc", "flash_attention",
-           "flash_attention_sm90", "dispatch_scan", "philox_rows")
+           "flash_attention_sm90", "flash_attention_bwd_bf16",
+           "flash_attention_bwd_f32", "dispatch_scan", "philox_rows")
 # phase 17: the masks (causal, window, prefix) of both flash-attention
 # kernels: (B, H, K, S, D, dtype, causal, window, prefix, softcap, views)
 # at every head dim, ragged lengths, windows and prefixes at and off the
@@ -789,9 +826,12 @@ FA_MASK_CASES = tuple(
 # head of 256) through the Engine, and hubert-xlarge (audio: 8 x 1024
 # frames, about 20 s of 16 kHz audio each at 50 frames/s, bidirectional,
 # head dim 80) through Model.forward
-WINDOW_SERVE = dict(arch="gemma2-2b", batch=1, prompt=8192, tokens=32)
-FAMILY_SERVE = (dict(arch="olmoe-1b-7b", batch=4, prompt=2048, tokens=32),
-                dict(arch="paligemma-3b", batch=4, prompt=2048, tokens=32))
+# (16 tokens since PR 32: decode is host-bound, and phase 25 needed the
+# script's seconds; the ms a decoded token is read as before)
+WINDOW_SERVE = dict(arch="gemma2-2b", batch=1, prompt=8192, tokens=16)
+FAMILY_SERVE = (dict(arch="olmoe-1b-7b", batch=4, prompt=2048, tokens=16,
+                     n_layers=8),
+                dict(arch="paligemma-3b", batch=4, prompt=2048, tokens=16))
 ENCODER = dict(arch="hubert-xlarge", batch=8, frames=1024)
 # each family cut to 2 layers at full width, f32 compute, card against
 # the CPU's plain path: B 1, 64 text tokens (after 256 patches for vlm)
@@ -825,9 +865,12 @@ FA_D112_PATH = (4, 32, 32, 2048, 112)
 CHECK_SSM = dict(batch=1, prompt=64, tokens=3, tol=1e-4,
                  cuts={"mamba2-2.7b": dict(n_layers=2),
                        "zamba2-7b": dict(n_layers=3, shared_attn_every=2)})
-# (c): both at full width through the Engine, bf16 weights
-SSM_SERVE = (dict(arch="mamba2-2.7b", batch=4, prompt=2048, tokens=32),
-             dict(arch="zamba2-7b", batch=4, prompt=2048, tokens=32))
+# (c): both at full width through the Engine, bf16 weights (16 tokens
+# since PR 32, as phase 17's paths)
+SSM_SERVE = (dict(arch="mamba2-2.7b", batch=4, prompt=2048, tokens=16,
+                  n_layers=32),
+             dict(arch="zamba2-7b", batch=4, prompt=2048, tokens=16,
+                  n_layers=45))
 # the functions whose device time phase 18 (c) reads as a profiler range:
 # (range, module, function)
 SSM_RANGES = (("projections", model_mamba2, "_project"),
@@ -890,7 +933,9 @@ CHECK_TRAIN_FAMILIES = dict(
 # plain attention backward's (1, 32, 2048, 2048) f32 tensors (10 GiB ran
 # out of memory at 10 groups). `units` caps a cut further, for time: the
 # sharded steps of phase 22 took their seconds back from here (mamba2-2.7b
-# 16 of 64 layers, zamba2-7b 3 groups, 3 steps where 4 were; the first
+# 16 of 64 layers, zamba2-7b 3 groups, 3 steps where 4 were), and phase
+# 25 some more (olmoe-1b-7b 6 layers, mamba2-2.7b 8, zamba2-7b 2 groups;
+# the script ran 1,213 s on a slow host with the earlier cuts; the first
 # step moves no weight: the schedule's warm-up starts at 0, so 3 steps is
 # the fewest whose losses can fall). hubert-xlarge
 # trains at lr 3e-4, not the Trainer's 3e-3, at which its 48 layers'
@@ -898,13 +943,13 @@ CHECK_TRAIN_FAMILIES = dict(
 FAMILY_STEPS = 3
 TRAIN_FAMILIES = (
     dict(arch="olmoe-1b-7b", via="trainer", cut="layers",
-         headroom=10 * 2 ** 30),
+         headroom=10 * 2 ** 30, units=6),
     dict(arch="paligemma-3b", via="step", batch=4, seq=2048, lr=3e-3),
     dict(arch="hubert-xlarge", via="step", batch=8, seq=1024, lr=3e-4),
     dict(arch="mamba2-2.7b", via="trainer", cut="layers",
-         headroom=10 * 2 ** 30, units=16),
+         headroom=10 * 2 ** 30, units=8),
     dict(arch="zamba2-7b", via="trainer", cut="groups",
-         headroom=16 * 2 ** 30, units=3))
+         headroom=16 * 2 ** 30, units=2))
 # (d): the serving launcher on the card, as a user runs it
 SERVE_LAUNCHER = ["--arch", "gemma2-2b", "--full-config", "--tokens", "16",
                   "--batch", "2"]
@@ -4018,12 +4063,14 @@ def fa_bound(B, H, K, S, D, dtype, causal, window=None, prefix=0):
 def reset_counts():
     gs.launches = pm.launches = pm.launches_all = 0
     fa.launches = fa.launches_sm90 = fa.launches_simt = 0
+    fa.launches_backward = 0
 
 
 def fa_counts() -> dict:
     return dict(flash_attention=fa.launches,
                 flash_attention_sm90=fa.launches_sm90,
-                flash_attention_simt=fa.launches_simt)
+                flash_attention_simt=fa.launches_simt,
+                flash_attention_backward=fa.launches_backward)
 
 
 def phase_fa_check(dev) -> dict:
@@ -4296,11 +4343,12 @@ def phase_serve(dev) -> dict:
     return out
 
 
-def fa_grad_compare(what, got, want, dt) -> tuple:
+def fa_grad_compare(what, got, want, dt, floor=0.0) -> tuple:
     """Raise unless the gradient `got` is finite, of want's type, nonzero
-    wherever `want` is, and within FA_GRAD_F32 of max |want| (f32) or,
-    for bf16, within FA_MEAN_REL / FA_MAX_REL of want's own size. Returns
-    (mean |err| / mean |want|, max |err| / max |want|)."""
+    wherever |want| exceeds `floor` x max |want|, and within FA_GRAD_F32
+    of max |want| (f32) or, for bf16, within FA_MEAN_REL / FA_MAX_REL of
+    want's own size. Returns (mean |err| / mean |want|, max |err| /
+    max |want|)."""
     if got.dtype != want.dtype or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"attention gradient {what}: {got.dtype}, not "
                              f"all finite")
@@ -4316,7 +4364,7 @@ def fa_grad_compare(what, got, want, dt) -> tuple:
         return 0.0, 0.0
     mean_rel = float(err.mean() / w.abs().mean())
     max_rel = float(err.max() / w.abs().max())
-    lost = int(((g == 0) & (w != 0)).sum())
+    lost = int(((g == 0) & (w.abs() > floor * w.abs().max())).sum())
     ok = (max_rel <= FA_GRAD_F32 if dt == "float32"
           else mean_rel <= FA_MEAN_REL and max_rel <= FA_MAX_REL)
     if not ok or lost:
@@ -4488,11 +4536,13 @@ def phase_train_check(dev) -> dict:
 
     reset_counts()
     card_loss, card_grads, card_params = one_step(params, dev)
-    counts = (fa.launches_simt, fa.launches_sm90)
-    if counts != (2 * cfg.n_layers, 0):
+    counts = (fa.launches_simt, fa.launches_sm90, fa.launches_backward)
+    if counts != (2 * cfg.n_layers, 0, cfg.n_layers):
         raise AssertionError(f"train check: flash-attention launches (simt, "
-                             f"sm90) {counts}, expected ({2 * cfg.n_layers}, "
-                             f"0): the forward and its recompute, f32 route")
+                             f"sm90, backward) {counts}, expected "
+                             f"({2 * cfg.n_layers}, 0, {cfg.n_layers}): the "
+                             f"forward and its recompute, f32 route, and the "
+                             f"backward kernel once a layer")
     del params
     torch.cuda.empty_cache()
     cpu_loss, cpu_grads, cpu_params = one_step(host_params, "cpu")
@@ -4646,10 +4696,7 @@ def trainer_run(cfg, tcfg, dev) -> tuple:
     gov.decide = timed
     hist, _ = synced(t.run)
     del gov.decide                                    # the class's again
-    counts = dict(flash_attention=fa.launches,
-                  flash_attention_sm90=fa.launches_sm90,
-                  flash_attention_simt=fa.launches_simt,
-                  grid_solve=gs.launches,
+    counts = dict(fa_counts(), grid_solve=gs.launches,
                   warm_decisions=t.telemetry.counters.get(WARM_DECISIONS, 0))
     return (t, hist, counts, torch.cuda.max_memory_allocated(), build_s,
             decide_ms, specs)
@@ -4686,13 +4733,15 @@ def phase_train(dev) -> dict:
                                                                    dev)
     losses = [h["loss"] for h in hist]
     want_fa = 2 * cfg.n_layers * tcfg.n_micro * tcfg.n_steps
-    if (counts["flash_attention"], counts["flash_attention_sm90"]) != (
-            want_fa, want_fa) or counts["flash_attention_simt"]:
+    if (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_backward"]) != (
+            want_fa, want_fa, want_fa // 2) or counts["flash_attention_simt"]:
         raise AssertionError(f"train: flash-attention launches {counts}, "
                              f"expected {want_fa} (forward and recompute of "
                              f"{cfg.n_layers} layers x {tcfg.n_micro} "
                              f"microbatches x {tcfg.n_steps} steps), all "
-                             f"sm90")
+                             f"sm90, and {want_fa // 2} of the backward "
+                             f"kernel")
     if counts["grid_solve"] != n_chronos * counts["warm_decisions"] or \
             not counts["warm_decisions"]:
         raise AssertionError(f"train: grid-solve launches {counts}, expected "
@@ -4736,7 +4785,8 @@ def phase_train(dev) -> dict:
         raise AssertionError(f"train: a second run from the same seed gave "
                              f"losses {losses2} against {losses}")
     if counts2["grid_solve"] != n_chronos * counts2["warm_decisions"] or \
-            counts2["flash_attention_sm90"] != want_fa:
+            counts2["flash_attention_sm90"] != want_fa or \
+            counts2["flash_attention_backward"] != want_fa // 2:
         raise AssertionError(f"train: second run's launches {counts2}")
     busy = prof["device_busy_ms"]
     out = dict(
@@ -5442,7 +5492,9 @@ def ssm_engine_path(spec, dev) -> dict:
     (the same tokens), warm prefill and decode ms, one profiled generate
     (idle share), and the busy time of a prefill and of one decode step
     by op."""
-    cfg = get_config(spec["arch"])
+    base = get_config(spec["arch"])
+    cfg = dataclasses.replace(base, n_layers=spec.get("n_layers",
+                                                      base.n_layers))
     B, P, T = spec["batch"], spec["prompt"], spec["tokens"]
     eng, build_s = synced(lambda: Engine.build(cfg, max_seq=P + T, seed=0,
                                                device=dev))
@@ -5495,7 +5547,8 @@ def ssm_engine_path(spec, dev) -> dict:
         lambda: eng.model.decode_step(eng.params, tok, cache),
         f"{cfg.name} one decode step")
     del logits, cache
-    out = dict(params=n_params, build_s=build_s, generate_first_s=first_s,
+    out = dict(layers=cfg.n_layers, full_layers=base.n_layers,
+               params=n_params, build_s=build_s, generate_first_s=first_s,
                generate_warm_s=warm_s, tokens_per_s=B * T / warm_s,
                prefill_warm_ms=1e3 * warm[1],
                prompt_tokens_per_s=B * P / warm[1],
@@ -5504,8 +5557,9 @@ def ssm_engine_path(spec, dev) -> dict:
                profile=prof, op_split_prefill=split_prefill,
                op_split_decode_step=split_decode,
                tokens_head=toks[:, :8].tolist())
-    print(f"{cfg.name} ({n_params:,} parameters; B {B}, prompt {P}, {T} "
-          f"tokens): build {build_s:.2f} s; generate first {first_s:.3f} s, "
+    print(f"{cfg.name} ({cfg.n_layers} of {base.n_layers} layers, "
+          f"{n_params:,} parameters; B {B}, prompt {P}, {T} tokens): build "
+          f"{build_s:.2f} s; generate first {first_s:.3f} s, "
           f"warm {warm_s:.3f} s = {out['tokens_per_s']:.1f} tokens/s; "
           f"prefill warm {out['prefill_warm_ms']:.1f} ms; decode "
           f"{out['decode_ms_per_token']:.2f} ms a token; peak device memory "
@@ -6019,17 +6073,21 @@ TRACE_DECODE = dict(batch=8, seq=32768, cut_from=(128, 32768))
 
 
 def dryrun_group(cells) -> list:
-    """The records of one worker's cells (a mesh of None: every mesh of
-    DRYRUN_MESHES), traced on fake CUDA tensors; a sharded trace's
+    """The records of one worker's cells, (arch, shape, mesh[, options]) (a
+    mesh of None: every mesh of DRYRUN_MESHES), traced on fake CUDA
+    tensors; a sharded trace's
     record also gets its largest collectives (`top_collectives`), and a
     sharded decode's the collectives that would hold a gathered cache
     (`dryrun.cache_gathers`, to be empty)."""
     from repro_torch.launch import dryrun
     out = []
-    for arch, shape, mesh in cells:
+    for arch, shape, mesh, *opts in cells:
+        opts = frozenset(opts[0] if opts else ())
         for m in (DRYRUN_MESHES if mesh is None else (mesh,)):
             with contextlib.redirect_stdout(io.StringIO()):
-                rec, log = dryrun.cell(arch, shape, m, device="cuda")
+                rec, log = dryrun.cell(arch, shape, m, device="cuda",
+                                       opts=opts)
+            rec["opts"] = sorted(opts)
             if rec["n_devices"] > 1:
                 rec["top_collectives"] = top_collectives(log)
                 if rec["kind"] == "decode":
@@ -6112,8 +6170,11 @@ def start_dryrun(groups=DRYRUN_GROUPS):
     from repro_torch.configs import shape_applicable
     groups = [[c for c in g if shape_applicable(c[0], c[1])[0]]
               for g in groups]
+    # at a lower priority than this process: the traces have slack, the
+    # phases beside them run host-bound steps and CPU checks
     pool = concurrent.futures.ProcessPoolExecutor(
-        len(groups), mp_context=multiprocessing.get_context("spawn"))
+        len(groups), mp_context=multiprocessing.get_context("spawn"),
+        initializer=os.nice, initargs=(10,))
     return pool, [pool.submit(dryrun_group, g) for g in groups], groups, \
         time.perf_counter()
 
@@ -6200,12 +6261,17 @@ def traced_against_card(what, fake, real, ms, launches) -> dict:
         raise AssertionError(f"{what}: bytes fake {fake['hbm_bytes']} vs "
                              f"real {real['hbm_bytes']} ({rel:.3%})")
     entries = real["flash_attention_entries"]
+    bwd = real["flash_attention_backward_entries"]
     if not (entries == fake["flash_attention_entries"]
             == launches["flash_attention_sm90"]
-            and launches["flash_attention_simt"] == 0):
+            and launches["flash_attention_simt"] == 0
+            and bwd == fake["flash_attention_backward_entries"]
+            == launches["flash_attention_backward"]):
         raise AssertionError(f"{what}: flash entries fake "
                              f"{fake['flash_attention_entries']}, real "
-                             f"{entries}, launches {launches}")
+                             f"{entries}, backward entries fake "
+                             f"{fake['flash_attention_backward_entries']}, "
+                             f"real {bwd}, launches {launches}")
     compute_ms = 1e3 * real["dot_flops"] / roofline.PEAK_FLOPS
     memory_ms = 1e3 * real["hbm_bytes"] / roofline.HBM_BW
     bound = max(compute_ms, memory_ms)
@@ -6213,7 +6279,8 @@ def traced_against_card(what, fake, real, ms, launches) -> dict:
     share = bound / ms
     print(f"  {what}: FLOPs {real['dot_flops']:.6e} (fake = real), bytes "
           f"fake {fake['hbm_bytes']:.6e} real {real['hbm_bytes']:.6e} "
-          f"({rel:.2e}); flash entries {entries} = sm90 launches; device "
+          f"({rel:.2e}); flash entries {entries} = sm90 launches, backward "
+          f"entries {bwd} = backward launches; device "
           f"{ms:.3f} ms, bound {bound:.3f} ms ({by}), share {share:.4f}; "
           f"ops fake {sum(fake['op_counts'].values())} real "
           f"{sum(real['op_counts'].values())}")
@@ -6224,7 +6291,8 @@ def traced_against_card(what, fake, real, ms, launches) -> dict:
                 bytes_real=real["hbm_bytes"], bytes_rel_diff=rel, bound_by=by,
                 ops_fake=sum(fake["op_counts"].values()),
                 ops_real=sum(real["op_counts"].values()), op_diff=diff,
-                flash_attention_entries=entries, launches=launches,
+                flash_attention_entries=entries,
+                flash_attention_backward_entries=bwd, launches=launches,
                 device_ms=ms, compute_ms=compute_ms, memory_ms=memory_ms,
                 bound_ms=bound, share=share)
 
@@ -6834,15 +6902,18 @@ def sharded_train_run(cfg, dev, mesh=None, capture=None) -> tuple:
                            dev))
 
 
-def sharded_against_plain(arch, dev, mesh) -> dict:
+def sharded_against_plain(arch, dev, mesh, cfg=None,
+                          what="phase 22 (a)") -> dict:
     """(a) for one arch: the unsharded steps, their parameters copied to
     the host; then the sharded steps, their losses, gradient norms and
     parameters against those (bit-equal, or the first differing leaf and
     its largest difference), the flash launches counted, and the first
-    DTensor-path launch against the plain version on its own inputs."""
+    DTensor-path launch against the plain version on its own inputs.
+    `cfg` replaces phase 22's config of `arch` (`sharded_config`)."""
     from repro_torch.ckpt.checkpoint import tree_leaves_with_paths
     t0 = time.perf_counter()
-    cfg, cut = sharded_config(arch, dev)
+    cfg, cut = (cfg, None) if cfg is not None else sharded_config(arch,
+                                                                   dev)
     state, plain = sharded_train_run(cfg, dev)
     want = [(path, p.detach().cpu())
             for path, p in tree_leaves_with_paths(state.params)]
@@ -6868,20 +6939,23 @@ def sharded_against_plain(arch, dev, mesh) -> dict:
                * SHARDED["steps"])
     counts = sharded["counts"]
     if (counts["flash_attention"], counts["flash_attention_sm90"],
-            counts["flash_attention_simt"]) != (want_fa, want_fa, 0):
-        raise AssertionError(f"phase 22 (a) {arch}: flash launches {counts}"
+            counts["flash_attention_simt"],
+            counts["flash_attention_backward"]) != (want_fa, want_fa, 0,
+                                                    want_fa // 2):
+        raise AssertionError(f"{what} {arch}: flash launches {counts}"
                              f", expected {want_fa} sm90 (forward and "
                              f"recompute of {attention_layers(cfg)} layers x "
                              f"{SHARDED['n_micro']} microbatches x "
-                             f"{SHARDED['steps']} steps)")
+                             f"{SHARDED['steps']} steps) and "
+                             f"{want_fa // 2} of the backward kernel")
     if not all(math.isfinite(x) for x in sharded["losses"]
                + sharded["grad_norms"]):
-        raise AssertionError(f"phase 22 (a) {arch}: {sharded}")
+        raise AssertionError(f"{what} {arch}: {sharded}")
     # an attention-free family launches none
     e = mean_rel = max_rel = None
     if want_fa:
         e, mean_rel, max_rel = fa_compare(
-            f"phase 22 {arch}'s first DTensor-path launch", capture["out"],
+            f"{what} {arch}'s first DTensor-path launch", capture["out"],
             fa.attention_plain(capture["q"], capture["k"], capture["v"],
                                **capture["mask"]), "bfloat16")
     same = (sharded["losses"] == plain["losses"]
@@ -6896,7 +6970,7 @@ def sharded_against_plain(arch, dev, mesh) -> dict:
                    max_abs_err=e, mean_rel=mean_rel, max_rel=max_rel)
                if want_fa else None,
                seconds=time.perf_counter() - t0)
-    print(f"phase 22 (a) {arch} ({cfg.n_layers} layers, full width; "
+    print(f"{what} {arch} ({cfg.n_layers} layers, full width; "
           f"{SHARDED['steps']} steps of {SHARDED['n_micro']} x "
           f"{SHARDED['batch'] // SHARDED['n_micro']} x {SHARDED['seq']}) on "
           f"card_mesh with shard_grads: losses {sharded['losses']} (plain "
@@ -6917,7 +6991,7 @@ def sharded_against_plain(arch, dev, mesh) -> dict:
         # on (1, 1) every redistribution is a no-op: the kernels and the
         # order of every sum are the unsharded step's
         raise AssertionError(
-            f"phase 22 (a) {arch}: the sharded step on card_mesh is not "
+            f"{what} {arch}: the sharded step on card_mesh is not "
             f"bit-equal to the unsharded one: losses {sharded['losses']} "
             f"against {plain['losses']}, grad norms "
             f"{sharded['grad_norms']} against {plain['grad_norms']}, "
@@ -7065,6 +7139,9 @@ def dryrun_row(rec) -> dict:
         model_flops=rec["model_flops"], trace_s=rec["trace_s"],
         n_micro=rec.get("n_micro"), plan_notes=rec["plan_notes"],
         flash_attention_entries=rec["flash_attention_entries"],
+        flash_attention_backward_entries=rec[
+            "flash_attention_backward_entries"],
+        n_ops=rec["n_ops"], opts=rec.get("opts", []),
         per_device=rec["per_device"],
         collective_wire_bytes=rec["collective_wire_bytes"],
         collectives=rec["collectives"],
@@ -7375,16 +7452,19 @@ CONFIG_DENSE = CONFIG_ARCHS[:3]
 CONFIG_FA = {"chatglm3-6b": (4, 32, 2, 2048, 128),
              "mistral-nemo-12b": (4, 32, 8, 2048, 128),
              "deepseek-coder-33b": (4, 56, 8, 2048, 128)}
-# (b) the Engine in bf16 compute, a 4 x 2048 prompt and 32 greedy tokens:
-# chatglm3-6b (6.24e9 parameters, 25.0 GB in f32) and mistral-nemo-12b
-# (12.25e9, 49.0 GB) at full depth, built in f32 and cast once;
+# (b) the Engine in bf16 compute, a 4 x 2048 prompt and 16 greedy tokens
+# (32 before PR 32, as phase 17's paths):
+# chatglm3-6b (6.24e9 parameters, 25.0 GB in f32, at full depth) and
+# mistral-nemo-12b (12.25e9, 49.0 GB) cut to 14 of 28 and 20 of 40 layers
+# since PR 32 (for the script's seconds), built in f32 and cast once;
 # deepseek-coder-33b (33.3e9) cut to 16 of 62 layers (8.95e9, 35.8 GB);
 # arctic-480b in its bf16 to 2 of 35 layers (27.68e9, 55.4 GB). The
 # profiled generate decodes 8 tokens: a 32-token generate's ~100,000
 # device ops take the profiler some 20 s to read back
 CONFIG_SERVE = tuple(
-    dict(arch=a, batch=4, prompt=2048, tokens=32, profile_tokens=8, **cut)
-    for a, cut in (("chatglm3-6b", {}), ("mistral-nemo-12b", {}),
+    dict(arch=a, batch=4, prompt=2048, tokens=16, profile_tokens=8, **cut)
+    for a, cut in (("chatglm3-6b", dict(n_layers=14)),
+                   ("mistral-nemo-12b", dict(n_layers=20)),
                    ("deepseek-coder-33b", dict(n_layers=16)),
                    ("arctic-480b", dict(n_layers=2))))
 # (c) card against the CPU at full width, f32 compute, the same seeded
@@ -7703,6 +7783,456 @@ def phase_configs(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the attention gradient as a kernel, and remat="dots"
+# ---------------------------------------------------------------------------
+
+# (a) the backward kernel against attention_backward_plain on the card:
+# phase 16 (a)'s cases (and its hot softcaps, q scaled by FA_HOT_SCALE),
+# phase 17's masks, phase 19 (a)'s head dims 80 and 112 (and their hot
+# cases), phase 24's groups 16, 4 and 7; f32 within FA_GRAD_F32 of each
+# gradient's max, bf16 within FA_MEAN_REL / FA_MAX_REL; two calls the
+# same bits
+BWD_CASES = tuple(
+    [((B, H, K, S, D, dt, causal, None, 0, cap, views), q_scale)
+     for (B, H, K, S, D, dt, causal, cap, views), q_scale in
+     [(x, 1.0) for x in FA_SHAPES + (FA_TRAIN + (True,),)]
+     + [(x, FA_HOT_SCALE) for x in FA_HOT_SHAPES]]
+    + [(c, 1.0) for c in FA_MASK_CASES + FA_GRAD_CASES]
+    + [(c, FA_HOT_SCALE) for c in FA_GRAD_HOT]
+    + [((*CONFIG_FA[a], "bfloat16", True, None, 0, None, True), 1.0)
+       for a in CONFIG_DENSE])
+# a kernel's zero counts as lost where the plain version's |value| is above
+# this share of its tensor's max: two sums of 388 cases cancel to within
+# f32 rounding of 0 (dk -2.70e-8 and dq -8.94e-8 in the plain version,
+# -2.09e-8 in f64 for the first, against a max of 3.72 and 3.06), where
+# the kernel's order gives 0.0
+BWD_LOST_FLOOR = 2.0 ** -20
+# (b) the extra peak memory of one backward at gemma2-2b's 1 x 8192 local
+# layer: (B, H, K, S, D), causal, window, softcap; the kernel's limit and
+# the least the plain version's (B, K, G, S, S) f32 tensors take
+BWD_LONG = dict(shape=(1, 8, 4, 8192, 256), window=4096, cap=50.0,
+                kernel_limit=256 * 2**20, plain_least=2 * 2**30)
+# (c) remat="dots" against "full": gemma2-2b at full width and
+# olmoe-1b-7b cut to 2 layers, SHARDED's 2 steps of 4 microbatches of 1 x
+# 2048 from seed 0 (f32 parameters, AdamW, bf16 compute); then gemma2-2b
+# cut to 2 layers under "dots" on card_mesh against unsharded (phase 22
+# (a)'s check)
+REMAT = dict(archs=(("gemma2-2b", None), ("olmoe-1b-7b", 2)),
+             sharded=("gemma2-2b", 2))
+# (d) the dry run's train_4k cells of gemma2-2b and olmoe-1b-7b on h100
+# and 16x16 with the reference's options remat_dots and blockattn; the
+# default records are phase 20 (a)'s (gemma2-2b) and phase 22 (c)'s
+# (olmoe-1b-7b on 16x16) but olmoe-1b-7b's on h100, traced here. Three
+# processes started after phase 20, beside phases 21 to 24, balanced by
+# trace time
+REMAT_DRYRUN_GROUPS = (
+    (("gemma2-2b", "train_4k", "h100", ("remat_dots",)),
+     ("gemma2-2b", "train_4k", "16x16", ("remat_dots",)),
+     ("olmoe-1b-7b", "train_4k", "h100")),
+    (("gemma2-2b", "train_4k", "h100", ("blockattn",)),
+     ("gemma2-2b", "train_4k", "16x16", ("blockattn",)),
+     ("olmoe-1b-7b", "train_4k", "h100", ("remat_dots",))),
+    (("olmoe-1b-7b", "train_4k", "16x16", ("remat_dots",)),
+     ("olmoe-1b-7b", "train_4k", "16x16", ("blockattn",)),
+     ("olmoe-1b-7b", "train_4k", "h100", ("blockattn",))))
+
+
+def bwd_inputs(case, q_scale, seed, dev):
+    """Case `case`'s q, k, v (fa_inputs) and a seeded dout of q's type."""
+    B, H, K, S, D, dt, causal, window, prefix, cap, views = case
+    q, k, v = fa_inputs(B, H, K, S, D, dt, seed, dev, views=views,
+                        q_scale=q_scale)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 10_000)
+    dout = torch.randn((B, H, S, D), generator=g, device=dev).to(q.dtype)
+    mask = dict(causal=causal, softcap=cap, window=window, prefix_len=prefix)
+    return q, k, v, dout, mask
+
+
+def unaligned(x):
+    """x's values in a tensor of its shape whose storage starts one element
+    past an allocation: no 16-byte loads for the kernel."""
+    out = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    return out.view(x.shape).copy_(x)
+
+
+def bwd_check(dev) -> dict:
+    """(a)'s checks: every case of BWD_CASES through the kernel twice (one
+    launch a call, the same bits) and the plain version, and the first
+    case of each type again with unaligned inputs (the kernel's
+    element-by-element loads); the worst max |err| and relative readings
+    by type."""
+    worst = {dt: dict(max_abs_err=0.0, mean_rel=0.0, max_rel=0.0)
+             for dt in ("float32", "bfloat16")}
+    n = {"float32": 0, "bfloat16": 0, "unaligned": 0}
+    first = {}
+    cases = [(i, c, qs, False) for i, (c, qs) in enumerate(BWD_CASES)]
+    for i, (case, q_scale) in enumerate(BWD_CASES):
+        first.setdefault(case[5], (i, case, q_scale, True))
+    for i, case, q_scale, skew in cases + list(first.values()):
+        dt = case[5]
+        q, k, v, dout, mask = bwd_inputs(case, q_scale, 1300 + i, dev)
+        if skew:
+            q, k, v, dout = (unaligned(x) for x in (q, k, v, dout))
+        before = fa.launches_backward
+        got = fa.attention_backward(q, k, v, dout, **mask)
+        again = fa.attention_backward(q, k, v, dout, **mask)
+        torch.cuda.synchronize()
+        if fa.launches_backward != before + 2:
+            raise AssertionError(f"phase 25 (a) {case}: backward launches "
+                                 f"moved {fa.launches_backward - before}, "
+                                 f"expected 2")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"phase 25 (a) {case}: two calls gave other "
+                                 f"bits")
+        want = fa.attention_backward_plain(q, k, v, dout, **mask)
+        for name, a, b in zip("qkv", got, want):
+            rel = fa_grad_compare(f"phase 25 (a) d{name} {case} q "
+                                  f"x{q_scale:g}", a, b, dt,
+                                  floor=BWD_LOST_FLOOR)
+            w = worst[dt]
+            w.update(max_abs_err=max(w["max_abs_err"], float(
+                (a.float() - b.float()).abs().max())),
+                mean_rel=max(w["mean_rel"], rel[0]),
+                max_rel=max(w["max_rel"], rel[1]))
+        n["unaligned" if skew else dt] += 1
+        del q, k, v, dout, got, again, want
+    torch.cuda.empty_cache()
+    return dict(cases=n, worst=worst)
+
+
+def bwd_times(dev) -> dict:
+    """(a)'s times at FA_TRAIN (the model's strided views): each of the
+    kernel's two launches (profiler) and their sum, the call (CUDA
+    events), the plain version, SDPA's backward alone (its forward
+    recorded once; no softcap) as the yardstick, and the bound
+    (`fa_backward_bound`)."""
+    B, H, K, S, D, dt, causal, cap = FA_TRAIN
+    q, k, v = fa_inputs(B, H, K, S, D, dt, 19, dev, views=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+    dout = torch.randn((B, H, S, D), generator=g, device=dev).to(q.dtype)
+    call = lambda: fa.attention_backward(q, k, v, dout, causal, cap)
+    plain = lambda: fa.attention_backward_plain(q, k, v, dout, causal, cap)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=causal, enable_gqa=True)
+    library = lambda: torch.autograd.grad(out, leaves, dout,
+                                          retain_graph=True)
+    bytes_ms, ops_ms = fa_backward_bound(B, H, K, S, D, causal)
+    bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
+    t = dict(dq_ms=kernel_ms(call, 20, "flash_attention_bwd_dq_kernel"),
+             dkdv_ms=kernel_ms(call, 20, "flash_attention_bwd_dkdv_kernel"),
+             call_ms=cuda_ms(call, 20), plain_ms=cuda_ms(plain, 5),
+             library_ms=cuda_ms(library, 20), bound_ms=bound_ms,
+             bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
+             shape=dict(zip(("B", "H", "K", "S", "D", "dtype", "causal",
+                             "softcap"), FA_TRAIN)),
+             library="torch.autograd.grad of torch.nn.functional."
+                     "scaled_dot_product_attention(is_causal=True, "
+                     "enable_gqa=True), its backward alone, without the "
+                     "softcap")
+    t["ms"] = t["dq_ms"] + t["dkdv_ms"]
+    t["bound_share"] = bound_ms / t["ms"]
+    # the nine products a pair the kernel does, at the f32 SIMT peak
+    t["simt_tflops"] = (9 * 2 * B * H * D * fa_pairs(S, causal, None, 0)
+                        / t["ms"] / 1e9)
+    print(f"phase 25 (a) backward kernel at {FA_TRAIN}: {t['ms']:.4f} ms "
+          f"(dq launch {t['dq_ms']:.4f}, dk/dv launch {t['dkdv_ms']:.4f}; "
+          f"call {t['call_ms']:.4f}; {t['simt_tflops']:.1f} TFLOP/s of its "
+          f"nine f32 products), bound {bound_ms:.5f} ms ({bound_by}; "
+          f"{t['bound_share']:.4f} of it), plain {t['plain_ms']:.4f} ms, "
+          f"SDPA's backward without softcap (yardstick) "
+          f"{t['library_ms']:.4f} ms")
+    del out, leaves
+    return t
+
+
+def bwd_peak_memory(dev) -> dict:
+    """(b): the device memory one backward allocates above its inputs at
+    BWD_LONG, kernel and plain version."""
+    c = BWD_LONG
+    B, H, K, S, D = c["shape"]
+    q, k, v = fa_inputs(B, H, K, S, D, "bfloat16", 21, dev, views=True)
+    dout = torch.ones((B, H, S, D), device=dev, dtype=q.dtype)
+    out = {}
+    for name, fn in (("kernel", fa.attention_backward),
+                     ("plain", fa.attention_backward_plain)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        grads = fn(q, k, v, dout, causal=True, softcap=c["cap"],
+                   window=c["window"])
+        torch.cuda.synchronize()
+        out[f"{name}_extra_bytes"] = torch.cuda.max_memory_allocated(dev) \
+            - base
+        del grads
+    torch.cuda.empty_cache()
+    print(f"phase 25 (b) one backward at {c['shape']}, causal, window "
+          f"{c['window']}, softcap {c['cap']}: extra peak memory kernel "
+          f"{out['kernel_extra_bytes'] / 2**20:.2f} MiB (limit "
+          f"{c['kernel_limit'] / 2**20:.0f}), plain "
+          f"{out['plain_extra_bytes'] / 2**30:.3f} GiB (at least "
+          f"{c['plain_least'] / 2**30:.0f})")
+    if out["kernel_extra_bytes"] >= c["kernel_limit"] or \
+            out["plain_extra_bytes"] < c["plain_least"]:
+        raise AssertionError(f"phase 25 (b): {out}")
+    return out
+
+
+class FirstGrads:
+    """An optimizer that, at its first update, takes the gradients'
+    digests (`leaf_digests`), then updates as the optimizer it wraps."""
+
+    def __init__(self, opt):
+        self.opt, self.digests = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, lr_scale=1.0):
+        if self.digests is None:
+            self.digests = leaf_digests(grads)
+        return self.opt.update(grads, state, params, lr_scale=lr_scale)
+
+
+#: odd 64-bit weights of a digest: element i weighs (i * A) | 1
+DIGEST_A = -7046029254386353131    # 0x9E3779B97F4A7C15 as a signed int64
+DIGEST_CHUNK = 1 << 26
+
+
+def leaf_digests(tree) -> list:
+    """(path, digest) of each leaf, on the card: its 32- or 16-bit words,
+    sign-extended, times odd weights, summed mod 2^64. Two leaves that
+    differ in one element always differ here (an odd weight times a
+    nonzero difference below 2^33 is not 0 mod 2^64); several differences
+    cancel with a chance near 2^-64. No copy leaves the card."""
+    from repro_torch.ckpt.checkpoint import tree_leaves_with_paths
+    out = []
+    for path, x in tree_leaves_with_paths(tree):
+        flat = x.detach().reshape(-1)
+        words = flat.view(torch.int32 if flat.element_size() == 4
+                          else torch.int16)
+        total = 0
+        for lo in range(0, words.numel(), DIGEST_CHUNK):
+            w = words[lo: lo + DIGEST_CHUNK].to(torch.int64)
+            i = torch.arange(lo, lo + w.numel(), dtype=torch.int64,
+                             device=w.device)
+            total += int((w * ((i * DIGEST_A) | 1)).sum())
+        out.append((str(path), total % 2**64))
+    return out
+
+
+def digests_against(got, want) -> dict:
+    """{"equal", "leaves", "first"}: the leaves whose digests equal
+    `want`'s, and the first that does not."""
+    equal = sum(g == w for g, w in zip(got, want, strict=True))
+    first = next((g[0] for g, w in zip(got, want) if g != w), None)
+    return dict(equal=equal, leaves=len(want), first=first)
+
+
+def remat_train_run(cfg, dev) -> dict:
+    """SHARDED's steps of `cfg` from seed 0 through make_train_step, the
+    counts set to 0 just before the first: losses, gradient norms, step s
+    (the last one warm), peak memory, launches, and the digests of the
+    first step's gradients and of the updated parameters
+    (`leaf_digests`)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = model_lib.build(cfg)
+    opt = FirstGrads(make_optimizer(cfg))
+    params = model.init(seed=0, device=dev)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    del params
+    batch = make_batch(cfg, SHARDED["batch"], SHARDED["seq"], "train",
+                       seed=0, device=dev)
+    mask = torch.ones((SHARDED["n_micro"],), device=dev)
+    step = make_train_step(model, opt, SHARDED["n_micro"])
+    losses, norms, times = [], [], []
+    reset_counts()
+    for _ in range(SHARDED["steps"]):
+        (state, m), dt = synced(lambda: step(state, batch, mask))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(dt)
+    out = dict(remat=cfg.remat, losses=losses, grad_norms=norms,
+               step_s=times, warm_step_s=times[-1], counts=fa_counts(),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+               grad_digests=opt.digests,
+               param_digests=leaf_digests(state.params))
+    del state, batch, step, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_against_full(arch, layers, dev) -> dict:
+    """(c) for one arch: "full", then "dots" held against it: losses,
+    gradient norms, the first step's gradients and the updated parameters
+    bit-equal (their digests, `leaf_digests`); launches (forward, recompute and backward of every layer,
+    microbatch and step); warm step s and peak memory of both."""
+    base = get_config(arch)
+    if layers is not None:
+        base = dataclasses.replace(base, n_layers=layers)
+    full = remat_train_run(dataclasses.replace(base, remat="full"), dev)
+    dots = remat_train_run(dataclasses.replace(base, remat="dots"), dev)
+    dots["grads_against"] = digests_against(dots.pop("grad_digests"),
+                                            full.pop("grad_digests"))
+    dots["params_against"] = digests_against(dots.pop("param_digests"),
+                                             full.pop("param_digests"))
+    want_fa = 2 * base.n_layers * SHARDED["n_micro"] * SHARDED["steps"]
+    for run in (full, dots):
+        c = run["counts"]
+        if (c["flash_attention_sm90"], c["flash_attention_simt"],
+                c["flash_attention_backward"]) != (want_fa, 0, want_fa // 2):
+            raise AssertionError(f"phase 25 (c) {arch} {run['remat']}: "
+                                 f"launches {c}, expected {want_fa} sm90 and "
+                                 f"{want_fa // 2} backward")
+    same = (dots["losses"] == full["losses"]
+            and dots["grad_norms"] == full["grad_norms"]
+            and dots["grads_against"]["first"] is None
+            and dots["params_against"]["first"] is None)
+    out = dict(arch=arch, layers=base.n_layers, full=full, dots=dots,
+               bit_equal=same, flash_attention_predicted=want_fa)
+    print(f"phase 25 (c) {arch} ({base.n_layers} layers, full width; "
+          f"{SHARDED['steps']} steps of {SHARDED['n_micro']} x 1 x "
+          f"{SHARDED['seq']}): warm step s full {full['warm_step_s']:.3f}, "
+          f"dots {dots['warm_step_s']:.3f}; peak GiB full "
+          f"{full['peak_memory_bytes'] / 2**30:.2f}, dots "
+          f"{dots['peak_memory_bytes'] / 2**30:.2f}; launches {dots['counts']}"
+          f" (predicted {want_fa} forward and recompute, {want_fa // 2} "
+          f"backward); losses {dots['losses']} (full {full['losses']}); "
+          f"gradients {dots['grads_against']['equal']} of "
+          f"{dots['grads_against']['leaves']} leaves and parameters "
+          f"{dots['params_against']['equal']} of "
+          f"{dots['params_against']['leaves']} bit-equal; bit-equal {same}")
+    if not same:
+        raise AssertionError(f"phase 25 (c) {arch}: remat=\"dots\" is not "
+                             f"bit-equal to \"full\": {dots['losses']} "
+                             f"against {full['losses']}, norms "
+                             f"{dots['grad_norms']} against "
+                             f"{full['grad_norms']}, gradients "
+                             f"{dots['grads_against']}, parameters "
+                             f"{dots['params_against']}")
+    return out
+
+
+def remat_dryrun(futures, planner, sharded) -> dict:
+    """(d): the remat_dots and blockattn cells against the default ones:
+    on h100 remat_dots's FLOPs are the default's less the blocks' weight
+    products' forward FLOPs (2 a parameter and token, every layer), on
+    16x16 fewer; blockattn's records equal the default's."""
+    recs = {}
+    for f in futures:
+        for r in f.result():
+            recs[(r["arch"], r["mesh"], tuple(r["opts"]))] = dryrun_row(r)
+    recs[("gemma2-2b", "h100", ())] = planner["dryrun"]["cells"][
+        "gemma2-2b/train_4k/h100"]
+    recs[("gemma2-2b", "16x16", ())] = planner["dryrun"]["cells"][
+        "gemma2-2b/train_4k/16x16"]
+    recs[("olmoe-1b-7b", "16x16", ())] = sharded["dryrun"]["olmoe-1b-7b"]
+    from repro_torch.configs import SHAPES
+    seq, batch, _ = SHAPES["train_4k"]
+    same_keys = ("flops_per_device", "hbm_bytes_per_device",
+                 "collective_wire_bytes", "flash_attention_entries",
+                 "flash_attention_backward_entries", "n_ops")
+    out = {}
+    for arch in ("gemma2-2b", "olmoe-1b-7b"):
+        cfg = get_config(arch)
+        per_token = cfg.d_model * cfg.head_dim * (2 * cfg.n_heads
+                                                  + 2 * cfg.n_kv_heads)
+        per_token += (cfg.d_model * cfg.moe.n_experts if cfg.moe else
+                      3 * cfg.d_model * cfg.d_ff)
+        saved = 2.0 * per_token * seq * batch * cfg.n_layers
+        for mesh in DRYRUN_MESHES:
+            base, dots = recs[(arch, mesh, ())], recs[(arch, mesh,
+                                                       ("remat_dots",))]
+            blocked = recs[(arch, mesh, ("blockattn",))]
+            less = base["flops_per_device"] - dots["flops_per_device"]
+            row = dict(default=base, remat_dots=dots, blockattn=blocked,
+                       flops_less=less, saved_forward_flops=saved)
+            print(f"phase 25 (d) {arch}/train_4k/{mesh}: flops/dev default "
+                  f"{base['flops_per_device']:.6e}, remat_dots "
+                  f"{dots['flops_per_device']:.6e} ({less:.6e} fewer; the "
+                  f"blocks' weight products {saved:.6e} on one card), bytes/"
+                  f"dev {base['hbm_bytes_per_device']:.4e} and "
+                  f"{dots['hbm_bytes_per_device']:.4e}, roofline fraction "
+                  f"{base['roofline_fraction']:.4f} and "
+                  f"{dots['roofline_fraction']:.4f}; blockattn equal to the "
+                  f"default: "
+                  + str(all(blocked[k] == base[k] for k in same_keys)))
+            if mesh == "h100" and not math.isclose(less, saved,
+                                                   rel_tol=1e-12):
+                raise AssertionError(f"phase 25 (d) {arch}/{mesh}: remat_dots "
+                                     f"saves {less} FLOPs, not {saved}")
+            if not 0 < less <= saved:
+                raise AssertionError(f"phase 25 (d) {arch}/{mesh}: "
+                                     f"remat_dots saves {less} FLOPs")
+            if any(blocked[k] != base[k] for k in same_keys):
+                raise AssertionError(f"phase 25 (d) {arch}/{mesh}: blockattn "
+                                     f"{blocked} against {base}")
+            out[f"{arch}/train_4k/{mesh}"] = row
+    return out
+
+
+def phase_backward(dev, planner, sharded, dry) -> dict:
+    """Phase 25: (a) the attention gradient's kernel against its plain
+    version, timed; (b) its extra memory at 1 x 8192; (c) remat="dots"
+    bit-equal to "full", and sharded on card_mesh to unsharded; (d) the
+    dry run's remat_dots and blockattn cells."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import card_mesh
+    t0 = time.perf_counter()
+    out, secs = {}, {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t
+
+    timed("check", lambda: bwd_check(dev))
+    w = out["check"]["worst"]
+    print(f"phase 25 (a): {out['check']['cases']} cases (f32, bf16) of the "
+          f"backward kernel against attention_backward_plain, each called "
+          f"twice with the same bits; worst f32 max |err| "
+          f"{w['float32']['max_abs_err']:.3g} (max rel "
+          f"{w['float32']['max_rel']:.3g}, limit {FA_GRAD_F32}), bf16 max "
+          f"|err| {w['bfloat16']['max_abs_err']:.3g} (mean rel "
+          f"{w['bfloat16']['mean_rel']:.3g}, max rel "
+          f"{w['bfloat16']['max_rel']:.3g})")
+    timed("times", lambda: bwd_times(dev))
+    timed("memory", lambda: bwd_peak_memory(dev))
+    timed("remat", lambda: {a: remat_against_full(a, n, dev)
+                            for a, n in REMAT["archs"]})
+
+    def sharded_dots():
+        arch, layers = REMAT["sharded"]
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  remat="dots")
+        mesh = card_mesh()
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"card_mesh: backend "
+                                     f"{dist.get_backend()}, not nccl")
+            return sharded_against_plain(arch, dev, mesh, cfg=cfg,
+                                         what="phase 25 (c) remat=\"dots\"")
+        finally:
+            dist.destroy_process_group()
+
+    timed("sharded_dots", sharded_dots)
+    timed("dryrun", lambda: remat_dryrun(dry[1], planner, sharded))
+    out["seconds_by_part"] = secs
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 25: {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")")
+    return out
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -7724,6 +8254,10 @@ def main() -> None:
     sm90 = ptxas_report("flash_attention_sm90", "Li256E")
     print(f"  flash_attention_sm90 at D 256: {sm90}, dynamic shared memory "
           f"{fa.SM90_SMEM_BYTES[256]} bytes")
+    bwd_regs = {k: ptxas_report("flash_attention_bwd_bf16",
+                                f"bwd_{k}_kernelI13__nv_bfloat16Li256E")
+                for k in ("dq", "dkdv")}
+    print(f"  flash_attention_bwd at D 256, bf16: {bwd_regs}")
     dsk = {d: ptxas_report("dispatch_scan", f"dispatch_scan_kernelILi{i}E")
            for i, d in enumerate(ds.DESIGNS)}
     print("  dispatch_scan by design: " + "; ".join(
@@ -7827,19 +8361,27 @@ def main() -> None:
     # processes run beside phases 18 and 19 on the host's other cores
     dry = start_dryrun()
     sharded_dry = start_dryrun(sharded_dryrun_groups())
+    pools = [dry[0], sharded_dry[0]]
     try:
         ssm = phase_ssm(dev)
         train_families = phase_train_families(dev)
         planner = phase_planner(dev, dry)
+        # phase 25 (d)'s traces run beside phases 21 to 24, once phase 20's
+        # processes are done
+        remat_dry = start_dryrun(REMAT_DRYRUN_GROUPS)
+        pools.append(remat_dry[0])
         mesh = phase_mesh(dev, p)
         sharded = phase_sharded_train(
             dev, planner, train["full_width"]["peak_memory_bytes"],
             sharded_dry)
-    finally:
-        for pool in (dry[0], sharded_dry[0]):
+        for pool in pools[:2]:
             pool.shutdown(wait=True, cancel_futures=True)
-    sharded_serve = phase_sharded_serve(dev)
-    configs = phase_configs(dev)
+        sharded_serve = phase_sharded_serve(dev)
+        configs = phase_configs(dev)
+        backward = phase_backward(dev, planner, sharded, remat_dry)
+    finally:
+        for pool in pools:
+            pool.shutdown(wait=True, cancel_futures=True)
 
     # last: a profiler session this large can cost the next session its
     # first kernel records, and kernel_ms counts every launch
@@ -8047,8 +8589,9 @@ def main() -> None:
                      "flash_attention_sm90"],
                  "simt": train["full_width"]["counts"][
                      "flash_attention_simt"]},
-             # phase 16 (a): the gradient (attention_backward, plain torch)
-             # at one training microbatch's shape
+             # phase 16 (a): the gradient (attention_backward, the
+             # backward kernel since PR 32) at one training microbatch's
+             # shape
              train_backward={k: train["attention"][k] for k in (
                  "backward_ms", "forward_backward_ms",
                  "plain_forward_backward_ms", "library_forward_backward_ms",
@@ -8189,12 +8732,47 @@ def main() -> None:
         launches_serve_launcher=train_families["serve_launcher"]["counts"][
             "philox_rows"],
         check=philox_check))
+    bt, bc = backward["times"], backward["check"]
+    kernels.append(dict(
+        name="flash_attention_backward", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.h",
+        sources=["src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
+                 "src/repro_torch/kernels/csrc/flash_attention_bwd_f32.cu"],
+        replaces="src/repro/models/attention.py:92 (_attend_blocked, and "
+                 "_attend's einsums, differentiated by XLA; the Pallas "
+                 "kernel at src/repro/kernels/flash_attention.py:90 has no "
+                 "backward)",
+        # the main path: phase 16 (c)'s Trainer, 4 steps, one launch a
+        # layer, microbatch and step (one call: its two kernels)
+        launches=train["full_width"]["counts"]["flash_attention_backward"],
+        max_abs_err=max(w["max_abs_err"] for w in bc["worst"].values()),
+        worst_by_type=bc["worst"], cases=bc["cases"],
+        # per call at FA_TRAIN (1, 8, 4, 2048, 256), bf16, causal,
+        # softcap 50, the model's strided views: ms is both launches'
+        # device time (profiler), call_ms the wrapper's (CUDA events)
+        ms=bt["ms"], dq_ms=bt["dq_ms"], dkdv_ms=bt["dkdv_ms"],
+        call_ms=bt["call_ms"], plain_ms=bt["plain_ms"],
+        bound_ms=bt["bound_ms"], bound_by=bt["bound_by"],
+        bound_share=bt["bound_share"], bytes_ms=bt["bytes_ms"],
+        ops_ms=bt["ops_ms"], simt_tflops=bt["simt_tflops"],
+        library_ms=bt["library_ms"], library=bt["library"],
+        shape=bt["shape"], registers=bwd_regs, memory=backward["memory"],
+        # phase 22 (a)'s sharded steps and phase 25 (c)'s remat runs,
+        # counted from 0
+        launches_phase22={a: sharded[a]["sharded"]["counts"][
+            "flash_attention_backward"] for a in SHARDED["archs"]},
+        launches_phase25={a: v["dots"]["counts"]["flash_attention_backward"]
+                          for a, v in backward["remat"].items()}))
     # phase 21: each mesh run's launches by point, counted from 0
     for k in kernels:
         if k["name"] in ("grid_solve", "philox_rows", "dispatch_scan"):
             k["launches_mesh"] = mesh_launches(mesh, k["name"])
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
+    backward_line = json.dumps({"backward": backward})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "backward.json").write_text(backward_line)
+    print(backward_line)
     configs_line = json.dumps({"configs": configs})
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "configs.json").write_text(configs_line)

@@ -45,9 +45,10 @@ Ported so far:
    AdamW over the dense transformer's `loss_fn` with remat, the input
    pipeline (`data`) under the Chronos `runtime.StepGovernor` (the
    grid-solve kernel) and `SpeculativeTaskRunner`, with flash attention
-   differentiable (the kernel forward, `attention_backward` in plain
-   torch); with it the rest of `core` (`pareto`, `estimator`,
-   `multiwave`).
+   differentiable (the kernel forward, `attention_backward` a kernel
+   too since PR 32, `csrc/flash_attention_bwd.h`; `remat="dots"` a
+   selective checkpoint); with it the rest of `core` (`pareto`,
+   `estimator`, `multiwave`).
 """
 from .cluster import run_cluster, run_cluster_strategy
 from .device import resolve_device

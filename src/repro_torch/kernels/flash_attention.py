@@ -2,7 +2,9 @@
 optional sliding window, GQA, tanh logit softcap.
 
 Replaces the Pallas TPU kernel `repro/kernels/flash_attention.py`
-(`flash_attention`, body `_kernel`), a forward. Forms:
+(`flash_attention`, body `_kernel`), a forward, and on the backward pass
+what XLA differentiates in the reference (its einsum attention, or the
+512-key blocks of `_attend_blocked`). Forms:
 
 * `attention_plain`: plain PyTorch, the reference's oracle
   `ref.attention_ref` op for op (f32 scores and softmax), on any device;
@@ -16,9 +18,17 @@ Replaces the Pallas TPU kernel `repro/kernels/flash_attention.py`
   would not;
 * `attention_forward`: the routed forward. CPU tensors take the plain
   version, CUDA tensors the kernel; anything else raises;
+* `attention_backward_plain`: the gradient in plain f32 torch, with a
+  few (B, H, Sq, Sk) tensors at once, on any device;
+* `attention_backward_cuda`: the gradient as a hand-written kernel,
+  `csrc/flash_attention_bwd.h`, for both types: the scores recomputed
+  tile by tile (S and dP on the tensor cores for bfloat16), P and dS in
+  f32, no (Sq, Sk) tensor, no atomics;
+* `attention_backward`: the routed gradient, one operator as the
+  forward is: the plain version for CPU tensors, the kernel for CUDA
+  ones;
 * `attention`: the wrapper, `attention_forward` under autograd with
-  `attention_backward` (plain torch on either device; the Pallas kernel
-  has none) as its gradient.
+  `attention_backward` as its gradient.
 
 q is (B, H, Sq, D), k and v (B, K, Sk, D) with H % K == 0; query head h
 reads kv head h // (H // K). The scale is D**-0.5, the softcap
@@ -60,8 +70,9 @@ local shards.
 What bounds it on the card: operations (4 B H D for each (query, key)
 pair the mask allows: about half of Sq Sk under causal, S W - W^2 / 2
 with a window W) against q, k, v and out read or written once; at the
-serving shape 68.7 GFLOP, 0.069 ms at the bf16 tensor-core rate. See
-the .cu sources for each design.
+serving shape 68.7 GFLOP, 0.069 ms at the bf16 tensor-core rate. The
+gradient's five products take 10 B H D a pair. See the .cu sources for
+each design.
 """
 from __future__ import annotations
 
@@ -79,6 +90,8 @@ launches = 0
 #: launches of the tensor-core kernel (bfloat16) and of the SIMT kernel
 launches_sm90 = 0
 launches_simt = 0
+#: launches of the backward kernel (one C call: its two kernels)
+launches_backward = 0
 
 #: head dims the kernels are instantiated for
 KERNEL_HEAD_DIMS = (64, 80, 112, 128, 256)
@@ -194,9 +207,11 @@ def _library(name):
     return fn
 
 
-def _check_cuda(q, k, v, causal, softcap, window=None, prefix_len=0) -> str:
+def _check_cuda(q, k, v, causal, softcap, window=None, prefix_len=0,
+                tma=True) -> str:
     """Raise on a call that neither kernel takes; else `_route`'s pick for
-    q's type."""
+    q's type. `tma=False` leaves out the tensor-core kernel's alignment
+    rule (the backward kernel reads element by element)."""
     B, H, K, Sq, Sk, D = _check(q, k, v, causal, window, prefix_len)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
@@ -214,7 +229,7 @@ def _check_cuda(q, k, v, causal, softcap, window=None, prefix_len=0) -> str:
     if softcap is not None and not softcap > 0:
         raise ValueError(f"attention: softcap must be positive, got "
                          f"{softcap}")
-    if route == "sm90":
+    if route == "sm90" and tma:
         for name, x in (("q", q), ("k", k), ("v", v)):
             if x.data_ptr() % 16 or any(s % 8 for s in _bhs_strides(x)):
                 raise ValueError(
@@ -381,19 +396,19 @@ def attention_forward(q, k, v, causal=True, softcap=None, window=None,
                        int(prefix_len))
 
 
-def attention_backward(q, k, v, dout, causal=True, softcap=None,
-                       window=None, prefix_len=0):
+def attention_backward_plain(q, k, v, dout, causal=True, softcap=None,
+                             window=None, prefix_len=0):
     """(dq, dk, dv) of `attention` given the output's gradient `dout`,
-    each in its input's type.
+    each in its input's type: the plain version, on any device.
 
     The Pallas kernel has no backward (the reference differentiates its
-    einsum attention through XLA), so this is ordinary torch code, the
-    same on the CPU and the card, in f32: the scores are recomputed with
-    the softcap and the mask, then P = softmax(s), dP = dO V^T,
-    D = rowsum(P * dP), dS = P * (dP - D), times the softcap's derivative
-    1 - tanh^2(s / cap) of the scaled scores; dq = scale dS K, dk = scale
-    dS^T Q and dv = P^T dO, each summed over the query heads of a kv
-    group. Memory: a few (B, H, Sq, Sk) f32 tensors at once.
+    attention through XLA), so this is ordinary torch code in f32: the
+    scores are recomputed with the softcap and the mask, then
+    P = softmax(s), dP = dO V^T, D = rowsum(P * dP), dS = P * (dP - D),
+    times the softcap's derivative 1 - tanh^2(s / cap) of the scaled
+    scores; dq = scale dS K, dk = scale dS^T Q and dv = P^T dO, each
+    summed over the query heads of a kv group. Memory: a few (B, H, Sq,
+    Sk) f32 tensors at once.
 
     D is rowsum(dO * O) in exact arithmetic. Formed from a bf16 output it
     is not accurate enough where the softmax is peaked and dP - D cancels
@@ -425,6 +440,108 @@ def attention_backward(q, k, v, dout, causal=True, softcap=None,
     dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf).reshape(B, H, Sq, D)
     dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: the backward kernel's source of each input type, both built from
+#: `csrc/flash_attention_bwd.h`
+_BWD_SOURCE = {torch.float32: "flash_attention_bwd_f32",
+               torch.bfloat16: "flash_attention_bwd_bf16"}
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_library(name):
+    """The C entry `<name>_launch` of `csrc/<name>.cu`."""
+    fn = getattr(build.load(name), f"{name}_launch")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = ([i] + [p] * 8 + [i] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), i, i, i, f, f, p])
+    fn.restype = i
+    return fn
+
+
+def attention_backward_cuda(q, k, v, dout, causal=True, softcap=None,
+                            window=None, prefix_len=0):
+    """Launch `csrc/flash_attention_bwd.h` on the current stream: (dq,
+    dk, dv) in q's type (float32 or bfloat16; P, dS and the sums in f32)
+    and its inputs' layouts. q, k, v may be the model's strided views (D
+    contiguous); dout is made D-contiguous if it is not. A (3, B H Sq) f32
+    buffer holds each row's max, sum and D between the kernel's two
+    launches. No fallback: a build or launch error raises."""
+    global launches_backward
+    _check_cuda(q, k, v, causal, softcap, window, prefix_len, tma=False)
+    if dout.shape != q.shape or dout.dtype != q.dtype or \
+            dout.device != q.device:
+        raise ValueError(f"attention backward: dout must be like q "
+                         f"{tuple(q.shape)} {q.dtype} on {q.device}, got "
+                         f"{tuple(dout.shape)} {dout.dtype} on "
+                         f"{dout.device}")
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    B, H, Sq, D = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    stats = torch.empty((3, B * H * Sq), dtype=torch.float32,
+                        device=q.device)
+    strides = (ctypes.c_longlong * 21)(*[
+        s for x in (q, k, v, dout, dq, dk, dv) for s in _bhs_strides(x)])
+    dev = q.device
+    name = _BWD_SOURCE[q.dtype]
+    err = _backward_library(name)(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats.data_ptr(), B, H, K, Sq, Sk, D, strides, int(bool(causal)),
+        kernel_window(Sk, window), int(prefix_len), D ** -0.5,
+        0.0 if softcap is None else float(softcap),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launches_backward += 1
+    return dq, dk, dv
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=())
+def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 dout: torch.Tensor, causal: bool, softcap: Optional[float],
+                 window: Optional[int], prefix_len: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    mask = dict(causal=causal, softcap=softcap, window=window,
+                prefix_len=prefix_len)
+    kind = q.device.type
+    if kind == "cpu":
+        return attention_backward_plain(q, k, v, dout, **mask)
+    if kind == "cuda":
+        return attention_backward_cuda(q, k, v, dout, **mask)
+    raise ValueError(f"attention backward: no kernel for device {q.device}")
+
+
+@_backward_op.register_fake
+def _backward_fake(q, k, v, dout, causal, softcap, window, prefix_len):
+    """The gradients of either route with no work: the kernel's take
+    their inputs' layouts, the plain version's are contiguous."""
+    _check(q, k, v, causal, window, prefix_len)
+    if q.device.type == "cuda":
+        return tuple(torch.empty_like(x) for x in (q, k, v))
+    if q.device.type == "cpu":
+        return tuple(x.new_empty(x.shape) for x in (q, k, v))
+    raise ValueError(f"attention backward: no kernel for device {q.device}")
+
+
+def attention_backward(q, k, v, dout, causal=True, softcap=None,
+                       window=None, prefix_len=0):
+    """(dq, dk, dv) of `attention` given the output's gradient `dout`,
+    each in its input's type: `attention_backward_plain` for CPU tensors,
+    the kernel (`attention_backward_cuda`) for CUDA ones, anything else
+    raises. One operator, `torch.ops.repro_torch.flash_attention_backward`,
+    so that a dispatch mode (`launch/op_analyzer.py`) sees one entry a
+    call, fake tensors included, and costs the kernel's own work."""
+    return _backward_op(q, k, v, dout, bool(causal),
+                        None if softcap is None else float(softcap),
+                        None if window is None else int(window),
+                        int(prefix_len))
 
 
 def _backward_local(q, k, v, dout, plc, mask):
@@ -471,5 +588,5 @@ def attention(q, k, v, causal=True, softcap=None, window=None, prefix_len=0):
     -> (B, H, Sq, D) in q's type, under the mask of (causal, window,
     prefix_len). The forward is `attention_forward` (the plain version for
     CPU tensors, the CUDA kernel for CUDA ones), the gradient
-    `attention_backward` on either device."""
+    `attention_backward` (routed the same way)."""
     return _Attention.apply(q, k, v, causal, softcap, window, prefix_len)

@@ -120,38 +120,37 @@ def model_flops_analytic(cfg, shape_name: str) -> float:
 
 OPTS_HELP = (
     "comma-separated levers: bf16cast (bf16 parameter storage, f32 "
-    "masters), bf16grads (bf16 gradient accumulation), chunk128 / ssd_bf16 "
-    "(SSD shaping), micro_half / micro_quarter / micro_double (gradient "
+    "masters), bf16grads (bf16 gradient accumulation), blockattn "
+    "(attn_impl=\"blocked\": the port's attention is blocked on both "
+    "passes whatever attn_impl says, so the records equal the default's), "
+    "remat_dots (remat=\"dots\": the transformer blocks keep their weight "
+    "products' outputs and recompute the rest), chunk128 / ssd_bf16 (SSD "
+    "shaping), micro_half / micro_quarter / micro_double (gradient "
     "accumulation depth), ep_data (experts on the data axis), pod_fsdp "
     "(ZeRO across pods), shardgrads (each microbatch's gradient "
-    "reduce-scattered to the parameters' specs; sharded cells only). Not "
-    "supported by the port, and refused: blockattn, remat_dots")
+    "reduce-scattered to the parameters' specs; sharded cells only)")
 
-#: the reference's options with no meaning in the port, and why
-UNSUPPORTED_OPTS = {
-    "blockattn": "the port's attention is its flash kernel on every "
-                 "attn_impl",
-    "remat_dots": "the port checkpoints whole blocks; it has no dots-only "
-                  "policy",
-}
-OPTS = {"bf16cast", "bf16grads", "chunk128", "ssd_bf16", "micro_half",
-        "micro_quarter", "micro_double", "ep_data", "pod_fsdp",
-        "shardgrads"}
+OPTS = {"bf16cast", "bf16grads", "blockattn", "remat_dots", "chunk128",
+        "ssd_bf16", "micro_half", "micro_quarter", "micro_double", "ep_data",
+        "pod_fsdp", "shardgrads"}
 
 
 def _apply_cfg_opts(cfg, opts: set):
-    bad = sorted(set(opts) & set(UNSUPPORTED_OPTS))
-    if bad:
-        raise ValueError("dryrun: option " + ", ".join(
-            f"{o!r} ({UNSUPPORTED_OPTS[o]})" for o in bad))
+    """`cfg` with the options that change the config applied, as the
+    reference's `_apply_cfg_opts` applies them; raises on an unknown
+    option."""
     unknown = sorted(set(opts) - OPTS)
     if unknown:
         raise ValueError(f"dryrun: unknown options {unknown}")
     if "bf16cast" in opts:
         cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    if "blockattn" in opts:
+        cfg = dataclasses.replace(cfg, attn_impl="blocked")
     if "chunk128" in opts and cfg.ssm is not None:
         cfg = dataclasses.replace(
             cfg, ssm=dataclasses.replace(cfg.ssm, chunk=128))
+    if "remat_dots" in opts:
+        cfg = dataclasses.replace(cfg, remat="dots")
     if "ssd_bf16" in opts and cfg.ssm is not None:
         cfg = dataclasses.replace(
             cfg, ssm=dataclasses.replace(cfg.ssm, intra_dtype="bfloat16"))
@@ -489,6 +488,8 @@ def _costs(s, rec) -> dict:
         "flops_total": s["dot_flops"] * rec["n_devices"],
         "hbm_bytes_total": s["hbm_bytes"] * rec["n_devices"],
         "flash_attention_entries": s["flash_attention_entries"],
+        "flash_attention_backward_entries": s[
+            "flash_attention_backward_entries"],
         "n_ops": sum(s["op_counts"].values()),
     }
 

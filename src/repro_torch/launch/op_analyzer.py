@@ -33,8 +33,10 @@ The hand-written kernels count as one entry each, on every route:
 `repro_torch.flash_attention`, whose inner ops (the plain version's
 (B, H, Sq, Sk) scores on the CPU) this mode never sees. Its cost is the
 kernel's: 4 B H D over the (query, key) pairs the mask allows, and the
-bytes of q, k, v and the output. Its backward is plain torch and is
-costed op by op.
+bytes of q, k, v and the output. Its backward is the operator
+`repro_torch.flash_attention_backward`, costed at its kernel's work:
+`BWD_PRODUCTS` products of 2 B H D over the allowed pairs, and the bytes
+of q, k, v and dO read and dq, dk and dv written.
 
 Trip counts: a train step runs its microbatches in a Python loop;
 `repeat(n)` multiplies what runs inside it, so a dry run traces one
@@ -71,6 +73,12 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 FLASH_OP = "repro_torch.flash_attention.default"
+FLASH_BWD_OP = "repro_torch.flash_attention_backward.default"
+#: the backward kernel's products a (query, key) pair
+#: (`csrc/flash_attention_bwd.h`): the scores three times and dP three
+#: times (two passes over the keys for dq, one over the queries for dk
+#: and dv), then dV, dK and dQ once each
+BWD_PRODUCTS = 9
 
 #: ops that return a view or alias of an operand without a schema
 #: annotation, or move no data
@@ -195,12 +203,14 @@ def cost(sig) -> dict:
     operands = [d for d in _tensors(ins) if not d[5]]
     results = list(_tensors(outs))
     base = name.split(".")[1] if "." in name else name
-    if name == FLASH_OP:
+    if name in (FLASH_OP, FLASH_BWD_OP):
         q, k = operands[0][1], operands[1][1]
         B, H, Sq, D = q
-        causal, softcap, window, prefix = (_scalar(d) for d in ins[3:7])
+        mask = ins[3:7] if name == FLASH_OP else ins[4:8]
+        causal, softcap, window, prefix = (_scalar(d) for d in mask)
         pairs = allowed_pairs(Sq, k[2], causal, window, prefix)
-        out["flops"] = 4.0 * B * H * D * pairs
+        products = 2 if name == FLASH_OP else BWD_PRODUCTS
+        out["flops"] = 2.0 * products * B * H * D * pairs
     elif base in _CONTRACTIONS and name.startswith("aten."):
         out["flops"] = _contraction_flops(name, ins, outs)
     written = [d for d in operands if d[4]]
@@ -229,7 +239,7 @@ def cost(sig) -> dict:
 def summary_of(records) -> dict:
     """Totals over `(signature, count)` pairs: dot_flops, hbm_bytes,
     wire_bytes, collectives by kind, op counts by name, and the flash
-    attention entries."""
+    attention entries (forward and backward)."""
     flops = hbm = wire = 0.0
     colls: dict = {}
     counts: Counter = Counter()
@@ -248,7 +258,8 @@ def summary_of(records) -> dict:
             d["wire_bytes"] += count * c["wire"]
     return {"dot_flops": flops, "hbm_bytes": hbm, "wire_bytes": wire,
             "collectives": colls, "op_counts": dict(counts),
-            "flash_attention_entries": counts.get(FLASH_OP, 0)}
+            "flash_attention_entries": counts.get(FLASH_OP, 0),
+            "flash_attention_backward_entries": counts.get(FLASH_BWD_OP, 0)}
 
 
 def _group_size(func, args) -> int | None:

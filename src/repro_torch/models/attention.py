@@ -4,10 +4,11 @@ cache) paths; counterpart of `repro.models.attention`.
 Supports grouped-query attention (q heads grouped kv-major: head h reads
 kv head h // q_per_kv), causal / bidirectional / prefix-LM masks, sliding
 windows (gemma2 local layers), attention-logit softcapping and partial
-RoPE. The full-sequence path goes through the flash-attention kernel
-(`kernels.ops.attention`) with every mask; the reference's `attn_impl`
-picks between two plain forms of the same function (`_attend` and
-`_attend_blocked`), and the port needs neither on that path. Decode
+RoPE. The full-sequence path goes through the flash-attention kernels
+(`kernels.ops.attention`, forward and backward) with every mask; the
+reference's `attn_impl` picks between two plain forms of the same
+function (`_attend` and `_attend_blocked`, a scan over key blocks), and
+the port's attention is blocked on both passes whichever it names. Decode
 stays plain torch (`_attend`), as the reference computes it with
 einsums.
 
@@ -214,7 +215,8 @@ def attention_full(p, x, positions, cfg, spec: MaskSpec):
     Attention goes through `ops.attention` with the spec's mask
     (causal, window, prefix), whatever `cfg.attn_impl` says: the kernel
     forward under autograd on a CUDA tensor, the plain version on a CPU
-    one, with `attention_backward` as the gradient on both.
+    one, with `attention_backward` as the gradient (the backward kernel,
+    or on the CPU its plain version).
 
     Under a plan q, k and v are constrained as the reference's are, on
     batch and heads, and the kernel runs on each rank's shard. Their

@@ -164,7 +164,8 @@ def _next_token_loss(forward, params, batch, cfg):
 
 def _remat(cfg) -> bool:
     """Checkpoint each scan step's work, as the reference does, while
-    autograd records."""
+    autograd records: whole, under "dots" too (the reference's ssm and
+    hybrid scans take `jax.checkpoint` with no policy)."""
     return cfg.remat != "none" and torch.is_grad_enabled()
 
 

@@ -20,7 +20,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as A
 from . import layers as L
@@ -194,26 +195,56 @@ def _positions(B, S, device):
         B, S)
 
 
+#: the ops whose outputs `remat="dots"` keeps: the weight products. Every
+#: product of a weight in a block is a 3-d activation times a 2-d weight,
+#: which `matmul` folds to one `mm` (`attention._project`, `_out_project`,
+#: `layers.apply_mlp`, the router of `moe.apply_moe`): the reference's
+#: `dots_with_no_batch_dims_saveable` keeps the same outputs. The experts'
+#: `torch.bmm` over E and the attention operator are recomputed, as the
+#: reference's batch-dimension einsums are. (`torch.einsum` lowers even a
+#: contraction with no batch dim to `bmm`: such a product would not be
+#: kept.)
+SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of `remat="dots"`: keep the weight
+    products' outputs, recompute everything else."""
+    if op in SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def dots_context():
+    """The `context_fn` of a block checkpointed under `remat="dots"`."""
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
 def forward(params, batch, cfg, remat=True):
     """Full forward to float32 logits (B, S, Vp); returns (logits, aux).
 
     With `remat` and `cfg.remat != "none"`, while autograd records, each
-    block runs under `torch.utils.checkpoint` (non-reentrant): its
-    activations are recomputed in the backward, so its attention runs
-    twice a step. The reference checkpoints each scan step (one pattern
-    unit); `"dots"`, which there keeps the matmul outputs, recomputes the
-    whole block here: the same values, more work."""
+    block runs under `torch.utils.checkpoint` (non-reentrant). Under
+    `"full"` it keeps only its inputs and recomputes its activations in
+    the backward, so its attention runs twice a step. Under `"dots"` it
+    is a selective checkpoint (`dots_policy`): it also keeps the outputs
+    of its weight products (q, k, v and output projections, the MLP's
+    gate, up and down, the router) and recomputes the rest, the attention
+    among it. The values, and so the losses and gradients, are the same
+    bits under "full", "dots" and "none"; only the work and the memory
+    differ. The reference checkpoints each scan step (one pattern unit)."""
     x, prefix_len = _embed_inputs(params, batch, cfg)
     B, S, _ = x.shape
     positions = replicate_like(_positions(B, S, x.device), x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat and cfg.remat != "none" and torch.is_grad_enabled()
+    kw = {"context_fn": dots_context} if cfg.remat == "dots" else {}
     for p, spec in zip(params["blocks"], layer_specs(cfg, prefix_len),
                        strict=True):
         x = constrain(x, ("batch", "seq", None))
         if remat:
             x, a = checkpoint(_block_train, p, x, positions, cfg, spec,
-                              use_reentrant=False)
+                              use_reentrant=False, **kw)
         else:
             x, a = _block_train(p, x, positions, cfg, spec)
         aux = aux + a

@@ -4,17 +4,18 @@ CPU, on fake tensors, against the JAX package's formulas.
 
 Full width appears once: gemma2-2b's train_4k cell on one card
 (`device="cpu"`), a fake trace of one microbatch (4 x 4096), counted 64
-times plus the update. Its dot FLOPs are 1.34x `model_flops_analytic`,
-within [1.0, 1.6]: the analytic figure counts each parameter (the
-lm-head among them, the embedding table left out) 6 times a token and
-the attention products over the causal half (S/2 a token), while the
-trace also counts (1) remat's recompute of every block's forward in the
-backward (8 FLOPs a block parameter and token, not 6: about 0.24 of
-the analytic figure) and (2) the attention backward, plain torch, which
-forms its four products over the whole S x S square (about 0.08). On a
-`reduced()` config the vocabulary's head dominates, so no ratio is held
-there.
+times plus the update. Its dot FLOPs are about 1.33x
+`model_flops_analytic`, within [1.0, 1.6]: the analytic figure counts
+each parameter (the lm-head among them, the embedding table left out)
+6 times a token and the attention products over the causal half (S/2 a
+token), while the trace also counts (1) remat's recompute of every
+block's forward in the backward (8 FLOPs a block parameter and token,
+not 6: about 0.24 of the analytic figure) and (2) the attention
+backward, one operator costed at its kernel's nine products over the
+causal pairs (about 0.12). On a `reduced()` config the vocabulary's
+head dominates, so no ratio is held there.
 """
+import contextlib
 import gzip
 import json
 import math
@@ -34,11 +35,14 @@ from repro_torch.ckpt.checkpoint import tree_leaves
 from repro_torch.configs import SHAPES, get_config, shape_applicable
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import dryrun, roofline
-from repro_torch.launch.op_analyzer import (FLASH_OP, OpAnalyzer,
+from repro_torch.launch.op_analyzer import (BWD_PRODUCTS, FLASH_BWD_OP,
+                                            FLASH_OP, OpAnalyzer,
                                             allowed_pairs, cost, records_of,
                                             summary_of)
 from repro_torch.models import model as model_lib
 from repro_torch.models.inputs import batch_struct, make_batch
+from repro_torch.train.optimizer import make_optimizer
+from repro_torch.train.train_step import TrainState
 
 
 @pytest.fixture(scope="module")
@@ -161,6 +165,82 @@ def test_flash_attention_is_one_entry(mask):
         assert s["op_counts"] == {FLASH_OP: 1}, s["op_counts"]
         assert s["dot_flops"] == 4 * B * H * D * pairs
         assert s["hbm_bytes"] == 4 * (2 * B * H * S * D + 2 * B * K * S * D)
+
+
+@pytest.mark.parametrize("mask", [
+    dict(causal=True), dict(causal=True, window=9),
+    dict(causal=True, prefix_len=20), dict(causal=False),
+    dict(causal=False, window=5), dict(causal=True, window=7, prefix_len=12)])
+def test_flash_attention_backward_is_one_entry(mask):
+    """Under autograd, one forward and one backward entry a call on real
+    and on fake tensors: the backward costed at its kernel's products
+    (`BWD_PRODUCTS` of 2 B H D a pair the mask allows) and the bytes of
+    q, k, v and dO read and dq, dk and dv written."""
+    B, H, K, S, D = 2, 4, 2, 48, 16
+    g = torch.Generator().manual_seed(1)
+    q, k, v, dout = (torch.randn(B, n, S, D, generator=g)
+                     for n in (H, K, K, H))
+    pairs = allowed_pairs(S, S, **mask)
+    for fake in (False, True):
+        with FakeTensorMode() if fake else contextlib.nullcontext():
+            args = [torch.empty(t.shape) for t in (q, k, v, dout)] if fake \
+                else [q, k, v, dout]
+            leaves = [x.requires_grad_(True) for x in args[:3]]
+            with OpAnalyzer() as an:
+                out = fa.attention(*leaves, softcap=30.0, **mask)
+                torch.autograd.grad(out, leaves, args[3])
+        s = an.summary()
+        assert s["op_counts"] == {FLASH_OP: 1, FLASH_BWD_OP: 1}, \
+            s["op_counts"]
+        assert s["flash_attention_backward_entries"] == 1
+        assert BWD_PRODUCTS == 9
+        assert s["dot_flops"] == (4 + 2 * BWD_PRODUCTS) * B * H * D * pairs
+        assert s["hbm_bytes"] == 4 * S * D * (
+            (2 * B * H + 2 * B * K) + (3 * B * H + 4 * B * K))
+
+
+def _micro_trace(cfg, batch=1, seq=32, n_micro=2):
+    """One train step of `n_micro` microbatches of batch x seq traced on
+    fake CPU tensors, as `dryrun.cell` traces a cell."""
+    model = model_lib.build(cfg)
+    optimizer = make_optimizer(cfg)
+    an = OpAnalyzer()
+    with FakeTensorMode():
+        params = model.init(seed=0, device="cpu")
+        state = TrainState(params, optimizer.init(params),
+                           torch.zeros((), dtype=torch.int32))
+        dryrun.trace_train(model, optimizer, state,
+                           batch_struct(cfg, batch, seq, "train", "cpu"),
+                           n_micro, an)
+    return an.records
+
+
+@pytest.mark.parametrize("name", ["gemma2-2b", "olmoe-1b-7b"])
+def test_remat_dots_and_blockattn_options(name):
+    """The reference's options: `remat_dots` sets remat="dots", and its
+    trace counts fewer FLOPs than the default by exactly the forward
+    FLOPs of the blocks' weight products (q, k, v, o and the MLP's three,
+    or moe's router; the experts' bmm is recomputed); `blockattn` sets
+    attn_impl="blocked" and gives the default's records, op for op
+    (traced for gemma2-2b: attn_impl reaches the attention alone)."""
+    base = get_config(name).reduced()
+    dots = dryrun._apply_cfg_opts(base, {"remat_dots"})
+    blocked = dryrun._apply_cfg_opts(base, {"blockattn"})
+    assert (dots.remat, blocked.attn_impl) == ("dots", "blocked")
+    records = {"full": _micro_trace(base), "dots": _micro_trace(dots)}
+    if name == "gemma2-2b":
+        assert _micro_trace(blocked) == records["full"]
+    per_token = base.d_model * base.head_dim * (
+        2 * base.n_heads + 2 * base.n_kv_heads)
+    per_token += base.d_model * base.moe.n_experts if base.moe else \
+        3 * base.d_model * base.d_ff
+    tokens = 1 * 32 * 2
+    saved = 2.0 * per_token * tokens * base.n_layers
+    flops = {k: summary_of(r.items())["dot_flops"]
+             for k, r in records.items()}
+    assert flops["full"] - flops["dots"] == saved
+    assert summary_of(records["dots"].items())[
+        "flash_attention_backward_entries"] == 2 * base.n_layers
 
 
 HLO = """HloModule m
@@ -371,8 +451,8 @@ def test_sharded_moe_train_cell(mesh_kind, opts):
 
 def test_options_and_device():
     cfg = get_config("gemma2-2b")
-    with pytest.raises(ValueError, match="blockattn"):
-        dryrun._apply_cfg_opts(cfg, {"blockattn"})
+    assert dryrun._apply_cfg_opts(cfg, {"blockattn"}).attn_impl == "blocked"
+    assert dryrun._apply_cfg_opts(cfg, {"remat_dots"}).remat == "dots"
     with pytest.raises(ValueError, match="unknown"):
         dryrun._apply_cfg_opts(cfg, {"nope"})
     assert dryrun._apply_cfg_opts(cfg, {"bf16cast"}).param_dtype == \

@@ -14,6 +14,12 @@ bfloat16 CUDA calls go to the tensor-core kernel, which rounds the
 probabilities to bf16 before the product with V. `tensor_core_emulation`
 repeats that arithmetic on the CPU (test-only), so the rounding is held
 against the reference here, where the kernel cannot run.
+
+The gradient's kernel (`csrc/flash_attention_bwd.h`) skips the tiles the
+mask removes and forms each row's max, sum and D in a pass of its own:
+`backward_kernel_emulation` repeats its schedule on the CPU against
+`attention_backward_plain` (f32, 2e-5 of each gradient's max), and the
+`cuda`-marked test holds the kernel against the plain version on a card.
 """
 import importlib
 
@@ -304,3 +310,215 @@ def test_cuda_kernel_matches_plain_on_card(dtype, shape, causal, cap, views,
         err, size = (got.float() - want.float()).abs(), want.float().abs()
         assert float(err.mean()) <= MEAN_REL * float(size.mean())
         assert float(err.max()) <= MAX_REL * float(size.max())
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel (csrc/flash_attention_bwd.h)
+# ---------------------------------------------------------------------------
+
+
+def backward_kernel_emulation(q, k, v, dout, causal=True, softcap=None,
+                              window=None, prefix_len=0, bq=64, bk=32):
+    """The schedule of `csrc/flash_attention_bwd.h` in float32 torch
+    (test-only): (1) per 64-row query tile, over the key tiles the
+    forward's range keeps, a pass for each row's max m, sum l and
+    D = sum exp(s - m) dP / l (online), then a pass for dq = sum dS K;
+    (2) per 32-key tile, over the query tiles the mask lets read it, the
+    group's query heads in order, dv += P^T dO and dk += dS^T Q with P
+    and dS from the stored m, l and D. Tiles outside those ranges are
+    never visited, so a wrong range loses gradient here."""
+    B, H, K, Sq, Sk, D = fa._check(q, k, v, causal, window, prefix_len)
+    G, scale = H // K, D ** -0.5
+    win = fa.kernel_window(Sk, window)
+    qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
+    allowed = fa.allowed_mask(Sq, Sk, causal, window, prefix_len)
+    if allowed is None:
+        allowed = torch.ones(Sq, Sk, dtype=torch.bool)
+
+    def scores(qt, kt, rows, keys):
+        s = torch.einsum("bhsd,bhtd->bhst", qt, kt) * scale
+        t = torch.zeros_like(s)
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        return torch.where(allowed[rows][:, keys], s,
+                           torch.tensor(-1e30)), t
+
+    kv_heads = torch.arange(H) // G
+    m = torch.zeros(B, H, Sq)
+    l, drow = torch.zeros_like(m), torch.zeros_like(m)
+    dq = torch.zeros(B, H, Sq, D)
+    for q0 in range(0, Sq, bq):
+        rows = slice(q0, min(q0 + bq, Sq))
+        end = min(Sk, max(q0 + bq, prefix_len if q0 < prefix_len else 0)) \
+            if causal else Sk
+        begin = max(0, q0 - win + 1) // bk * bk if win else 0
+        mi = torch.full((B, H, rows.stop - q0, 1), -1e30)
+        li, di = torch.zeros_like(mi), torch.zeros_like(mi)
+        for k0 in range(begin, end, bk):
+            keys = slice(k0, min(k0 + bk, Sk))
+            s, _ = scores(qf[:, :, rows], kf[:, kv_heads, keys], rows, keys)
+            dp = torch.einsum("bhsd,bhtd->bhst", df[:, :, rows],
+                              vf[:, kv_heads, keys])
+            m_new = torch.maximum(mi, s.amax(-1, keepdim=True))
+            alpha, p = torch.exp(mi - m_new), torch.exp(s - m_new)
+            li = alpha * li + p.sum(-1, keepdim=True)
+            di = alpha * di + (p * dp).sum(-1, keepdim=True)
+            mi = m_new
+        m[:, :, rows], l[:, :, rows] = mi[..., 0], li[..., 0]
+        drow[:, :, rows] = (di / li)[..., 0]
+        for k0 in range(begin, end, bk):
+            keys = slice(k0, min(k0 + bk, Sk))
+            s, t = scores(qf[:, :, rows], kf[:, kv_heads, keys], rows, keys)
+            dp = torch.einsum("bhsd,bhtd->bhst", df[:, :, rows],
+                              vf[:, kv_heads, keys])
+            p = torch.exp(s - mi) / li
+            ds = p * (dp - di / li) * (1.0 - t * t) * scale
+            dq[:, :, rows] += torch.einsum("bhst,bhtd->bhsd", ds,
+                                           kf[:, kv_heads, keys])
+    dk, dv = torch.zeros(B, K, Sk, D), torch.zeros(B, K, Sk, D)
+    for k0 in range(0, Sk, bk):
+        keys = slice(k0, min(k0 + bk, Sk))
+        begin = min(k0, Sq) if causal and k0 >= prefix_len else 0
+        end = min(Sq, k0 + bk - 1 + win) if win else Sq
+        for g in range(G):
+            heads = torch.arange(K) * G + g
+            for q0 in range(begin, end, bq):
+                rows = slice(q0, min(q0 + bq, Sq))
+                s, t = scores(qf[:, heads, rows], kf[:, :, keys], rows, keys)
+                dp = torch.einsum("bhsd,bhtd->bhst", df[:, heads, rows],
+                                  vf[:, :, keys])
+                p = torch.exp(s - m[:, heads, rows, None]) / \
+                    l[:, heads, rows, None]
+                ds = p * (dp - drow[:, heads, rows, None]) * (1.0 - t * t) \
+                    * scale
+                dv[:, :, keys] += torch.einsum("bhst,bhsd->bhtd", p,
+                                               df[:, heads, rows])
+                dk[:, :, keys] += torch.einsum("bhst,bhsd->bhtd", ds,
+                                               qf[:, heads, rows])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# (B, H, K, S, causal, window, prefix, softcap): ragged lengths, windows
+# at and off the 32-key and 64-row tiles (1 sees only itself), prefixes
+# inside and past a tile, bidirectional with a window, groups 1, 2, 4, 7
+BWD_CASES = [
+    (2, 4, 2, 77, True, None, 0, 50.0),
+    (1, 4, 4, 130, True, 1, 0, None),
+    (1, 4, 1, 130, True, 31, 0, 30.0),
+    (1, 8, 2, 130, True, 65, 0, None),
+    (1, 4, 2, 130, True, None, 20, 50.0),
+    (1, 4, 2, 100, True, 33, 70, None),
+    (2, 7, 1, 96, False, None, 0, 30.0),
+    (1, 4, 2, 130, False, 40, 0, None),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_backward_kernel_schedule_matches_plain(case):
+    """The kernel's schedule and arithmetic (`backward_kernel_emulation`)
+    against `attention_backward_plain`, f32, within 2e-5 of each
+    gradient's largest value, on masks whose ranges cut tiles."""
+    B, H, K, S, causal, window, prefix, cap = case
+    _, (q, k, v) = qkv(B, H, K, S, 16, seed=S + H)
+    q = q * 4.0         # scores near and past the caps
+    dout = torch.from_numpy(np.random.default_rng(S).standard_normal(
+        (B, H, S, 16)).astype(np.float32))
+    mask = dict(causal=causal, softcap=cap, window=window, prefix_len=prefix)
+    got = backward_kernel_emulation(q, k, v, dout, **mask)
+    want = fa.attention_backward_plain(q, k, v, dout, **mask)
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g - w).abs().max()) <= 2e-5 * scale
+
+
+def test_backward_routes_by_device():
+    """CPU tensors take the plain version (the same bits as calling it),
+    one operator a call; the CUDA entry raises on CPU tensors, and a
+    device with no kernel raises."""
+    _, (q, k, v) = qkv(1, 4, 2, 40, 16, seed=2)
+    dout = torch.ones_like(q)
+    got = fa.attention_backward(q, k, v, dout, softcap=30.0, window=9)
+    want = fa.attention_backward_plain(q, k, v, dout, softcap=30.0, window=9)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    before = fa.launches_backward
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.attention_backward_cuda(q, k, v, dout)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fa.attention_backward(*(x.to("meta") for x in (q, k, v, dout)))
+    assert fa.launches_backward == before
+
+
+# (dtype, (B, H, K, S, D), causal, window, prefix, softcap, views): every
+# head dim in both types, groups 1 to 16 and 7, ragged lengths, masks
+CARD_BWD_CASES = (
+    [(dt, (1, 8, (1, 2, 4, 8)[i % 4], S, D), causal, window, prefix, cap,
+      i % 2 == 0)
+     for i, (dt, D, (S, causal, window, prefix, cap)) in enumerate(
+         (dt, D, m) for dt in ("float32", "bfloat16")
+         for D in fa.KERNEL_HEAD_DIMS
+         for m in ((77, True, None, 0, 50.0), (200, True, 65, 0, None),
+                   (300, True, None, 77, 30.0), (130, False, 40, 0, None)))]
+    + [("bfloat16", (1, 32, 2, 257, 128), True, None, 0, None, True),
+       ("bfloat16", (1, 56, 8, 129, 128), True, None, 0, None, True),
+       ("bfloat16", (1, 8, 4, 2048, 256), True, None, 0, 50.0, True)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,causal,window,prefix,cap,views",
+                         CARD_BWD_CASES)
+def test_cuda_backward_matches_plain_on_card(dtype, shape, causal, window,
+                                             prefix, cap, views):
+    """The backward kernel against `attention_backward_plain` on the
+    card: f32 within 2e-5 of each gradient's largest value, bf16 within
+    the forward's relative limits; one launch a call, the same bits
+    twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    B, H, K, S, D = shape
+    _, tx = qkv(B, H, K, S, D, seed=S + D, dtype=dtype)
+    dout = torch.randn(B, H, S, D, generator=torch.Generator().manual_seed(
+        S)).to(getattr(torch, dtype))
+    if views:
+        tx = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in tx]
+    q, k, v, do = (x.cuda() for x in (*tx, dout))
+    mask = dict(causal=causal, softcap=cap, window=window, prefix_len=prefix)
+    before = fa.launches_backward
+    got = fa.attention_backward(q, k, v, do, **mask)
+    again = fa.attention_backward(q, k, v, do, **mask)
+    torch.cuda.synchronize()
+    assert fa.launches_backward == before + 2
+    want = fa.attention_backward_plain(q, k, v, do, **mask)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and torch.equal(g, a)
+        err, size = (g.float() - w.float()).abs(), w.float().abs()
+        if dtype == "float32":
+            assert float(err.max()) <= 2e-5 * float(size.max())
+        else:
+            assert float(err.mean()) <= MEAN_REL * float(size.mean())
+            assert float(err.max()) <= MAX_REL * float(size.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_unaligned_inputs_on_card(dtype):
+    """Inputs whose storage starts one element past an allocation take
+    the kernel's element-by-element tile loads: the same bits as the
+    same values aligned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, tx = qkv(1, 8, 2, 200, 128, seed=11, dtype=dtype)
+    dout = torch.randn(1, 8, 200, 128, generator=torch.Generator(
+    ).manual_seed(12)).to(getattr(torch, dtype))
+    aligned = [x.cuda() for x in (*tx, dout)]
+
+    def skewed(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        return buf[1:].view(x.shape).copy_(x)
+
+    mask = dict(causal=True, softcap=50.0, window=65)
+    want = fa.attention_backward(*aligned, **mask)
+    got = fa.attention_backward(*(skewed(x) for x in aligned), **mask)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
