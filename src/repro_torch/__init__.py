@@ -46,7 +46,8 @@ Ported so far:
    pipeline (`data`) under the Chronos `runtime.StepGovernor` (the
    grid-solve kernel) and `SpeculativeTaskRunner`, with flash attention
    differentiable (the kernel forward, `attention_backward` a kernel
-   too since PR 32, `csrc/flash_attention_bwd.h`; `remat="dots"` a
+   too: `csrc/flash_attention_bwd_bf16.cu` on the tensor cores for
+   bfloat16, `csrc/flash_attention_bwd.h` for float32; `remat="dots"` a
    selective checkpoint); with it the rest of `core` (`pareto`,
    `estimator`, `multiwave`).
 """

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -22,6 +23,9 @@ BUILD = Path(__file__).resolve().parent / "build"
 #: nvcc builds run in this process; `obs.fenced` marks a span in which it
 #: grew
 compiles = 0
+#: seconds from the start of each source's nvcc to its exit, by name, of
+#: the builds run in this process (the sources build in parallel)
+seconds = {}
 
 # IEEE powf/logf/expf (no --use_fast_math): the grid solve's argmax must
 # match the plain version's
@@ -52,7 +56,7 @@ def compile_sources(names) -> dict:
     """Compile every named source that is not built yet, one nvcc process
     per source, all started together. Returns {name: .so path}; the
     compiler's output (ptxas register and spill report) is kept beside
-    each library as `.log`."""
+    each library as `.log`, and each build's seconds in `seconds`."""
     global compiles
     targets = {n: _target(n) for n in names}
     todo = {n: t for n, t in targets.items() if not t.exists()}
@@ -61,15 +65,28 @@ def compile_sources(names) -> dict:
         BUILD.mkdir(exist_ok=True)
         exe = nvcc()
         procs = {}
+        t0 = time.perf_counter()
         for n, t in todo.items():
             tmp = t.with_name(f"{t.name}.{os.getpid()}.tmp")
-            procs[n] = (tmp, subprocess.Popen(
-                [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            log = t.with_name(f"{t.name}.{os.getpid()}.log")
+            with open(log, "w") as f:
+                procs[n] = (tmp, log, subprocess.Popen(
+                    [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+                    stdout=f, stderr=subprocess.STDOUT))
+        running = set(procs)
+        while running:
+            # every process polled on each pass, so each source's seconds
+            # are its own nvcc's
+            for n in sorted(running):
+                if procs[n][2].poll() is not None:
+                    seconds[n] = time.perf_counter() - t0
+                    running.discard(n)
+            if running:
+                time.sleep(0.05)
         failed = []
-        for n, (tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            todo[n].with_suffix(".log").write_text(out)
+        for n, (tmp, log, proc) in procs.items():
+            out = log.read_text()
+            os.replace(log, todo[n].with_suffix(".log"))
             if proc.returncode != 0:
                 failed.append(f"{n}.cu:\n{out}")
             else:

@@ -1,9 +1,9 @@
 #pragma once
 
-// Flash attention backward for Hopper (sm_90a): the gradient of
-// flash_attention.cu / flash_attention_sm90.cu, recomputed tile by tile.
-// Built as two sources, flash_attention_bwd_bf16.cu and
-// flash_attention_bwd_f32.cu, one C entry an input type.
+// Flash attention backward for float32 inputs (sm_90a): the gradient of
+// flash_attention.cu, recomputed tile by tile, every product on the f32
+// SIMT units. Built as flash_attention_bwd_f32.cu; bfloat16 inputs take
+// flash_attention_bwd_bf16.cu, whose products run on the tensor cores.
 //
 // Replaces no Pallas kernel: the TPU kernel src/repro/kernels/
 // flash_attention.py has no backward, and the reference differentiates
@@ -20,9 +20,8 @@
 //   dS_ij = P_ij (dP_ij - D_i) (1 - t^2) scale
 //   dq_i = sum_j dS_ij k_j,  dk_j = sum_i dS_ij q_i,  dv_j = sum_i P_ij dO_i
 // with dk and dv also summed over the query heads of a kv group. D is
-// formed from the recomputed f32 P, not from the (bf16) output: where the
-// softmax is peaked dP - D cancels, and D from a rounded output costs dq
-// the bf16 criterion (kernels/flash_attention.py, attention_backward).
+// formed from the recomputed P, not from the output
+// (kernels/flash_attention.py, attention_backward_plain).
 //
 // Two launches, no atomics, so two calls give the same bits:
 //   1. flash_attention_bwd_dq_kernel, one block per (batch x query head,
@@ -40,23 +39,13 @@
 //      and dk += dS^T Q. Each (key, column) sum runs in one thread in a
 //      fixed order.
 // Nothing of size (Sq, Sk) is written: besides dq, dk and dv the kernel
-// writes 12 bytes a query row.
+// writes 12 bytes a query row. Every product and sum is f32, so the result
+// agrees with the plain f32 version (attention_backward_plain) to f32
+// rounding: the 2e-5 tolerance that no bf16 or TF32 product holds.
 //
-// S and dP run on the tensor cores for bf16 inputs (mma.sync m16n8k16,
-// bf16 operands, f32 sums: the products are exact and only the order of
-// each sum changes) and on the f32 SIMT units for f32 inputs; P and dS
-// stay in f32 and dV, dK and dQ run on the SIMT units from the tiles
-// widened exactly. So the result agrees with the plain f32 version
-// (attention_backward_plain) to f32 rounding, on both types.
-//
-// Bound at a training microbatch's shape (B 1, H 8, K 4, S 2048, D 256,
-// causal, bf16): operations. The gradient's five products (S, dP, dV, dK,
-// dQ) are 10 B H D a pair over 2.1e6 causal pairs a head, 43 GFLOP, 0.043
-// ms at the bf16 tensor rate, against 29 MB of q, k, v, dO, dq, dk and
-// dv. This first design does nine products a pair (S three times, dP
-// three times on the tensor cores, then dQ, dK and dV at the f32 SIMT
-// rate of 67 TFLOP/s), so it is far from that bound; it is built to be
-// right and deterministic first:
+// Bound: operations, the gradient's five products (S, dP, dV, dK, dQ),
+// 10 B H D a pair, at the f32 SIMT rate of 67 TFLOP/s. This design does
+// nine products a pair (S and dP three times each):
 //   * 256 threads as 16 x 16. In (1) thread (ty, tx) owns query rows
 //     4 ty .. +3 and, for the scores, keys tx and tx + 16 of a 32-key tile
 //     (a row's 16 owners share one half-warp: its max and sums are
@@ -65,32 +54,24 @@
 //     rows at once. In (2) thread (ty, tx) owns keys 2 ty, 2 ty + 1 and,
 //     for the scores, queries tx + 16 j (j < 4) of a 64-row tile; P and
 //     dS go through shared memory as [query][key], and its dk and dv
-//     columns are the forward's output columns. On the tensor cores each
-//     of the 8 warps forms a 16 x 16 block of S and of dP (ldmatrix from
-//     the bf16 tiles) into shared memory, which the threads then read in
-//     their own layout;
+//     columns are the forward's output columns;
 //   * tiles the mask removes entirely are skipped: in (1) the forward's
 //     key range of the block's rows, in (2) under causal the query tiles
 //     wholly before the key tile (unless it starts inside the prefix),
 //     with a window those from k0 + 32 - 1 + window on. Masked scores are
 //     -1e30, so P = exp(-1e30 - m) / l = 0 for a valid row; rows past Sq
 //     and keys past Sk are zero-filled and masked;
-//   * shared memory: the q, dO, k and v tiles in the input type, rows
-//     padded by 16 bytes, loaded 16 bytes a thread with four loads in
-//     flight (the model's views are aligned), and f32 scratch. At D 256: bf16 (1) 128,512
-//     bytes, (2) 137,216; f32 (1) 208,384, (2) 217,088: one block a
-//     multiprocessor. The launcher raises the dynamic limit.
-// P and dS on the tensor cores (bf16, or a hi/lo split), wgmma with TMA,
-// and one pass fewer (m and l saved by the forward) are for a later design.
+//   * shared memory: the q, dO, k and v tiles, rows padded by 16 bytes,
+//     loaded 16 bytes a thread with four loads in flight where the inputs
+//     are aligned (element by element otherwise), and f32 scratch. At
+//     D 256: (1) 208,384 bytes, (2) 217,088: one block a multiprocessor.
+//     The launcher raises the dynamic limit.
 //
 // Build without --use_fast_math: IEEE expf, tanhf and division.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "device_scope.h"
 
@@ -101,18 +82,11 @@ constexpr int kBK = 32;          // keys per tile
 constexpr int kThreads = 256;    // 16 x 16, 8 warps
 constexpr int kLP = kBQ + 4;     // (1): dS transposed, [key][query]
 constexpr int kLT = kBK + 2;     // (2): P and dS, [query][key]
-constexpr int kLS1 = 36;         // (1): S and dP from the tensor cores
-constexpr int kLS2 = 72;         // (2): S^T and dP^T from the tensor cores
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-// bf16 inputs: S and dP on the tensor cores; f32 inputs: every product on
-// the SIMT units
-template <typename T>
-constexpr bool kTensorCores = std::is_same_v<T, __nv_bfloat16>;
-
 // a shared tile's row: D elements of the input type and 16 bytes of
-// padding (rows 16-byte aligned for ldmatrix and float4)
+// padding (rows 16-byte aligned for float4)
 template <typename T, int D>
 constexpr int kLD = D + 16 / int(sizeof(T));
 
@@ -130,27 +104,12 @@ template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as .to() does
-}
 
-// four and one f32 values of a shared tile (bf16 widened exactly)
+// four and one values of a shared tile
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ float ld1(const float* p) { return *p; }
-__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 // dst[r][d] = src[row0 + r][d] for r < rows, zero past `limit`, in the
 // input type. Where src and its row stride are 16-byte aligned (the
@@ -234,62 +193,6 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
   return s;
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a b on the tensor cores: a 16 x 16 (row), b 16 x 8 (col), bf16
-// operands, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp: out[i][j] = sum_d a[i][d] b[j][d] for 16 rows i of the bf16
-// tile `a` and 16 rows j of the bf16 tile `b` (rows kLD apart), f32,
-// stored into `out` (rows ldo apart). The products of bf16 values are
-// exact; only the order of the f32 sum differs from the SIMT units'.
-template <int D>
-__device__ __forceinline__ void warp_product(float* out, int ldo,
-                                             const __nv_bfloat16* a,
-                                             const __nv_bfloat16* b) {
-  constexpr int LD = kLD<__nv_bfloat16, D>;
-  const int lane = threadIdx.x & 31;
-  // ldmatrix: lane l gives one row of one 8 x 8 matrix; for a (16 rows,
-  // d k0..k0 + 15) the fragments a0..a3, for b two 8-column n-tiles'
-  const __nv_bfloat16* pa = a + (lane % 16) * LD + 8 * (lane / 16);
-  const __nv_bfloat16* pb =
-      b + ((lane % 8) + 8 * (lane / 16)) * LD + 8 * ((lane / 8) % 2);
-  float c[2][4] = {};
-#pragma unroll 4
-  for (int k0 = 0; k0 < D; k0 += 16) {
-    unsigned fa[4], fb[4];
-    ldmatrix_x4(fa, pa + k0);
-    ldmatrix_x4(fb, pb + k0);
-    mma_bf16(c[0], fa, fb[0], fb[1]);
-    mma_bf16(c[1], fa, fb[2], fb[3]);
-  }
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 2; ++n) {
-    *reinterpret_cast<float2*>(&out[g * ldo + 8 * n + 2 * t]) =
-        make_float2(c[n][0], c[n][1]);
-    *reinterpret_cast<float2*>(&out[(g + 8) * ldo + 8 * n + 2 * t]) =
-        make_float2(c[n][2], c[n][3]);
-  }
-}
-
 // the scaled, softcapped and masked score; t is tanh(s / cap) (0 without
 // a cap), for the softcap's derivative
 __device__ __forceinline__ float masked_score(float s, float scale, float cap,
@@ -349,48 +252,30 @@ __device__ __forceinline__ void rows_times_tile(float (&acc)[4][D / 16],
 }
 
 // (1) rows 4 ty + i against keys tx and tx + 16 of the tile: s = q . k,
-// dp = dO . v. bf16: eight warps' 16 x 16 blocks on the tensor cores
-// through ss and sdp; f32: in registers on the SIMT units
+// dp = dO . v, in registers on the SIMT units
 template <typename T, int D>
 __device__ __forceinline__ void row_scores(const T* sq, const T* sdo,
-                                           const T* sk, const T* sv,
-                                           float* ss, float* sdp, int tx,
+                                           const T* sk, const T* sv, int tx,
                                            int ty, float (&s)[4][2],
                                            float (&dp)[4][2]) {
   constexpr int LD = kLD<T, D>;
-  if constexpr (kTensorCores<T>) {
-    const int w = threadIdx.x >> 5;
-    const int r0 = 16 * (w / 2), c0 = 16 * (w % 2);
-    warp_product<D>(ss + r0 * kLS1 + c0, kLS1, sq + r0 * LD, sk + c0 * LD);
-    warp_product<D>(sdp + r0 * kLS1 + c0, kLS1, sdo + r0 * LD,
-                    sv + c0 * LD);
-    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[i][j] = ss[(4 * ty + i) * kLS1 + tx + 16 * j];
-        dp[i][j] = sdp[(4 * ty + i) * kLS1 + tx + 16 * j];
-      }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.0f;
+  for (int i = 0; i < 4; ++i)
+    s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.0f;
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      const float4 k0 = ld4(&sk[tx * LD + d]);
-      const float4 k1 = ld4(&sk[(tx + 16) * LD + d]);
-      const float4 v0 = ld4(&sv[tx * LD + d]);
-      const float4 v1 = ld4(&sv[(tx + 16) * LD + d]);
+  for (int d = 0; d < D; d += 4) {
+    const float4 k0 = ld4(&sk[tx * LD + d]);
+    const float4 k1 = ld4(&sk[(tx + 16) * LD + d]);
+    const float4 v0 = ld4(&sv[tx * LD + d]);
+    const float4 v1 = ld4(&sv[(tx + 16) * LD + d]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 qv = ld4(&sq[(4 * ty + i) * LD + d]);
-        const float4 dv = ld4(&sdo[(4 * ty + i) * LD + d]);
-        s[i][0] = dot4(qv, k0, s[i][0]);
-        s[i][1] = dot4(qv, k1, s[i][1]);
-        dp[i][0] = dot4(dv, v0, dp[i][0]);
-        dp[i][1] = dot4(dv, v1, dp[i][1]);
-      }
+    for (int i = 0; i < 4; ++i) {
+      const float4 qv = ld4(&sq[(4 * ty + i) * LD + d]);
+      const float4 dv = ld4(&sdo[(4 * ty + i) * LD + d]);
+      s[i][0] = dot4(qv, k0, s[i][0]);
+      s[i][1] = dot4(qv, k1, s[i][1]);
+      dp[i][0] = dot4(dv, v0, dp[i][0]);
+      dp[i][1] = dot4(dv, v1, dp[i][1]);
     }
   }
 }
@@ -399,45 +284,28 @@ __device__ __forceinline__ void row_scores(const T* sq, const T* sdo,
 // dp = v . dO, as row_scores
 template <typename T, int D>
 __device__ __forceinline__ void key_scores(const T* sk, const T* sv,
-                                           const T* sq, const T* sdo,
-                                           float* ss, float* sdp, int tx,
+                                           const T* sq, const T* sdo, int tx,
                                            int ty, float (&s)[2][4],
                                            float (&dp)[2][4]) {
   constexpr int LD = kLD<T, D>;
-  if constexpr (kTensorCores<T>) {
-    const int w = threadIdx.x >> 5;
-    const int r0 = 16 * (w / 4), c0 = 16 * (w % 4);
-    warp_product<D>(ss + r0 * kLS2 + c0, kLS2, sk + r0 * LD, sq + c0 * LD);
-    warp_product<D>(sdp + r0 * kLS2 + c0, kLS2, sv + r0 * LD,
-                    sdo + c0 * LD);
-    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = ss[(2 * ty + i) * kLS2 + tx + 16 * j];
-        dp[i][j] = sdp[(2 * ty + i) * kLS2 + tx + 16 * j];
-      }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      const float4 k0v = ld4(&sk[(2 * ty) * LD + d]);
-      const float4 k1v = ld4(&sk[(2 * ty + 1) * LD + d]);
-      const float4 v0v = ld4(&sv[(2 * ty) * LD + d]);
-      const float4 v1v = ld4(&sv[(2 * ty + 1) * LD + d]);
+  for (int d = 0; d < D; d += 4) {
+    const float4 k0v = ld4(&sk[(2 * ty) * LD + d]);
+    const float4 k1v = ld4(&sk[(2 * ty + 1) * LD + d]);
+    const float4 v0v = ld4(&sv[(2 * ty) * LD + d]);
+    const float4 v1v = ld4(&sv[(2 * ty + 1) * LD + d]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 qv = ld4(&sq[(tx + 16 * j) * LD + d]);
-        const float4 dov = ld4(&sdo[(tx + 16 * j) * LD + d]);
-        s[0][j] = dot4(qv, k0v, s[0][j]);
-        s[1][j] = dot4(qv, k1v, s[1][j]);
-        dp[0][j] = dot4(dov, v0v, dp[0][j]);
-        dp[1][j] = dot4(dov, v1v, dp[1][j]);
-      }
+    for (int j = 0; j < 4; ++j) {
+      const float4 qv = ld4(&sq[(tx + 16 * j) * LD + d]);
+      const float4 dov = ld4(&sdo[(tx + 16 * j) * LD + d]);
+      s[0][j] = dot4(qv, k0v, s[0][j]);
+      s[1][j] = dot4(qv, k1v, s[1][j]);
+      dp[0][j] = dot4(dov, v0v, dp[0][j]);
+      dp[1][j] = dot4(dov, v1v, dp[1][j]);
     }
   }
 }
@@ -461,10 +329,7 @@ __global__ void __launch_bounds__(kThreads)
   T* sdo = sq + kBQ * LD;               // kBQ x LD
   T* sk = sdo + kBQ * LD;               // kBK x LD
   T* sv = sk + kBK * LD;                // kBK x LD
-  float* ss = reinterpret_cast<float*>(sv + kBK * LD);  // kBQ x kLS1, S
-  float* sdp = ss + kBQ * kLS1;                          // kBQ x kLS1, dP
-  // kBK x kLP, dS transposed (S and dP stay in registers on the SIMT route)
-  float* sds = kTensorCores<T> ? sdp + kBQ * kLS1 : ss;
+  float* sds = reinterpret_cast<float*>(sv + kBK * LD);  // kBK x kLP, dS^T
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // long rows first
   const int bh = blockIdx.y;
@@ -496,7 +361,7 @@ __global__ void __launch_bounds__(kThreads)
     load_tile<T, D>(sv, vb, vs.s, k0, kBK, Sk);
     __syncthreads();
     float s[4][2], dp[4][2];
-    row_scores<T, D>(sq, sdo, sk, sv, ss, sdp, tx, ty, s, dp);
+    row_scores<T, D>(sq, sdo, sk, sv, tx, ty, s, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qp = q0 + 4 * ty + i;
@@ -541,7 +406,7 @@ __global__ void __launch_bounds__(kThreads)
     load_tile<T, D>(sv, vb, vs.s, k0, kBK, Sk);
     __syncthreads();
     float s[4][2], dp[4][2];
-    row_scores<T, D>(sq, sdo, sk, sv, ss, sdp, tx, ty, s, dp);
+    row_scores<T, D>(sq, sdo, sk, sv, tx, ty, s, dp);
     float ds[4][2];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -597,8 +462,6 @@ __global__ void __launch_bounds__(kThreads)
   T* sdo = sq + kBQ * LD;               // kBQ x LD
   float* sp = reinterpret_cast<float*>(sdo + kBQ * LD);  // kBQ x kLT, P
   float* sds = sp + kBQ * kLT;                           // kBQ x kLT, dS
-  float* ss = sds + kBQ * kLT;    // kBK x kLS2, S^T (tensor cores only)
-  float* sdp = ss + kBK * kLS2;   // kBK x kLS2, dP^T
 
   const int k0 = blockIdx.x * kBK;  // under causal the first keys are read most
   const int b = blockIdx.y / K, kh = blockIdx.y % K;
@@ -643,7 +506,7 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
 
       float s[2][4], dp[2][4];
-      key_scores<T, D>(sk, sv, sq, sdo, ss, sdp, tx, ty, s, dp);
+      key_scores<T, D>(sk, sv, sq, sdo, tx, ty, s, dp);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qp = q0 + tx + 16 * j;
@@ -716,19 +579,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // shared memory: the four tiles in the input type, then the f32 scratch
-// (S and dP from the tensor cores where they run; dS, and P in (2))
+// (dS, and P in (2))
 template <typename T, int D>
 constexpr int dq_smem_bytes() {
   return int((2 * kBQ + 2 * kBK) * kLD<T, D> * sizeof(T) +
-             ((kTensorCores<T> ? 2 * kBQ * kLS1 : 0) + kBK * kLP) *
-                 sizeof(float));
+             kBK * kLP * sizeof(float));
 }
 
 template <typename T, int D>
 constexpr int dkdv_smem_bytes() {
   return int((2 * kBK + 2 * kBQ) * kLD<T, D> * sizeof(T) +
-             ((kTensorCores<T> ? 2 * kBK * kLS2 : 0) + 2 * kBQ * kLT) *
-                 sizeof(float));
+             2 * kBQ * kLT * sizeof(float));
 }
 
 struct Args {
@@ -783,8 +644,7 @@ cudaError_t launch_d(int D, const Args& a, cudaStream_t stream) {
   }
 }
 
-// The C entry of one input type (flash_attention_bwd_bf16.cu and
-// flash_attention_bwd_f32.cu, compiled apart and in parallel): strides
+// The C entry of flash_attention_bwd_f32.cu: strides
 // (b, h, s) in elements for q, k, v, dout, dq, dk, dv in that order;
 // stats 3 B H Sq floats of scratch (m, l, D); window 0 and prefix 0 mean
 // none (a window or a prefix needs Sq == Sk); cap <= 0 means no softcap.

@@ -1,6 +1,6 @@
 // The attention gradient's kernel (flash_attention_bwd.h) for float32
-// inputs: every product on the SIMT units. A source of its own, so that
-// nvcc builds the two input types in parallel.
+// inputs: every product on the SIMT units. bfloat16 inputs take
+// flash_attention_bwd_bf16.cu.
 
 #include "flash_attention_bwd.h"
 

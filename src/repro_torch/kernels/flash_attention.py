@@ -20,10 +20,14 @@ what XLA differentiates in the reference (its einsum attention, or the
   version, CUDA tensors the kernel; anything else raises;
 * `attention_backward_plain`: the gradient in plain f32 torch, with a
   few (B, H, Sq, Sk) tensors at once, on any device;
-* `attention_backward_cuda`: the gradient as a hand-written kernel,
-  `csrc/flash_attention_bwd.h`, for both types: the scores recomputed
-  tile by tile (S and dP on the tensor cores for bfloat16), P and dS in
-  f32, no (Sq, Sk) tensor, no atomics;
+* `attention_backward_cuda`: the gradient as a hand-written kernel, the
+  scores recomputed tile by tile, no (Sq, Sk) tensor, no atomics.
+  bfloat16 goes to `csrc/flash_attention_bwd_bf16.cu`: every product on
+  Hopper's tensor cores (`wgmma`), P and dS as bf16 hi/lo pairs (dS as
+  a triple for dq), tiles fed by TMA, producer and consumer warpgroups.
+  float32 goes to `csrc/flash_attention_bwd.h` (built as
+  `flash_attention_bwd_f32.cu`): f32 products on the SIMT units, P and dS
+  in f32, which hold the f32 tolerance;
 * `attention_backward`: the routed gradient, one operator as the
   forward is: the plain version for CPU tensors, the kernel for CUDA
   ones;
@@ -442,18 +446,67 @@ def attention_backward_plain(q, k, v, dout, causal=True, softcap=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-#: the backward kernel's source of each input type, both built from
-#: `csrc/flash_attention_bwd.h`
+#: the backward kernel's source of each input type: the tensor-core
+#: kernel for bfloat16, `csrc/flash_attention_bwd.h` for float32
 _BWD_SOURCE = {torch.float32: "flash_attention_bwd_f32",
                torch.bfloat16: "flash_attention_bwd_bf16"}
+
+#: rows of the tensor-core backward's (B H, Sq) lse and D buffer are
+#: padded to this, so each 64-row tile's entries are one aligned copy
+BWD_STAT_ROWS = 64
+
+#: dynamic shared memory of the tensor-core backward's two launches by
+#: head dim, the larger of `dq_smem_bytes<D>()` (the 64-row Q and dO
+#: tiles, 4 stages of K and V, 32 keys a tile at D 256 and 64 below, the
+#: rows' statistics of both consumers, 9 mbarriers) and
+#: `dkdv_smem_bytes<D>()` (K, V and 2 stages of Q and dO, 64 rows each,
+#: 2 x 64 (lse, D) pairs, the 64 x 64 f32 hand-over, 5 mbarriers) in
+#: csrc/flash_attention_bwd_bf16.cu, each with 1024 bytes to align
+BWD_SM90_SMEM_BYTES = {D: max(
+    (128 + 8 * (32 if D == 256 else 64)) * _tile_dim(D) * 2 + 6144 + 1096,
+    6 * 64 * _tile_dim(D) * 2 + 2 * 64 * 8 + 64 * 64 * 4 + 1064)
+    for D in KERNEL_HEAD_DIMS}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def splits_heads(B, H, K, Sk, device) -> bool:
+    """Whether the tensor-core backward gives each query head its own
+    dk/dv block. One a kv head gives B K Sk/64 blocks, each summing its
+    group's heads in order; where that is less than one wave (fewer
+    blocks than multiprocessors) and the group has heads to split
+    (gemma2-2b's training microbatch: 128 blocks on 132 SMs, the longest
+    under causal twice the mean), each head takes a block and a third
+    launch sums their (2, H/K, B K, Sk, D) f32 partials, heads in order.
+    On an H100 the split took 0.58 of the unsplit time at 128 blocks and
+    1.07 and 1.08 of it at 256 and 1024 (`chip_smoke.py` phase 25 (a),
+    `bwd_route_times`). The choice depends on the shapes and the card
+    alone, so two calls give the same bits."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return H > K and B * K * -(-Sk // 64) < _sm_count(index)
+
+
+def _tma_ready(x):
+    """x if the TMA unit can read it (16-byte aligned, (b, h, s) strides
+    multiples of 8 elements), else a dense copy of it in a fresh
+    allocation: the same values for the same kernel."""
+    if x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in _bhs_strides(x)):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 @functools.lru_cache(maxsize=None)
 def _backward_library(name):
-    """The C entry `<name>_launch` of `csrc/<name>.cu`."""
+    """The C entry `<name>_launch` of `csrc/<name>.cu`; the bfloat16 one
+    takes a pointer more (the per-head partials of `splits_heads`)."""
     fn = getattr(build.load(name), f"{name}_launch")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([i] + [p] * 8 + [i] * 6
+    pointers = 9 if name == _BWD_SOURCE[torch.bfloat16] else 8
+    fn.argtypes = ([i] + [p] * pointers + [i] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), i, i, i, f, f, p])
     fn.restype = i
     return fn
@@ -461,12 +514,16 @@ def _backward_library(name):
 
 def attention_backward_cuda(q, k, v, dout, causal=True, softcap=None,
                             window=None, prefix_len=0):
-    """Launch `csrc/flash_attention_bwd.h` on the current stream: (dq,
-    dk, dv) in q's type (float32 or bfloat16; P, dS and the sums in f32)
-    and its inputs' layouts. q, k, v may be the model's strided views (D
-    contiguous); dout is made D-contiguous if it is not. A (3, B H Sq) f32
-    buffer holds each row's max, sum and D between the kernel's two
-    launches. No fallback: a build or launch error raises."""
+    """Launch the backward kernel of q's type on the current stream (see
+    `_BWD_SOURCE`): (dq, dk, dv) in q's type and its inputs' layouts. q,
+    k, v may be the model's strided views (D contiguous); dout is made
+    D-contiguous if it is not. Between the kernel's two launches an f32
+    buffer holds each row's statistics: for bfloat16 its lse and D, (B H,
+    Sq rounded up to BWD_STAT_ROWS) pairs; for float32 its max, sum and D,
+    (3, B H Sq). The bfloat16 kernel's tiles come by TMA: an input it
+    cannot read that way (`_tma_ready`) is copied first; where its dk/dv
+    blocks would be too few, each query head gets its own
+    (`splits_heads`). No fallback: a build or launch error raises."""
     global launches_backward
     _check_cuda(q, k, v, causal, softcap, window, prefix_len, tma=False)
     if dout.shape != q.shape or dout.dtype != q.dtype or \
@@ -482,8 +539,19 @@ def attention_backward_cuda(q, k, v, dout, causal=True, softcap=None,
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    stats = torch.empty((3, B * H * Sq), dtype=torch.float32,
-                        device=q.device)
+    pointers = []
+    if q.dtype == torch.bfloat16:
+        q, k, v, dout = (_tma_ready(x) for x in (q, k, v, dout))
+        rows = -(-Sq // BWD_STAT_ROWS) * BWD_STAT_ROWS
+        stats = torch.empty((B * H * rows, 2), dtype=torch.float32,
+                            device=q.device)
+        part = torch.empty((2, H // K, B * K, Sk, D), dtype=torch.float32,
+                           device=q.device) \
+            if splits_heads(B, H, K, Sk, q.device) else None
+        pointers = [None if part is None else part.data_ptr()]
+    else:
+        stats = torch.empty((3, B * H * Sq), dtype=torch.float32,
+                            device=q.device)
     strides = (ctypes.c_longlong * 21)(*[
         s for x in (q, k, v, dout, dq, dk, dv) for s in _bhs_strides(x)])
     dev = q.device
@@ -492,7 +560,8 @@ def attention_backward_cuda(q, k, v, dout, causal=True, softcap=None,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats.data_ptr(), B, H, K, Sq, Sk, D, strides, int(bool(causal)),
+        stats.data_ptr(), *pointers, B, H, K, Sq, Sk, D, strides,
+        int(bool(causal)),
         kernel_window(Sk, window), int(prefix_len), D ** -0.5,
         0.0 if softcap is None else float(softcap),
         torch.cuda.current_stream(dev).cuda_stream)

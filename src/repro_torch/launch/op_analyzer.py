@@ -74,11 +74,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 FLASH_OP = "repro_torch.flash_attention.default"
 FLASH_BWD_OP = "repro_torch.flash_attention_backward.default"
-#: the backward kernel's products a (query, key) pair
-#: (`csrc/flash_attention_bwd.h`): the scores three times and dP three
-#: times (two passes over the keys for dq, one over the queries for dk
-#: and dv), then dV, dK and dQ once each
-BWD_PRODUCTS = 9
+#: the backward kernel's products a (query, key) pair on its bf16 route
+#: (`csrc/flash_attention_bwd_bf16.cu`, the training path's): the scores
+#: three times and dP three times (two passes over the keys for dq, one
+#: over the queries for dk and dv), then dV and dK twice each (P and dS
+#: as bf16 hi/lo pairs) and dQ three times (dS as a bf16 triple); the f32
+#: route (`csrc/flash_attention_bwd.h`) does those three once each, nine
+BWD_PRODUCTS = 13
 
 #: ops that return a view or alias of an operand without a schema
 #: annotation, or move no data

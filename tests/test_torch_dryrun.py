@@ -193,7 +193,7 @@ def test_flash_attention_backward_is_one_entry(mask):
         assert s["op_counts"] == {FLASH_OP: 1, FLASH_BWD_OP: 1}, \
             s["op_counts"]
         assert s["flash_attention_backward_entries"] == 1
-        assert BWD_PRODUCTS == 9
+        assert BWD_PRODUCTS == 13
         assert s["dot_flops"] == (4 + 2 * BWD_PRODUCTS) * B * H * D * pairs
         assert s["hbm_bytes"] == 4 * S * D * (
             (2 * B * H + 2 * B * K) + (3 * B * H + 4 * B * K))

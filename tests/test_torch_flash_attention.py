@@ -15,11 +15,16 @@ probabilities to bf16 before the product with V. `tensor_core_emulation`
 repeats that arithmetic on the CPU (test-only), so the rounding is held
 against the reference here, where the kernel cannot run.
 
-The gradient's kernel (`csrc/flash_attention_bwd.h`) skips the tiles the
-mask removes and forms each row's max, sum and D in a pass of its own:
-`backward_kernel_emulation` repeats its schedule on the CPU against
-`attention_backward_plain` (f32, 2e-5 of each gradient's max), and the
-`cuda`-marked test holds the kernel against the plain version on a card.
+The gradient's kernels skip the tiles the mask removes and form each
+row's statistics in a pass of their own. `backward_kernel_emulation`
+repeats the f32 route's schedule (`csrc/flash_attention_bwd.h`) on the
+CPU against `attention_backward_plain` (f32, 2e-5 of each gradient's
+max); `backward_tensor_core_emulation` repeats the bf16 route's
+(`csrc/flash_attention_bwd_bf16.cu`: bf16 products with f32 sums, P and
+dS as bf16 hi/lo pairs or triples, its tiles and tile ranges) against the plain version
+within the card's bf16 criteria and against `jax.grad` of the
+reference's `_attend`. The `cuda`-marked tests hold the kernels against
+the plain version on a card.
 """
 import importlib
 
@@ -31,6 +36,7 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_oracle
+from repro.models import attention as RA
 
 from repro_torch.kernels import ops
 
@@ -432,6 +438,212 @@ def test_backward_kernel_schedule_matches_plain(case):
         assert float((g - w).abs().max()) <= 2e-5 * scale
 
 
+def backward_tensor_core_emulation(q, k, v, dout, causal=True,
+                                   softcap=None, window=None, prefix_len=0):
+    """The schedule and arithmetic of `csrc/flash_attention_bwd_bf16.cu`
+    in float32 torch (test-only), on bf16 inputs. Products take bf16
+    values and sum in f32; scores are in log2 units.
+    (1) per 64-row block over the key tiles of its range (32 keys a tile
+    at D 256, else 64), taken in turn by two consumers: a pass for each
+    row's lse = m + log2 l and D = sum exp2(x - m) dP / l (online, each
+    consumer's partial sums merged, the first's first), then dS =
+    P (dP - D) (1 - t^2) scale with P = exp2(x - lse) on the allowed pairs
+    and dq += dS K, each consumer's sum, then the first's plus the
+    second's.
+    (2) per 64-key block, the group's query heads in order and each
+    one's 64-row query tiles in the mask's range: dV += P^T dO; dS^T =
+    P (1 - t^2) scale in f32 times (dP^T - D), dK += dS^T Q.
+    P and dS enter dV and dK as bf16 hi/lo pairs, hi + lo (two products
+    each), dS enters dQ as a bf16 triple (three). Tiles outside those ranges are never visited,
+    so a wrong range loses gradient here."""
+    B, H, K, Sq, Sk, D = fa._check(q, k, v, causal, window, prefix_len)
+    G, scale, log2e = H // K, D ** -0.5, 1.4426950408889634
+    bf = torch.bfloat16
+    win = fa.kernel_window(Sk, window)
+    bn = 32 if D > 128 else 64
+    qf, kf, vf, df = (x.to(bf).float() for x in (q, k, v, dout))
+    allowed = fa.allowed_mask(Sq, Sk, causal, window, prefix_len)
+    if allowed is None:
+        allowed = torch.ones(Sq, Sk, dtype=torch.bool)
+    rnd = lambda x: x.to(bf).float()
+    hilo = lambda x: (rnd(x), rnd(x - rnd(x)))
+    triple = lambda x: (rnd(x), rnd(x - rnd(x)),
+                        rnd(x - rnd(x) - rnd(x - rnd(x))))
+
+    def scores(qt, kt, rows, keys):
+        """x (log2 units), t and the allowed pairs of rows x keys."""
+        s = torch.einsum("bhsd,bhtd->bhst", qt, kt)
+        t = torch.zeros_like(s)
+        if softcap is not None:
+            t = torch.tanh(s * (scale / softcap))
+            x = softcap * log2e * t
+        else:
+            x = s * (scale * log2e)
+        return x, t, allowed[rows][:, keys]
+
+    def key_range(r0, rows):
+        """The forward's key tiles of rows r0 .. r0 + rows - 1."""
+        end = min(Sk, max(r0 + rows, prefix_len if r0 < prefix_len else 0)) \
+            if causal else Sk
+        begin = max(0, r0 - win + 1) if win else 0
+        return range(begin // bn * bn, end, bn)
+
+    kv_heads = torch.arange(H) // G
+    lse = torch.zeros(B, H, Sq)
+    drow = torch.zeros(B, H, Sq)
+    dq = torch.zeros(B, H, Sq, D)
+    for q0 in range(0, Sq, 64):
+        rows = slice(q0, min(q0 + 64, Sq))
+        n = rows.stop - q0
+        tiles = list(key_range(q0, 64))
+
+        def tile_scores(k0):
+            keys = slice(k0, min(k0 + bn, Sk))
+            x, t, ok = scores(qf[:, :, rows], kf[:, kv_heads, keys], rows,
+                              keys)
+            dp = torch.einsum("bhsd,bhtd->bhst", df[:, :, rows],
+                              vf[:, kv_heads, keys])
+            return keys, x, t, ok, dp
+
+        parts = []
+        for wg in (0, 1):  # each consumer's tiles, then merged
+            m = torch.full((B, H, n, 1), -1e30)
+            l, dd = torch.zeros_like(m), torch.zeros_like(m)
+            for k0 in tiles[wg::2]:
+                _, x, _, ok, dp = tile_scores(k0)
+                x = torch.where(ok, x, torch.tensor(-1e30))
+                m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+                alpha, e = torch.exp2(m - m_new), torch.exp2(x - m_new)
+                l = alpha * l + e.sum(-1, keepdim=True)
+                dd = alpha * dd + (e * dp).sum(-1, keepdim=True)
+                m = m_new
+            parts.append((m, l, dd))
+        (m0, l0, d0), (m1, l1, d1) = parts
+        mm = torch.maximum(m0, m1)
+        a0, a1 = torch.exp2(m0 - mm), torch.exp2(m1 - mm)
+        ll, dsum = l0 * a0 + l1 * a1, d0 * a0 + d1 * a1
+        lse[:, :, rows] = (mm + torch.log2(ll))[..., 0]
+        drow[:, :, rows] = (dsum / ll)[..., 0]
+        acc = [torch.zeros(B, H, n, D), torch.zeros(B, H, n, D)]
+        for i, k0 in enumerate(tiles):  # pass 2: tile u = n + i, (u % 2)'s
+            keys, x, t, ok, dp = tile_scores(k0)
+            p = torch.where(ok, torch.exp2(x - lse[:, :, rows, None]), 0.0)
+            ds = p * (dp - drow[:, :, rows, None]) * (1.0 - t * t) * scale
+            for part in triple(ds):
+                acc[(len(tiles) + i) % 2] += torch.einsum(
+                    "bhst,bhtd->bhsd", part, kf[:, kv_heads, keys])
+        dq[:, :, rows] = acc[0] + acc[1]
+    dk, dv = torch.zeros(B, K, Sk, D), torch.zeros(B, K, Sk, D)
+    for k0 in range(0, Sk, 64):
+        keys = slice(k0, min(k0 + 64, Sk))
+        begin = k0 if causal and k0 >= prefix_len else 0
+        end = min(Sq, k0 + 63 + win) if win else Sq
+        for g in range(G):
+            heads = torch.arange(K) * G + g
+            for q0 in range(begin, end, 64):
+                rows = slice(q0, min(q0 + 64, Sq))
+                x, t, ok = scores(qf[:, heads, rows], kf[:, :, keys], rows,
+                                  keys)
+                dp = torch.einsum("bhsd,bhtd->bhst", df[:, heads, rows],
+                                  vf[:, :, keys])
+                p = torch.where(ok, torch.exp2(
+                    x - lse[:, heads, rows, None]), 0.0)
+                f = p * (1.0 - t * t) * scale
+                ds = f * (dp - drow[:, heads, rows, None])
+                for part in hilo(p):
+                    dv[:, :, keys] += torch.einsum("bhst,bhsd->bhtd", part,
+                                                   df[:, heads, rows])
+                for part in hilo(ds):
+                    dk[:, :, keys] += torch.einsum("bhst,bhsd->bhtd", part,
+                                                   qf[:, heads, rows])
+    return dq.to(bf), dk.to(bf), dv.to(bf)
+
+
+def bf16_close(got, want):
+    """The card's bf16 criteria for a gradient: mean |err| within MEAN_REL
+    of mean |want|, max |err| within MAX_REL of max |want|."""
+    err, size = (got.float() - want.float()).abs(), want.float().abs()
+    assert float(err.mean()) <= MEAN_REL * float(size.mean())
+    assert float(err.max()) <= MAX_REL * float(size.max())
+
+
+def bwd_inputs(B, H, K, S, D, seed, q_scale):
+    """bf16 q, k, v and dout from numpy draws (dout's from seed + 1)."""
+    _, (q, k, v) = qkv(B, H, K, S, D, seed=seed, dtype="bfloat16")
+    dout = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (B, H, S, D)).astype(np.float32)).to(torch.bfloat16)
+    return q * q_scale, k, v, dout
+
+
+# BWD_CASES at the kernels' smallest head dim, and gemma2's attention with
+# hot scores: D 256, 8 query heads over 4 kv heads, softcap 50, q scaled
+# by HOT_SCALE (the scores pass the cap)
+TC_BWD_CASES = [c + (64, 4.0) for c in BWD_CASES] + [
+    (1, 8, 4, 160, True, None, 0, 50.0, 256, HOT_SCALE),
+    (1, 8, 4, 160, True, 100, 0, 30.0, 256, 1.0)]
+
+
+@pytest.mark.parametrize("case", TC_BWD_CASES, ids=str)
+def test_backward_tensor_core_emulation_matches_plain(case):
+    """The bf16 route's schedule and arithmetic
+    (`backward_tensor_core_emulation`) against `attention_backward_plain`
+    on the same bf16 inputs, within the bf16 criteria chip_smoke.py holds
+    the kernel to (MEAN_REL, MAX_REL), on masks whose ranges cut tiles."""
+    B, H, K, S, causal, window, prefix, cap, D, q_scale = case
+    q, k, v, dout = bwd_inputs(B, H, K, S, D, S + H + D, q_scale)
+    mask = dict(causal=causal, softcap=cap, window=window, prefix_len=prefix)
+    got = backward_tensor_core_emulation(q, k, v, dout, **mask)
+    want = fa.attention_backward_plain(q, k, v, dout, **mask)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        bf16_close(g, w)
+
+
+# (H, K, S, D, causal, window, prefix, softcap): the reference's einsum
+# attention on bf16 inputs, every mask kind
+REF_BWD_CASES = [
+    (8, 4, 96, 256, True, None, 0, 50.0),
+    (4, 2, 100, 64, True, 33, 0, None),
+    (4, 1, 80, 128, True, None, 20, 30.0),
+    (4, 2, 70, 64, False, 40, 0, None),
+]
+# the reference rounds its scores to bf16 before the softmax (its bf16
+# einsum's output), so its gradient is off the f32 one by more than the
+# kernel's: mean |err| within 2^-7 of mean |want|, max within 2^-5 of
+# the max (the kernel against the plain version: 2^-8 and 2^-6)
+REF_MEAN_REL, REF_MAX_REL = 2.0 ** -7, 2.0 ** -5
+
+
+@pytest.mark.parametrize("case", REF_BWD_CASES, ids=str)
+def test_backward_tensor_core_emulation_matches_jax_grad(case):
+    """The bf16 route's arithmetic against `jax.grad` of the reference's
+    `_mask_bias` + `_attend` (src/repro/models/attention.py) on the same
+    bf16 values, (B, S, heads, D) on the reference's side."""
+    H, K, S, D, causal, window, prefix, cap = case
+    q, k, v, dout = bwd_inputs(1, H, K, S, D, S + D, 1.0)
+    spec = RA.MaskSpec(causal=causal, window=window, prefix_len=prefix)
+
+    def loss(qj, kj, vj):
+        pos = jnp.arange(S)[None]
+        out = RA._attend(qj, kj, vj, RA._mask_bias(pos, pos, spec), K,
+                         H // K, cap)
+        return jnp.sum(out.astype(jnp.float32) * to_jax(dout))
+
+    def to_jax(x):
+        return jnp.asarray(x.float().transpose(1, 2).numpy(), jnp.bfloat16)
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        *(to_jax(x) for x in (q, k, v)))
+    got = backward_tensor_core_emulation(q, k, v, dout, causal=causal,
+                                         softcap=cap, window=window,
+                                         prefix_len=prefix)
+    for g, w in zip(got, want):
+        w = torch.from_numpy(np.asarray(w, np.float32)).transpose(1, 2)
+        err, size = (g.float() - w).abs(), w.abs()
+        assert float(err.mean()) <= REF_MEAN_REL * float(size.mean())
+        assert float(err.max()) <= REF_MAX_REL * float(size.max())
+
+
 def test_backward_routes_by_device():
     """CPU tensors take the plain version (the same bits as calling it),
     one operator a call; the CUDA entry raises on CPU tensors, and a
@@ -503,9 +715,11 @@ def test_cuda_backward_matches_plain_on_card(dtype, shape, causal, window,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_backward_unaligned_inputs_on_card(dtype):
-    """Inputs whose storage starts one element past an allocation take
-    the kernel's element-by-element tile loads: the same bits as the
-    same values aligned."""
+    """Inputs whose storage starts one element past an allocation: the
+    f32 kernel takes them with its element-by-element tile loads; the
+    bf16 wrapper copies them to fresh dense tensors first (`_tma_ready`:
+    the TMA unit needs 16-byte aligned tiles) and launches the same
+    kernel. Either way, the same bits as the same values aligned."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     _, tx = qkv(1, 8, 2, 200, 128, seed=11, dtype=dtype)
